@@ -7,7 +7,10 @@ setup(
     "(VAD cut&merge, batched Whisper beam decode, wav2vec2 CTC forced "
     "alignment, speaker diarization) on JAX/XLA/Pallas",
     python_requires=">=3.10",
+    # whisperx_tpu (JAX) and whisperx_tpu_torch (its PyTorch/CUDA port,
+    # which needs torch and, for its kernels, nvcc; not listed below).
     packages=find_packages(exclude=["tests*", "benchmarks*"]),
+    package_data={"whisperx_tpu_torch": ["csrc/*.cu"]},
     install_requires=[
         "jax",
         "flax",

@@ -23,6 +23,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (whisperx_tpu_torch's CUDA kernels); skips without one"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,166 @@
+"""whisperx_tpu_torch: the copied framework-free modules, the host-side
+parameter transforms and the package's import and device rules, held against
+the JAX package."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from whisperx_tpu.audio import constants as j_constants
+from whisperx_tpu.decode.engine import WhisperEngine as JEngine
+from whisperx_tpu.decode.search import _first_step_mask as j_first_mask
+from whisperx_tpu.decode.search import _static_suppress_mask as j_suppress_mask
+from whisperx_tpu.decode.tokenizer import WhisperTokenizer as JTokenizer
+from whisperx_tpu.io import languages as j_languages
+from whisperx_tpu.models import configs as j_configs
+from whisperx_tpu.models.whisper import fuse_qkv_params as j_fuse
+from whisperx_tpu.models.whisper import init_whisper_params
+from whisperx_tpu.models.whisper import quantize_params as j_quantize
+from whisperx_tpu_torch.audio import constants as t_constants
+from whisperx_tpu_torch.decode.search import _first_step_mask as t_first_mask
+from whisperx_tpu_torch.decode.search import _static_suppress_mask as t_suppress_mask
+from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer as TTokenizer
+from whisperx_tpu_torch.io import languages as t_languages
+from whisperx_tpu_torch.models import configs as t_configs
+from whisperx_tpu_torch.models import whisper as tw
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = dataclasses.replace(
+    t_configs.TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2
+)
+
+
+def _public(mod):
+    return {k: v for k, v in vars(mod).items() if k.isupper()}
+
+
+def test_constants_and_languages_equal():
+    assert _public(t_constants) == _public(j_constants)
+    assert t_languages.LANGUAGES == j_languages.LANGUAGES
+    assert t_languages.LANGUAGE_CODES == j_languages.LANGUAGE_CODES
+    assert t_languages.TO_LANGUAGE_CODE == j_languages.TO_LANGUAGE_CODE
+    assert t_languages.LANGUAGES_WITHOUT_SPACES == j_languages.LANGUAGES_WITHOUT_SPACES
+
+
+def test_configs_equal():
+    assert set(t_configs.WHISPER_CONFIGS) == set(j_configs.WHISPER_CONFIGS)
+    for name, cfg in t_configs.WHISPER_CONFIGS.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(j_configs.WHISPER_CONFIGS[name]), name
+    assert dataclasses.asdict(t_configs.TEST_CONFIG) == dataclasses.asdict(j_configs.TEST_CONFIG)
+    for name in ("WAV2VEC2_BASE", "WAV2VEC2_LARGE", "WAV2VEC2_TEST"):
+        assert dataclasses.asdict(getattr(t_configs, name)) == dataclasses.asdict(getattr(j_configs, name))
+
+
+@pytest.mark.parametrize("n_vocab", [51864, 51865, 51866])
+@pytest.mark.parametrize("language,task", [("en", "transcribe"), ("fr", "translate")])
+def test_tokenizer_layout_and_masks_equal(n_vocab, language, task):
+    jt = JTokenizer.dummy(n_vocab, language=language, task=task)
+    tt = TTokenizer.dummy(n_vocab, language=language, task=task)
+    assert dataclasses.asdict(tt.layout) == dataclasses.asdict(jt.layout)
+    assert tt.sot_sequence() == jt.sot_sequence()
+    assert tt.sot_sequence(without_timestamps=False) == jt.sot_sequence(without_timestamps=False)
+    assert tt.non_speech_tokens == jt.non_speech_tokens
+    assert tt.encode(" hello") == jt.encode(" hello")
+    assert tt.decode([104, 105, jt.eot]) == jt.decode([104, 105, jt.eot])
+
+
+def _engines(cfg):
+    from whisperx_tpu_torch.decode.engine import WhisperEngine as TEngine
+
+    from whisperx_tpu.models.whisper import Whisper as JWhisper
+
+    return (
+        JEngine(JWhisper(cfg), JTokenizer.dummy(cfg.n_vocab, language="en")),
+        TEngine(tw.Whisper(cfg, device="cpu"), TTokenizer.dummy(cfg.n_vocab, language="en")),
+    )
+
+
+def test_engine_options_prompts_and_masks_equal():
+    je, te = _engines(t_configs.TEST_CONFIG)
+    for kw in (
+        {},
+        dict(beam_size=5, max_new_tokens=112, kv_cache_dtype="int8"),
+        dict(beam_size=1, suppress_tokens=(-1, 7, 300), without_timestamps=False, suppress_blank=False),
+    ):
+        jo, to = je.build_options(**kw), te.build_options(**kw)
+        assert dataclasses.asdict(to) == dataclasses.asdict(jo)
+        V = t_configs.TEST_CONFIG.n_vocab
+        np.testing.assert_array_equal(t_suppress_mask(V, to), j_suppress_mask(V, jo))
+        np.testing.assert_array_equal(t_first_mask(V, to), j_first_mask(V, jo))
+    long_text = "words " * 400
+    for kw in ({}, dict(initial_prompt=long_text), dict(prefix_tokens=te.prefix_tokens(long_text))):
+        np.testing.assert_array_equal(te.build_prompt(3, **kw).numpy(), np.asarray(je.build_prompt(3, **kw)))
+    assert te.prefix_tokens(long_text) == je.prefix_tokens(long_text)
+    opts = te.build_options(max_new_tokens=112)
+    for P in (1, 4, 16, 300):
+        assert te._cache_len(P, opts) == je._cache_len(P, opts)
+
+
+def test_random_params_equal_jax_init():
+    _, jparams = init_whisper_params(SMALL, seed=3)
+    tparams = tw.random_params(SMALL, seed=3)
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat) == sum(1 for _ in _leaves(tparams))
+    for path, leaf in flat:
+        node = tparams
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf), err_msg=jax.tree_util.keystr(path))
+
+
+def _leaves(tree):
+    for child in tree.values():
+        if isinstance(child, dict):
+            yield from _leaves(child)
+        else:
+            yield child
+
+
+@pytest.mark.parametrize("scope", ["all", "decoder"])
+def test_quantize_and_fuse_params_equal(scope):
+    tparams = tw.random_params(SMALL, seed=1)
+    want = j_fuse(j_quantize(jax.tree_util.tree_map(np.asarray, tparams), scope=scope))
+    got = tw.fuse_qkv_params(tw.quantize_params(tparams, scope=scope))
+    wflat = jax.tree_util.tree_flatten_with_path(want)[0]
+    gflat = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in wflat] == [p for p, _ in gflat]
+    for (path, w), (_, g) in zip(wflat, gflat):
+        assert np.asarray(g).dtype == np.asarray(w).dtype, jax.tree_util.keystr(path)
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=jax.tree_util.keystr(path))
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'whisperx_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import whisperx_tpu_torch\n"
+        "import whisperx_tpu_torch.audio, whisperx_tpu_torch.models.convert\n"
+        "import whisperx_tpu_torch.decode.engine, whisperx_tpu_torch.ops._build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'whisperx_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
+    from whisperx_tpu_torch import resolve_device
+    from whisperx_tpu_torch.audio import log_mel_spectrogram
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tw.Whisper(t_configs.TEST_CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        log_mel_spectrogram(np.zeros(1600, np.float32))
+    assert resolve_device("cpu").type == "cpu"
+    assert log_mel_spectrogram(np.zeros(1600, np.float32), device="cpu").shape == (80, 10)

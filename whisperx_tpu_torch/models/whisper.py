@@ -1,0 +1,693 @@
+"""Whisper encoder-decoder as ``nn.Module``s.
+
+Port of ``whisperx_tpu/models/whisper.py``. Parameter names follow the JAX
+package's tree (``kernel``, ``kernel_scale``, ``bias``, ``scale``,
+``token_embedding``...), with ``layers.<i>`` for Flax's ``layers_<i>``, so
+``models/convert.py:whisper_from_jax`` maps one onto the other leaf by leaf.
+All parameters are inference-only (``requires_grad=False``).
+
+Numerics follow the JAX module: ``dtype`` is the compute type (fp32 or bf16),
+parameters keep the type they were stored in and are cast where the JAX code
+casts them, LayerNorms run in fp32, attention logits and softmax in fp32.
+
+Differences in mechanism, not in value:
+- The self-attention KV cache is a per-layer dict of tensors written in place
+  at ``cache_index`` (JAX's ``dynamic_update_slice`` returns a new buffer).
+  The beam search reorders it with ``index_select``, which allocates, so no
+  buffer is shared between beams.
+- The encoder convolutions run as ``unfold`` + ``matmul``: an fp32
+  convolution on CUDA would go through cuDNN in TF32 by default.
+- int8 projections with at most 256 rows (every decoder projection in a beam
+  step) go through ``ops/int8_mm.py``, whose wrapper launches the Hopper
+  kernel on CUDA tensors; decode-step cross attention over ``FlatCrossKV``
+  goes through ``ops/cross_attn.py``. The int4 weight and cache modes of the
+  JAX package are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from ..ops.attention import matmul_f32, self_attention
+from ..ops.cross_attn import cross_attention_decode
+from ..ops.int8_mm import MAX_ROWS, int8_matmul
+from .configs import WhisperConfig
+
+NEG_MASK = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
+# all-masked rows (unwritten cache slots) in bf16/fp32 alike.
+
+Cache = dict
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V tensors.
+
+    Returns (int8 values, fp32 scales with a trailing singleton dim), as
+    ``whisperx_tpu/models/whisper.py:quantize_kv`` with ``bits=8``.
+    """
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-8)), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+class FlatCrossKV(NamedTuple):
+    """Cross-attention K/V in the kernel's layout: values flat (B, S, D),
+    per-(token, head) scales (B, H, S) fp32."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+def flat_cross_kv(k: torch.Tensor, v: torch.Tensor, kv_int8: bool) -> FlatCrossKV:
+    """(B, S, H, Dh) K/V → FlatCrossKV, int8-quantized or bf16.
+
+    Without int8 the values are stored in bf16: the Pallas kernel converts
+    its K/V to bf16 before both products, so the function is unchanged.
+    """
+    B, S, H, Dh = k.shape
+    if kv_int8:
+        qk, ks = quantize_kv(k)
+        qv, vs = quantize_kv(v)
+    else:
+        qk, qv = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        ks = vs = torch.ones((B, S, H, 1), dtype=torch.float32, device=k.device)
+
+    def t(s):  # (B, S, H, 1) → (B, H, S)
+        return s[..., 0].transpose(1, 2).contiguous()
+
+    return FlatCrossKV(
+        qk.reshape(B, S, H * Dh).contiguous(), qv.reshape(B, S, H * Dh).contiguous(), t(ks), t(vs)
+    )
+
+
+def use_int8_kernel(x: torch.Tensor, features: int) -> bool:
+    """The routing rule of ``whisperx_tpu/models/whisper.py:_use_pallas_int8``:
+    at most ``MAX_ROWS`` rows and both widths multiples of 128."""
+    rows = x.numel() // x.shape[-1]
+    return rows <= MAX_ROWS and features % 128 == 0 and x.shape[-1] % 128 == 0
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """Projection with an optional int8 weight-only mode.
+
+    ``kernel`` is (in_features, features), the layout the int8 kernel reads;
+    quantized modules add a per-output-channel fp32 ``kernel_scale``.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        *,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+        quantized: bool = False,
+        device: DeviceLike,
+    ):
+        super().__init__()
+        self.in_features = in_features
+        self.features = features
+        self.dtype = dtype
+        self.quantized = quantized
+        kdt = torch.int8 if quantized else torch.float32
+        self.kernel = _param((in_features, features), kdt, device)
+        if quantized:
+            self.kernel_scale = _param((features,), torch.float32, device)
+        self.bias = _param((features,), torch.float32, device) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized:
+            if use_int8_kernel(x, self.features):
+                lead = x.shape[:-1]
+                y = int8_matmul(
+                    x.reshape(-1, self.in_features),
+                    self.kernel,
+                    self.kernel_scale,
+                    self.bias,
+                    out_dtype=self.dtype,
+                )
+                return y.reshape(*lead, self.features)
+            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+            y = y * self.kernel_scale.to(self.dtype)
+        else:
+            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """fp32 LayerNorm (Flax names ``scale``/``bias``, epsilon 1e-5)."""
+
+    def __init__(self, dim: int, device: DeviceLike):
+        super().__init__()
+        self.scale = _param((dim,), torch.float32, device)
+        self.bias = _param((dim,), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, eps=1e-5)
+
+
+class Conv(nn.Module):
+    """1-D convolution over time with padding 1, channels last like Flax's
+    ``nn.Conv``: (B, T, C) → (B, T', O). ``kernel`` is torch's (O, I, W).
+
+    Runs as ``unfold`` + ``matmul`` so an fp32 model never meets cuDNN's
+    default TF32 convolution.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, width: int, stride: int, *, dtype, device):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.kernel = _param((out_ch, in_ch, width), torch.float32, device)
+        self.bias = _param((out_ch,), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        O, I, W = self.kernel.shape
+        x = F.pad(x.to(self.dtype), (0, 0, 1, 1))  # pad time by 1 on each side
+        cols = x.unfold(1, W, self.stride)  # (B, T', I, W)
+        cols = cols.reshape(cols.shape[0], cols.shape[1], I * W)
+        w = self.kernel.to(self.dtype).reshape(O, I * W).t()
+        return torch.matmul(cols, w) + self.bias.to(self.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Attention with an optional static KV cache and precomputed cross K/V."""
+
+    def __init__(
+        self,
+        d_model: int,
+        n_head: int,
+        *,
+        dtype: torch.dtype,
+        quantized: bool,
+        fused_qkv: bool = False,
+        device: DeviceLike,
+    ):
+        super().__init__()
+        self.d_model = d_model
+        self.n_head = n_head
+        self.head_dim = d_model // n_head
+        self.dtype = dtype
+        self.fused_qkv = fused_qkv
+        kw = dict(dtype=dtype, quantized=quantized, device=device)
+        if fused_qkv:
+            self.qkv = Dense(d_model, 3 * d_model, **kw)
+        else:
+            self.query = Dense(d_model, d_model, **kw)
+            self.key = Dense(d_model, d_model, use_bias=False, **kw)
+            self.value = Dense(d_model, d_model, **kw)
+        self.out = Dense(d_model, d_model, **kw)
+
+    def _split(self, h: torch.Tensor) -> torch.Tensor:  # (B, T, D) -> (B, T, H, Dh)
+        return h.reshape(h.shape[0], h.shape[1], self.n_head, self.head_dim)
+
+    def _project_qkv(self, x: torch.Tensor):
+        if self.fused_qkv:
+            y = self.qkv(x)
+            D = self.d_model
+            return y[..., :D], y[..., D : 2 * D], y[..., 2 * D :]
+        return self.query(x), self.key(x), self.value(x)
+
+    def compute_kv(self, src: torch.Tensor):
+        """Project K/V once (cross-attention precompute)."""
+        return self._split(self.key(src)), self._split(self.value(src))
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, T_q, D)
+        *,
+        mask: Optional[torch.Tensor] = None,  # additive, broadcastable to (B,H,Tq,Tkv)
+        cache: Optional[dict] = None,  # per-layer {"k","v"[,"k_scale","v_scale"]} (B, T, H, ·)
+        cache_index: Optional[int] = None,
+        precomputed_kv=None,
+    ):
+        head_dim = self.head_dim
+        scale = head_dim**-0.25
+
+        # Kernel cross attention: beam queries fold into the G axis.
+        if isinstance(precomputed_kv, FlatCrossKV):
+            fkv = precomputed_kv
+            Bkv = fkv.k.shape[0]
+            Tq = x.shape[1]
+            group = x.shape[0] // Bkv
+            q = self.query(x) * (head_dim**-0.5)  # full 1/sqrt(Dh): exact in bf16
+            q = q.reshape(Bkv, group * Tq, self.d_model).to(torch.bfloat16).contiguous()
+            out = cross_attention_decode(q, fkv.k, fkv.v, fkv.k_scale, fkv.v_scale)
+            out = out.to(self.dtype).reshape(x.shape[0], Tq, self.d_model)
+            return self.out(out), None
+
+        # int8 K/V carry per-(token, head) scales that commute with both
+        # contractions, so they scale the logits and the weights instead of
+        # dequantizing the cache.
+        ks = vs = None
+        if precomputed_kv is not None:
+            q = self._split(self.query(x)) * scale
+            if len(precomputed_kv) == 4:  # int8 cross KV: (k, k_scale, v, v_scale)
+                k, ks, v, vs = precomputed_kv
+            else:
+                k, v = precomputed_kv
+        else:
+            qp, kp, vp = self._project_qkv(x)
+            q = self._split(qp) * scale
+            k, v = self._split(kp), self._split(vp)
+
+        # Encoder path: full bidirectional self-attention, no cache.
+        if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
+            out = self_attention(q, k * scale, v)
+            return self.out(out.reshape(x.shape[0], x.shape[1], self.d_model)), None
+
+        new_cache = None
+        if cache is not None:
+            at = slice(cache_index, cache_index + x.shape[1])
+            if cache["k"].dtype == torch.int8:
+                qk, kss = quantize_kv(k)
+                qv, vss = quantize_kv(v)
+                cache["k"][:, at] = qk
+                cache["v"][:, at] = qv
+                cache["k_scale"][:, at] = kss
+                cache["v_scale"][:, at] = vss
+                ks, vs = cache["k_scale"], cache["v_scale"]
+            else:
+                cache["k"][:, at] = k.to(cache["k"].dtype)
+                cache["v"][:, at] = v.to(cache["v"].dtype)
+            new_cache = cache
+            k, v = cache["k"], cache["v"]
+
+        # Beam grouping: cross K/V are shared by the beams of one batch
+        # element; fold the beams into the query-time axis.
+        group = x.shape[0] // k.shape[0]
+        Tq = x.shape[1]
+        if group > 1:
+            q = q.reshape(k.shape[0], group * Tq, self.n_head, head_dim)
+
+        logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))  # (B, H, Tq, Tk)
+        logits = logits * scale
+        if ks is not None:
+            logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
+        if mask is not None:
+            logits = logits + mask
+        weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        if vs is not None:
+            weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :].to(self.dtype)
+        out = torch.matmul(weights, v.to(self.dtype).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
+        out = out.permute(0, 2, 1, 3).reshape(x.shape[0], Tq, self.d_model)
+        return self.out(out), new_cache
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, *, dtype, quantized, device):
+        super().__init__()
+        self.fc1 = Dense(d_model, 4 * d_model, dtype=dtype, quantized=quantized, device=device)
+        self.fc2 = Dense(4 * d_model, d_model, dtype=dtype, quantized=quantized, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, device):
+        super().__init__()
+        self.dtype = dtype
+        self.attn_ln = LayerNorm(d_model, device)
+        self.attn = MultiHeadAttention(
+            d_model, n_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+        )
+        self.mlp_ln = LayerNorm(d_model, device)
+        self.mlp = MLP(d_model, dtype=dtype, quantized=quantized, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, _ = self.attn(self.attn_ln(x).to(self.dtype))
+        x = x + h
+        return x + self.mlp(self.mlp_ln(x).to(self.dtype))
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, device):
+        super().__init__()
+        cfg = config
+        self.dtype = dtype
+        D = cfg.n_audio_state
+        self.conv1 = Conv(cfg.n_mels, D, 3, 1, dtype=dtype, device=device)
+        self.conv2 = Conv(D, D, 3, 2, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(
+            EncoderBlock(
+                D, cfg.n_audio_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+            )
+            for _ in range(cfg.n_audio_layer)
+        )
+        self.ln_post = LayerNorm(D, device)
+        self.positional_embedding = _param((cfg.n_audio_ctx, D), torch.float32, device)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, n_mels, 3000) log-mel → (B, 1500, D) audio states."""
+        x = mel.to(self.dtype).transpose(1, 2)  # (B, T, n_mels): conv over time
+        x = F.gelu(self.conv1(x))
+        x = F.gelu(self.conv2(x))
+        x = x + self.positional_embedding.to(self.dtype)[None, : x.shape[1]]
+        for block in self.layers:
+            x = block(x)
+        return self.ln_post(x).to(self.dtype)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, device):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(dtype=dtype, quantized=quantized, device=device)
+        self.attn_ln = LayerNorm(d_model, device)
+        self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, **kw)
+        self.cross_attn_ln = LayerNorm(d_model, device)
+        self.cross_attn = MultiHeadAttention(d_model, n_head, **kw)
+        self.mlp_ln = LayerNorm(d_model, device)
+        self.mlp = MLP(d_model, **kw)
+
+    def forward(self, x, *, self_cache, cache_index, cross_kv, self_mask):
+        h, new_self_cache = self.attn(
+            self.attn_ln(x).to(self.dtype), mask=self_mask, cache=self_cache, cache_index=cache_index
+        )
+        x = x + h
+        h, _ = self.cross_attn(self.cross_attn_ln(x).to(self.dtype), precomputed_kv=cross_kv)
+        x = x + h
+        return x + self.mlp(self.mlp_ln(x).to(self.dtype)), new_self_cache
+
+    def compute_cross_kv(self, audio_states: torch.Tensor):
+        return self.cross_attn.compute_kv(audio_states)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, device):
+        super().__init__()
+        cfg = config
+        self.dtype = dtype
+        self.quantized = quantized
+        D = cfg.n_text_state
+        if quantized:
+            # Per-row int8 embedding table; the row scales commute with the
+            # tied logits product.
+            self.token_embedding = _param((cfg.n_vocab, D), torch.int8, device)
+            self.token_embedding_scale = _param((cfg.n_vocab,), torch.float32, device)
+        else:
+            self.token_embedding = _param((cfg.n_vocab, D), torch.float32, device)
+        self.positional_embedding = _param((cfg.n_text_ctx, D), torch.float32, device)
+        self.layers = nn.ModuleList(
+            DecoderBlock(
+                D, cfg.n_text_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+            )
+            for _ in range(cfg.n_text_layer)
+        )
+        self.ln = LayerNorm(D, device)
+
+    def forward(self, tokens: torch.Tensor, cache: Cache, cache_index: int):
+        """Decode ``tokens`` (B, T) starting at absolute position ``cache_index``.
+
+        Serves prompt ingestion (T = prompt length) and stepping (T = 1).
+        Returns (logits (B, T, V) fp32, cache).
+        """
+        T = tokens.shape[1]
+        emb = self.token_embedding
+        x = emb[tokens].to(self.dtype)
+        if self.quantized:
+            x = x * self.token_embedding_scale[tokens][..., None].to(self.dtype)
+        x = x + self.positional_embedding.to(self.dtype)[cache_index : cache_index + T]
+
+        # Causal mask against the static cache: the query at absolute position
+        # cache_index + t sees cache slots [0, cache_index + t].
+        cache_len = cache["self"][0]["k"].shape[1]
+        q_pos = cache_index + torch.arange(T, device=tokens.device)[:, None]
+        k_pos = torch.arange(cache_len, device=tokens.device)[None, :]
+        self_mask = torch.where(k_pos <= q_pos, 0.0, NEG_MASK).to(torch.float32)
+
+        new_self = []
+        for i, block in enumerate(self.layers):
+            x, layer_cache = block(
+                x,
+                self_cache=cache["self"][i],
+                cache_index=cache_index,
+                cross_kv=cache["cross"][i],
+                self_mask=self_mask,
+            )
+            new_self.append(layer_cache)
+
+        x = self.ln(x)
+        # int8 → fp32 is exact, so the quantized table skips the cast to dtype.
+        table = emb if self.quantized else emb.to(self.dtype)
+        logits = matmul_f32(x.to(self.dtype), table.t())
+        if self.quantized:
+            logits = logits * self.token_embedding_scale[None, None, :]
+        return logits, {"self": new_self, "cross": cache["cross"]}
+
+    def compute_cross_kv(self, audio_states: torch.Tensor):
+        return [block.compute_cross_kv(audio_states) for block in self.layers]
+
+
+class Whisper(nn.Module):
+    """Encoder + decoder under one parameter tree.
+
+    ``quantized``: False | True (both stacks) | "decoder" | "encoder".
+    ``fused_qkv``: one (D, 3D) projection for every self-attention block;
+    pair with :func:`fuse_qkv_params`. ``device=None`` means the card.
+    """
+
+    def __init__(
+        self,
+        config: WhisperConfig,
+        *,
+        dtype: torch.dtype = torch.float32,
+        quantized: Union[bool, str] = False,
+        fused_qkv: bool = False,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.dtype = dtype
+        self.quantized = quantized
+        self.fused_qkv = fused_qkv
+        q_enc = quantized is True or quantized == "encoder"
+        q_dec = quantized is True or quantized == "decoder"
+        self.encoder = AudioEncoder(config, dtype=dtype, quantized=q_enc, fused_qkv=fused_qkv, device=device)
+        self.decoder = TextDecoder(config, dtype=dtype, quantized=q_dec, fused_qkv=fused_qkv, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.positional_embedding.device
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced forward pass: (B, n_mels, 3000), (B, T) → (B, T, V)."""
+        audio_states = self.encoder(mel)
+        cache = self.empty_cache(tokens.shape[0])
+        cache["cross"] = self.decoder.compute_cross_kv(audio_states)
+        logits, _ = self.decoder(tokens, cache, 0)
+        return logits
+
+    def encode(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.encoder(mel)
+
+    def decode_step(self, tokens: torch.Tensor, cache: Cache, cache_index: int):
+        return self.decoder(tokens, cache, cache_index)
+
+    def compute_cross_kv(self, audio_states: torch.Tensor):
+        return self.decoder.compute_cross_kv(audio_states)
+
+    def empty_cache(
+        self, batch: int, cache_dtype: Optional[torch.dtype] = None, cache_len: int = 0
+    ) -> Cache:
+        """Zeroed self-attention cache: a per-layer list of (B, T, H, Dh)
+        buffer dicts (int8 adds per-token scale planes (B, T, H, 1)).
+        ``cache_len`` trims T below n_text_ctx; "cross" is filled by the
+        engine."""
+        cfg = self.config
+        dt = cache_dtype or self.dtype
+        head_dim = cfg.n_text_state // cfg.n_text_head
+        shape = (batch, cache_len or cfg.n_text_ctx, cfg.n_text_head, head_dim)
+        dev = self.device
+
+        def one_layer():
+            layer = {
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+            }
+            if dt == torch.int8:
+                sshape = shape[:-1] + (1,)
+                layer["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+                layer["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+            return layer
+
+        L = cfg.n_text_layer
+        return {"self": [one_layer() for _ in range(L)], "cross": [None] * L}
+
+
+# ---- host-side parameter trees (numpy, in the JAX package's layout) --------
+
+
+def _dense_shapes(i: int, o: int, bias: bool = True) -> dict:
+    d = {"kernel": (i, o)}
+    if bias:
+        d["bias"] = (o,)
+    return d
+
+
+def _ln_shapes(d: int) -> dict:
+    return {"scale": (d,), "bias": (d,)}
+
+
+def _attn_shapes(d: int) -> dict:
+    return {
+        "query": _dense_shapes(d, d),
+        "key": _dense_shapes(d, d, bias=False),
+        "value": _dense_shapes(d, d),
+        "out": _dense_shapes(d, d),
+    }
+
+
+def _mlp_shapes(d: int) -> dict:
+    return {"fc1": _dense_shapes(d, 4 * d), "fc2": _dense_shapes(4 * d, d)}
+
+
+def param_shapes(config: WhisperConfig) -> dict:
+    """Shapes of the fp parameter tree the JAX ``Whisper`` module creates."""
+    cfg = config
+    De, Dd = cfg.n_audio_state, cfg.n_text_state
+    encoder = {
+        "conv1": {"kernel": (3, cfg.n_mels, De), "bias": (De,)},
+        "conv2": {"kernel": (3, De, De), "bias": (De,)},
+        "ln_post": _ln_shapes(De),
+        "positional_embedding": (cfg.n_audio_ctx, De),
+    }
+    for i in range(cfg.n_audio_layer):
+        encoder[f"layers_{i}"] = {
+            "attn_ln": _ln_shapes(De),
+            "attn": _attn_shapes(De),
+            "mlp_ln": _ln_shapes(De),
+            "mlp": _mlp_shapes(De),
+        }
+    decoder = {
+        "token_embedding": (cfg.n_vocab, Dd),
+        "positional_embedding": (cfg.n_text_ctx, Dd),
+        "ln": _ln_shapes(Dd),
+    }
+    for i in range(cfg.n_text_layer):
+        decoder[f"layers_{i}"] = {
+            "attn_ln": _ln_shapes(Dd),
+            "attn": _attn_shapes(Dd),
+            "cross_attn_ln": _ln_shapes(Dd),
+            "cross_attn": _attn_shapes(Dd),
+            "mlp_ln": _ln_shapes(Dd),
+            "mlp": _mlp_shapes(Dd),
+        }
+    return {"encoder": encoder, "decoder": decoder}
+
+
+def random_params(config: WhisperConfig, seed: int = 0, scale: float = 0.02) -> dict:
+    """Random fp32 parameter tree, equal leaf for leaf to the JAX package's
+    ``init_whisper_params(config, seed)`` (``random_params_like``): leaves
+    drawn in JAX's flattening order (sorted keys, depth first); LayerNorm
+    scales ones, biases zeros, everything else normal * ``scale``."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        out = {}
+        for name in sorted(node):
+            child = node[name]
+            if isinstance(child, dict):
+                out[name] = walk(child)
+            elif name == "scale" or name.endswith("_scale"):
+                out[name] = np.ones(child, np.float32)
+            elif name == "bias":
+                out[name] = np.zeros(child, np.float32)
+            else:
+                out[name] = (rng.standard_normal(child) * scale).astype(np.float32)
+        return out
+
+    return walk(param_shapes(config))
+
+
+def quantize_params(params: dict, *, embedding_keys: tuple[str, ...] = ("token_embedding",), scope: str = "all") -> dict:
+    """Host-side tree transform: fp kernels → (int8 kernel, kernel_scale).
+
+    Port of ``whisperx_tpu/models/whisper.py:quantize_params`` (int8 only).
+    Every rank-2 "kernel" leaf becomes symmetric per-output-channel int8;
+    conv kernels (rank 3) stay fp; token embeddings become per-row int8.
+    ``scope``: "all" or one top-level subtree name ("decoder"/"encoder").
+    """
+    if scope != "all":
+        return {
+            name: quantize_params(child, embedding_keys=embedding_keys) if name == scope else child
+            for name, child in params.items()
+        }
+
+    def walk(node):
+        out = {}
+        for name, child in node.items():
+            if isinstance(child, dict):
+                out[name] = walk(child)
+                continue
+            arr = np.asarray(child)
+            if name == "kernel" and arr.ndim == 2:
+                arr = arr.astype(np.float32)
+                s = np.maximum(np.max(np.abs(arr), axis=0) / 127, 1e-12)
+                out[name] = np.clip(np.round(arr / s), -127, 127).astype(np.int8)
+                out["kernel_scale"] = s.astype(np.float32)
+            elif name in embedding_keys and arr.ndim == 2:
+                arr = arr.astype(np.float32)
+                s = np.maximum(np.max(np.abs(arr), axis=1, keepdims=True) / 127.0, 1e-12)
+                out[name] = np.clip(np.round(arr / s), -127, 127).astype(np.int8)
+                out[name + "_scale"] = s[:, 0].astype(np.float32)
+            else:
+                out[name] = child
+        return out
+
+    return walk(params)
+
+
+def fuse_qkv_params(params: dict) -> dict:
+    """Host-side tree transform: self-attention {query,key,value} → one qkv.
+
+    Port of ``whisperx_tpu/models/whisper.py:fuse_qkv_params``: kernels (and
+    kernel scales) concatenate along the output dim in q|k|v order; the key
+    projection has no bias, so its bias slot is zeros. Cross-attention
+    subtrees stay unfused.
+    """
+
+    def fuse(attn: dict) -> dict:
+        q, k, v = attn["query"], attn["key"], attn["value"]
+
+        def cat(name):
+            return np.concatenate([np.asarray(q[name]), np.asarray(k[name]), np.asarray(v[name])], axis=-1)
+
+        qkv = {"kernel": cat("kernel")}
+        if "kernel_scale" in q:
+            qkv["kernel_scale"] = cat("kernel_scale")
+        qb = np.asarray(q["bias"])
+        qkv["bias"] = np.concatenate([qb, np.zeros_like(qb), np.asarray(v["bias"])], axis=-1)
+        out = {name: child for name, child in attn.items() if name not in ("query", "key", "value")}
+        out["qkv"] = qkv
+        return out
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for name, child in node.items():
+            if name == "attn" and isinstance(child, dict) and "query" in child:
+                out[name] = fuse({k: walk(c) for k, c in child.items()})
+            else:
+                out[name] = walk(child)
+        return out
+
+    return walk(params)
