@@ -7,18 +7,26 @@ without the final ``ok`` line, on any failure: no card, the package missing,
 a kernel that does not build, launch or agree, a wrong result.
 
 Phases:
-  1. build every CUDA kernel of the path (one nvcc per source, in parallel);
-  2. hold each kernel against its plain PyTorch version at the main path's
+  1. build every CUDA kernel of the paths (one nvcc per source, in parallel);
+  2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (plus edge shapes), and time the kernel, the plain version and
      one PyTorch library call (the yardstick) with cold caches;
-  3. on a small model, check that the card's decode (kernels) gives the same
-     tokens as the CPU's (plain versions);
-  4. drive the main path: Whisper large-v2 with random weights from a seed,
+  3. on small models, check that the card gives the CPU's results: decode
+     tokens (kernels against plain versions) and fp32 alignment segments,
+     words and timestamps; then the flash route's bf16 emissions against the
+     card's plain route;
+  4. drive the decode path: Whisper large-v2 with random weights from a seed,
      int8 weights, fused QKV, int8 KV cache; batch 8 of 30 s int16 audio →
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
-     flagship), once with the einsum cross attention and once with the
-     cross-attention kernel. Both kernels' launch counts are zeroed just
-     before each run and read just after.
+     flagship), in two arms: the JAX package's defaults (plain log-mel,
+     "xla" encoder attention, einsum cross attention) and the kernel arm
+     (log-mel kernel, flash encoder attention, cross-attention kernel);
+  5. drive the alignment path: wav2vec2 base (published widths, random
+     weights from seed 0, bf16) aligning bench.py's fixed transcript to 8 x
+     30 s of int16 audio through align_begin(...).finish(), with the "xla"
+     and the flash encoder attention.
+Every kernel's launch count is zeroed just before each run of a path and
+read just after.
 
 Prints the card's name and power limit, one line per check, a ``kernels``
 JSON line and, last, ``{"ok": true, "device": {...}}``. Every time is taken
@@ -38,7 +46,32 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
-KERNEL_SOURCES = ("int8_mm", "cross_attn")
+FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet)
+KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "log_mel")
+# bench.py's alignment transcript (bench.py:277-285): ~70 words per 30 s chunk.
+_WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
+          "while seven silent watchers record every single word spoken here ").split()
+ALIGN_TEXT = " " + " ".join(_WORDS * 4)[:400]
+
+
+def align_transcript(n: int) -> list:
+    """bench.py's alignment transcript over n 30 s chunks: segment i spans
+    i*30+0.2 .. (i+1)*30-0.2 s."""
+    return [{"start": i * 30.0 + 0.2, "end": (i + 1) * 30.0 - 0.2, "text": ALIGN_TEXT} for i in range(n)]
+
+
+def align_frames(conv_layers, transcript: list) -> tuple[list, int]:
+    """wav2vec2 frame counts of the transcript's rows, and the padded width
+    of their batch, as align_begin cuts (int(s * 16 kHz)) and pads (to the
+    next whole second) the audio."""
+
+    def frames(n):
+        for _, kernel, stride in conv_layers:
+            n = (n - kernel) // stride + 1
+        return n
+
+    lens = [int(s["end"] * 16_000) - int(s["start"] * 16_000) for s in transcript]
+    return [frames(n) for n in lens], frames(-(-max(lens) // 16_000) * 16_000)
 
 
 def log(msg: str) -> None:
@@ -53,9 +86,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,6 +211,7 @@ def int8_mm_phase(torch, card: str) -> dict:
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": library_ms,
+        "eager_ms": eager_ms,
         "unit": "one decoder layer's 6 projections, M=40, K,N in {1280,3840,5120}",
     }
 
@@ -254,7 +288,194 @@ def cross_attn_phase(torch, card: str) -> dict:
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": library_ms,
+        "eager_ms": eager_ms,
         "unit": "one call, B=8 G=5 S=1500 H=20 int8 K/V",
+    }
+
+
+def flash_phase(torch, card: str) -> dict:
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
+    from whisperx_tpu_torch.ops import flash_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def operands(B, T, H, lengths=None):
+        q, k = ((torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16() for _ in range(2))
+        v = torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16()
+        mask = None if lengths is None else torch.arange(T, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+        return q, k, v, mask
+
+    # Another summation order and another rescaling of exp(s - m) before its
+    # bf16 rounding: the bf16 output may land one ulp apart.
+    atol, rtol = 2e-3, 2**-7
+    w2v_lengths = (1499, 1479, 1200, 700, 64, 65, 1, 1499)  # rows of different pad lengths
+    # Phase 5's batch: 8 rows of 29.6 s, padded to 30 s.
+    align_lengths, align_T = align_frames(WAV2VEC2_BASE.conv_layers, align_transcript(8))
+    cases = [
+        ("Whisper large-v2 encoder", (8, 1500, 20, None)),
+        ("wav2vec2 base, padded rows", (8, 1499, 12, w2v_lengths)),
+        ("wav2vec2 base, alignment path rows", (8, align_T, 12, align_lengths)),
+        ("T=1", (1, 1, 2, None)),
+        ("T=100 (not a tile multiple)", (2, 100, 2, None)),
+        ("one valid key", (3, 130, 4, (1, 130, 67))),
+    ]
+    path_err = 0.0
+    for what, shape in cases:
+        ops = operands(*shape)
+        got = flash_attn.flash_attention(*ops)
+        torch.cuda.synchronize()
+        err = max_err_within(torch, f"flash {what}", got, flash_attn.flash_attention_plain(*ops), atol, rtol)
+        if shape[1] >= 1499:
+            path_err = max(path_err, err)
+        log(f"flash {what} {shape[:3]}: max abs err {err:.3g} vs plain (atol {atol}, rtol {rtol}): ok")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for unit, (B, T, H, lengths) in (("whisper", (8, 1500, 20, None)), ("wav2vec2", (8, align_T, 12, align_lengths))):
+        # Three distinct layers' operands rotate, as the encoder's layers do.
+        sets = [operands(B, T, H, lengths) for _ in range(3)]
+        lib = [
+            (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+             None if m is None else m[:, None, None, :])
+            for q, k, v, m in sets
+        ]
+
+        def kernel():
+            for ops in sets:
+                flash_attn.flash_attention(*ops)
+
+        def plain():
+            for ops in sets:
+                flash_attn.flash_attention_plain(*ops)
+
+        def library():
+            for q, k, v, m in lib:
+                sdpa(q, k, v, attn_mask=m, scale=1.0)
+
+        ms = graph_ms(torch, kernel, 20) / 3
+        plain_ms = graph_ms(torch, plain, 3) / 3
+        library_ms = graph_ms(torch, library, 20) / 3
+        eager_ms = time_ms(torch, kernel, 20) / 3
+        nbytes = 4 * B * T * H * 64 * 2 + (0 if lengths is None else B * T)
+        # Every query row, padded ones too, against the valid keys of its row.
+        flops = 4 * H * 64 * T * (B * T if lengths is None else sum(lengths))
+        bms, by = bound_ms(nbytes, flops)
+        rows[unit] = (ms, plain_ms, library_ms, eager_ms, bms, by)
+        log(
+            f"flash timing [{card}], {unit} layer B={B} T={T} H={H}"
+            f"{f' + pad mask (valid keys {min(lengths)}..{max(lengths)})' if lengths else ''}, device time "
+            f"(CUDA graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); eager calls from Python "
+            f"{eager_ms:.4f} ms"
+        )
+    ms, plain_ms, library_ms, eager_ms, bms, by = rows["whisper"]
+    return {
+        "name": "flash_self_attention",
+        "route": "cuda",
+        "source": "whisperx_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "whisperx_tpu/ops/attention.py:75",
+        "launches": None,
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": library_ms,
+        "eager_ms": eager_ms,
+        "unit": "one call, Whisper large-v2 encoder layer B=8 T=1500 H=20 Dh=64",
+        "wav2vec2_base_layer": dict(
+            zip(("ms", "plain_ms", "library_ms", "eager_ms", "bound_ms", "bound_by"), rows["wav2vec2"]),
+            unit=f"one call, alignment path batch B=8 T={align_T} H=12 Dh=64, valid keys {align_lengths}",
+        ),
+    }
+
+
+def log_mel_phase(torch, card: str) -> dict:
+    from whisperx_tpu_torch.audio import log_mel_spectrogram, mel_filters
+    from whisperx_tpu_torch.ops import mel
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def audio(B, n, int16=False):
+        a = torch.randn((B, n), device="cuda", generator=gen) * 0.1
+        return (a * 32768).round().clamp(-32768, 32767).to(torch.int16) if int16 else a
+
+    # fp32 products in another order than the plain version's cuBLAS GEMMs;
+    # the card-vs-CPU tolerance of the plain log-mel (phase 3).
+    atol = 1e-4
+    path_err = 0.0
+    for what, (B, n, n_mels, int16) in (
+        ("8 x 30 s", (8, 480_000, 80, False)),
+        ("8 x 30 s", (8, 480_000, 128, False)),
+        ("8 x 30 s int16", (8, 480_000, 80, True)),
+        ("short clip 1 s", (1, 16_000, 80, False)),
+        ("short clip 0.1 s int16", (2, 1_600, 128, True)),
+    ):
+        a = audio(B, n, int16)
+        got = mel.log_mel_kernel(a, n_mels)
+        torch.cuda.synchronize()
+        err = max_err_within(torch, f"log_mel {what} n_mels={n_mels}", got, log_mel_spectrogram(a, n_mels), atol, 0.0)
+        if n == 480_000:
+            path_err = max(path_err, err)
+        log(f"log_mel {what} n_mels={n_mels}: max abs err {err:.3g} vs plain (atol {atol}): ok")
+
+    B, n, n_mels = 8, 480_000, 80
+    frames = n // 160
+    sets = [audio(B, n, int16=True) for _ in range(3)]  # the decode path uploads int16
+    window = torch.hann_window(400, periodic=True, device="cuda")
+    filt = torch.from_numpy(mel_filters(n_mels)).cuda()
+
+    def kernel():
+        for a in sets:
+            mel.log_mel_kernel(a, n_mels)
+
+    def plain():
+        for a in sets:
+            log_mel_spectrogram(a, n_mels)
+
+    def library():  # cuFFT STFT + filterbank matmul + log10 and the clip
+        for a in sets:
+            spec = torch.stft(a.float() / 32768.0, 400, 160, window=window, center=True, pad_mode="reflect", return_complex=True)
+            power = spec[..., :frames].abs() ** 2
+            lg = torch.log10(torch.clamp(filt @ power, min=1e-10))
+            lg = torch.maximum(lg, lg.amax(dim=(1, 2), keepdim=True) - 8.0)
+            (lg + 4.0) / 4.0
+
+    ms = graph_ms(torch, kernel, 20) / 3
+    plain_ms = graph_ms(torch, plain, 20) / 3
+    library_ms = graph_ms(torch, library, 20) / 3
+    eager_ms = time_ms(torch, kernel, 20) / 3
+    nbytes = B * n * 2 + B * n_mels * frames * 4
+    # The function's least work a frame: window, a real FFT of 400 (the usual
+    # 2.5 N log2 N), power, and the filterbank's nonzero taps.
+    nnz = int((filt != 0).sum())
+    flops = B * frames * (400 + 2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz)
+    bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+    # The kernel's own algorithm: the DFT and the filterbank as dense products.
+    gemm_flops = 2 * B * frames * (400 * 402 + 201 * n_mels)
+    gemm_bms, _ = bound_ms(nbytes, gemm_flops, FP32_FLOPS)
+    log(
+        f"log_mel timing [{card}], 8 x 30 s int16 n_mels=80, device time (CUDA graph replay): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (stft + filterbank matmul + log10) {library_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP by FFT at the fp32 peak); "
+        f"bound of the DFT-as-GEMM algorithm {gemm_bms:.4f} ms ({gemm_flops / 1e9:.2f} GFLOP); "
+        f"eager calls from Python {eager_ms:.4f} ms"
+    )
+    return {
+        "name": "log_mel",
+        "route": "cuda",
+        "source": "whisperx_tpu_torch/csrc/log_mel.cu",
+        "replaces": "whisperx_tpu/ops/pallas_mel.py:54",
+        "launches": None,
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": library_ms,
+        "eager_ms": eager_ms,
+        "bound_ms_dft_gemm": gemm_bms,
+        "unit": "one call, 8 x 480000 int16 samples, n_mels=80 (tile kernel + clip epilogue)",
     }
 
 
@@ -295,6 +516,78 @@ def small_reference_phase(torch) -> None:
             log(f"small model (128 wide, int8) beam={beam} cross={cross}: card tokens == cpu tokens, sum_logprobs within {lp_err:.2g}: ok")
 
 
+def small_align_phase(torch, card: str) -> None:
+    """Alignment on a 128-wide wav2vec2 (WAV2VEC2_TEST widened to the flash
+    kernel's head dim 64): fp32 "xla" on the card against the CPU, then the
+    flash route at bf16 against the card's plain route."""
+    from whisperx_tpu_torch.align.alignment import AlignModel, _emissions, align
+    from whisperx_tpu_torch.audio import N_SAMPLES
+    from whisperx_tpu_torch.models import wav2vec2 as tw2
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_TEST
+    from whisperx_tpu_torch.models.convert import wav2vec2_from_jax
+    from whisperx_tpu_torch.ops import attention, flash_attn
+
+    cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
+    params = tw2.random_params(cfg, seed=0)
+    dictionary = {c: i for i, c in enumerate(["[pad]", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)])}
+    meta = {"language": "en", "dictionary": dictionary, "type": "torch"}
+    n_seg = 3
+    audio = (np.random.default_rng(4).standard_normal(n_seg * N_SAMPLES) * 0.1).astype(np.float32)
+    transcript = align_transcript(n_seg)
+
+    def model_on(dev, dtype, impl):
+        return AlignModel(wav2vec2_from_jax(params, cfg, dtype=dtype, attn_impl=impl, device=dev), dictionary, "en")
+
+    def timestamps(res):
+        segs = [(s["text"], s["start"], s["end"]) for s in res["segments"]]
+        return segs, [(w["word"], w.get("start"), w.get("end")) for w in res["word_segments"]]
+
+    results = {}
+    for dev in ("cuda", "cpu"):
+        results[dev] = align([dict(s) for s in transcript], model_on(dev, torch.float32, "xla"), meta, audio, dev)
+    if timestamps(results["cuda"]) != timestamps(results["cpu"]):
+        raise AssertionError("small align fp32: the card's segments, words or timestamps differ from the CPU's")
+    # Scores are means of exp(log-probs) rounded to 3 decimals: fp32 sums in
+    # another order may move one across a rounding boundary.
+    score_err = max(
+        (abs(a.get("score", 0.0) - b.get("score", 0.0)) for a, b in zip(results["cuda"]["word_segments"], results["cpu"]["word_segments"])),
+        default=0.0,
+    )
+    if score_err > 2e-3:
+        raise AssertionError(f"small align fp32: word scores differ by {score_err}")
+    n_words = len(results["cpu"]["word_segments"])
+    log(
+        f"small align (128-wide wav2vec2, fp32, xla) {n_seg} x 30 s: card == cpu segments, {n_words} words and "
+        f"timestamps identical, scores within {score_err:.3g} (atol 2e-3): ok"
+    )
+
+    # bf16: the flash route's emissions against the card's plain ("xla") route.
+    am = model_on("cuda", torch.bfloat16, "flash")
+    wavs = torch.from_numpy(audio.reshape(n_seg, N_SAMPLES)).cuda()
+    lens = torch.full((n_seg,), N_SAMPLES, device="cuda")
+    lens[1] = N_SAMPLES - 16_000 * 7  # one padded row
+    with torch.inference_mode():
+        flash_attn.launches = 0
+        em_flash, t_len = _emissions(am.model, wavs, lens)
+        launched = flash_attn.launches
+        attention.set_attn_impl(am.model, "xla")
+        em_xla, _ = _emissions(am.model, wavs, lens)
+    valid = torch.arange(em_flash.shape[1], device="cuda")[None, :] < t_len[:, None]
+    # bf16 activations rounded at other places through two layers.
+    err = max_err_within(torch, "small align bf16 emissions flash vs xla", em_flash[valid], em_xla[valid], 0.15, 0.05)
+    if launched != cfg.num_layers:
+        raise AssertionError(f"small align bf16: flash launched {launched} times, expected {cfg.num_layers}")
+    words = {}
+    for impl in ("xla", "flash"):
+        attention.set_attn_impl(am.model, impl)
+        words[impl] = align([dict(s) for s in transcript], am, meta, audio)["word_segments"]
+    same = float(np.mean([a == b for a, b in zip(words["xla"], words["flash"])])) if words["xla"] else 0.0
+    log(
+        f"small align bf16 [{card}]: emissions flash vs xla max abs err {err:.3g} (atol 0.15, rtol 0.05): ok; "
+        f"word timestamps identical between the routes: {same:.3f} of {len(words['xla'])} words (random weights)"
+    )
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -306,7 +599,7 @@ def main_path_phase(torch, card: str) -> dict:
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import get_whisper_config
     from whisperx_tpu_torch.models.convert import whisper_from_jax
-    from whisperx_tpu_torch.ops import cross_attn, int8_mm
+    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
 
     cfg = get_whisper_config("large-v2")
     batch, beam, max_new = 8, 5, 112
@@ -322,62 +615,80 @@ def main_path_phase(torch, card: str) -> dict:
     rng = np.random.default_rng(0)
     audio = pcm16((rng.standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32))
 
-    def mel_of(a):
-        return log_mel_spectrogram(a, n_mels=cfg.n_mels).to(torch.bfloat16)
+    # The two arms: the JAX package's defaults, and every kernel of the path.
+    # Both front ends divide the int16 upload by 32768 on the card.
+    arms = {
+        "reference": dict(cross="xla", attn="xla", mel=log_mel_spectrogram),
+        "kernel": dict(cross="pallas", attn="flash", mel=mel.log_mel_kernel),
+    }
+
+    def use(arm):
+        a = arms[arm]
+        attention.set_attn_impl(model, a["attn"])
+        return dataclasses.replace(opts, cross_attn=a["cross"]), lambda x: a["mel"](x, n_mels=cfg.n_mels).to(torch.bfloat16)
 
     # One-time CUDA and cuBLAS set-up, outside the counted runs.
-    engine.generate(mel_of(audio), options=dataclasses.replace(opts, max_new_tokens=2, cross_attn="pallas"))
+    o, mel_of = use("kernel")
+    engine.generate(mel_of(audio), options=dataclasses.replace(o, max_new_tokens=2))
 
     L = cfg.n_text_layer
-    want_int8 = 6 * L * (1 + max_new)  # 6 projections per layer, prompt + every step
-    want_cross = {"xla": 0, "pallas": L * (1 + max_new)}
+    want = {
+        "reference": {"int8_matmul": 6 * L * (1 + max_new), "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
+        "kernel": {
+            "int8_matmul": 6 * L * (1 + max_new),  # 6 projections per layer, prompt + every step
+            "cross_attention_decode": L * (1 + max_new),
+            "flash_self_attention": cfg.n_audio_layer,  # one per encoder layer
+            "log_mel": 1,  # one call for the batch
+        },
+    }
+    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     runs = {}
-    for cross in ("xla", "pallas", "pallas", "xla"):  # in turns: two runs each
-        o = dataclasses.replace(opts, cross_attn=cross)
+    for arm in ("reference", "kernel", "kernel", "reference"):  # in turns: two runs each
+        o, mel_of = use(arm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        int8_mm.launches = 0
-        cross_attn.launches = 0
+        for c in counters.values():
+            c.launches = 0
         t0 = time.perf_counter()
-        mel = mel_of(audio)
+        mel_b = mel_of(audio)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = engine.generate(mel, options=o)  # returns host arrays: synchronized
+        res = engine.generate(mel_b, options=o)  # returns host arrays: synchronized
         t2 = time.perf_counter()
-        launches = {"int8_matmul": int8_mm.launches, "cross_attention_decode": cross_attn.launches}
+        launches = {name: c.launches for name, c in counters.items()}
         if res.tokens.shape != (batch, max_new) or not np.isfinite(res.sum_logprobs).all():
-            raise AssertionError(f"main path {cross}: tokens {res.tokens.shape}, sum_logprobs {res.sum_logprobs}")
+            raise AssertionError(f"main path {arm}: tokens {res.tokens.shape}, sum_logprobs {res.sum_logprobs}")
         if not (res.lengths == max_new + 1).all() or (res.tokens == opts.eot).any():
-            raise AssertionError(f"main path {cross}: EOT is banned, yet lengths are {res.lengths}")
-        if launches != {"int8_matmul": want_int8, "cross_attention_decode": want_cross[cross]}:
-            raise AssertionError(f"main path {cross}: launches {launches}, expected int8 {want_int8}, cross {want_cross[cross]}")
+            raise AssertionError(f"main path {arm}: EOT is banned, yet lengths are {res.lengths}")
+        if launches != want[arm]:
+            raise AssertionError(f"main path {arm}: launches {launches}, expected {want[arm]}")
         mel_ms, gen_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         rate = batch * 30.0 / (t2 - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        runs[cross] = {"tokens": res.tokens, "launches": launches}
+        runs[arm] = {"tokens": res.tokens, "launches": launches}
         log(
-            f"main path cross={cross} [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms, "
+            f"main path {arm} arm [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms, "
             f"{rate:.2f} audio-s/s, peak {peak:.1f} GiB, launches {launches}: ok"
         )
 
     # Per-stage breakdown: the same stages generate() runs, each ended by a
     # sync; then a profiled window of the beam loop for the device busy share.
     with torch.inference_mode():
-        for cross in ("xla", "pallas"):
-            o = dataclasses.replace(opts, cross_attn=cross)
+        for arm in ("reference", "kernel"):
+            o, mel_of = use(arm)
             stamps = [time.perf_counter()]
 
             def mark():
                 torch.cuda.synchronize()
                 stamps.append(time.perf_counter())
 
-            mel = mel_of(audio)
+            mel_b = mel_of(audio)
             mark()
-            states = engine._encode(mel)
+            states = engine._encode(mel_b)
             mark()
             prompt = engine.build_prompt(batch)
             logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], o), kv_int8=True, cross_impl=cross
+                states, prompt, engine._cache_len(prompt.shape[1], o), kv_int8=True, cross_impl=o.cross_attn
             )
             mark()
             expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
@@ -385,14 +696,14 @@ def main_path_phase(torch, card: str) -> dict:
             mark()
             mel_ms, enc_ms, prompt_ms, loop_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
             log(
-                f"stages cross={cross} [{card}]: mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, "
-                f"prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms ({loop_ms / max_new:.2f} ms/step), "
-                f"{batch * 30.0 / (stamps[-1] - stamps[0]):.2f} audio-s/s"
+                f"stages {arm} arm (cross={o.cross_attn}, encoder attention={arms[arm]['attn']}) [{card}]: "
+                f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms "
+                f"({loop_ms / max_new:.2f} ms/step), {batch * 30.0 / (stamps[-1] - stamps[0]):.2f} audio-s/s"
             )
             profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], o, card)
-    same = float((runs["xla"]["tokens"] == runs["pallas"]["tokens"]).mean())
-    log(f"main path tokens equal between the two cross-attention paths: {same:.3f} of positions (random weights)")
-    return runs["pallas"]["launches"]
+    same = float((runs["reference"]["tokens"] == runs["kernel"]["tokens"]).mean())
+    log(f"main path tokens equal between the two arms: {same:.3f} of positions (random weights)")
+    return runs["kernel"]["launches"]
 
 
 def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card: str, steps: int = 8) -> None:
@@ -425,6 +736,98 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
     )
 
 
+# ---- phase 5: the alignment path -------------------------------------------
+
+
+def align_path_phase(torch, card: str) -> int:
+    """wav2vec2 base (published widths, depth not cut), random weights from
+    seed 0, bf16, max_batch 8: bench.py's alignment of its fixed transcript
+    to 8 x 30 s of int16 audio (bench.py:257-289). Returns the flash
+    launches counted in the last flash run."""
+    from whisperx_tpu_torch.align import alignment
+    from whisperx_tpu_torch.audio import N_SAMPLES
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
+    from whisperx_tpu_torch.ops import attention, ctc, flash_attn
+
+    batch = 8
+    t0 = time.perf_counter()
+    am = alignment.test_align_model("en", seed=0, config=WAV2VEC2_BASE, dtype=torch.bfloat16, device="cuda")
+    log(f"wav2vec2 base random weights (seed 0), bf16, on the card in {time.perf_counter() - t0:.1f} s")
+    meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
+    audio = (np.random.default_rng(0).standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32).reshape(-1)
+    transcript = align_transcript(batch)
+    audio_s = sum(s["end"] - s["start"] for s in transcript)
+
+    def run():
+        return alignment.align_begin([dict(s) for s in transcript], am, meta, audio).finish()
+
+    attention.set_attn_impl(am.model, "flash")
+    run()  # one-time set-up (cuBLAS handles, pinned buffers), outside the counted runs
+    want = {"xla": 0, "flash": am.model.config.num_layers}  # one batch: one launch per encoder layer
+    words, flash_launches = {}, None
+    for impl in ("xla", "flash", "flash", "xla"):  # in turns: two runs each
+        attention.set_attn_impl(am.model, impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attn.launches = 0
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        launched = flash_attn.launches
+        segs = res["segments"]
+        if len(segs) != batch or not all(s["words"] and all("start" in w and "end" in w for w in s["words"]) for s in segs):
+            raise AssertionError(f"align path {impl}: not every segment aligned: {[len(s['words']) for s in segs]}")
+        if launched != want[impl]:
+            raise AssertionError(f"align path {impl}: flash launched {launched} times, expected {want[impl]}")
+        words[impl] = res["word_segments"]
+        if impl == "flash":
+            flash_launches = launched
+        log(
+            f"align path attn={impl} [{card}]: {wall * 1e3:.1f} ms for {audio_s:.1f} audio-s, "
+            f"{audio_s / wall:.2f} audio-s/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{len(res['word_segments'])} words, flash launches {launched}: ok"
+        )
+    same = float(np.mean([a == b for a, b in zip(words["xla"], words["flash"])]))
+    log(f"align path word timestamps identical between xla and flash: {same:.3f} of {len(words['xla'])} words (random weights)")
+
+    # Stage split: the same run with a sync after each device stage.
+    stages: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+
+        return wrapper
+
+    originals = (alignment._emissions, ctc.ctc_trellis_batch, ctc.ctc_backtrack_device)
+    alignment._emissions = timed("emissions", originals[0])
+    ctc.ctc_trellis_batch = timed("trellis", originals[1])
+    ctc.ctc_backtrack_device = timed("backtrack", originals[2])
+    try:
+        for impl in ("xla", "flash"):
+            attention.set_attn_impl(am.model, impl)
+            stages.clear()
+            t0 = time.perf_counter()
+            job = alignment.align_begin([dict(s) for s in transcript], am, meta, audio)
+            t1 = time.perf_counter()
+            job.finish()
+            t2 = time.perf_counter()
+            launch_ms = (t1 - t0) * 1e3 - sum(stages.values())
+            log(
+                f"align stages attn={impl} [{card}]: emissions (wav2vec2 + log-softmax) {stages['emissions']:.1f} ms, "
+                f"trellis {stages['trellis']:.1f} ms, backtrack {stages['backtrack']:.1f} ms, host prep and launch "
+                f"{launch_ms:.1f} ms, fetch + host aggregation {(t2 - t1) * 1e3:.1f} ms"
+            )
+    finally:
+        alignment._emissions, ctc.ctc_trellis_batch, ctc.ctc_backtrack_device = originals
+    return flash_launches
+
+
 def main() -> int:
     import torch
 
@@ -436,7 +839,8 @@ def main() -> int:
     # Stated references: fp32 products in full fp32 (no TF32) on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    os.environ.pop("WHISPERX_CROSS_ATTN", None)  # each run picks its path itself
+    for knob in ("WHISPERX_CROSS_ATTN", "WHISPERX_ATTN", "WHISPERX_CTC_BACKTRACK", "WHISPERX_WAV_INT16"):
+        os.environ.pop(knob, None)  # each run picks its path itself
 
     card = card_line()
     log(card)
@@ -449,11 +853,14 @@ def main() -> int:
         usage = [ln.split("ptxas info    : ")[-1] for ln in r["log"].splitlines() if "Used" in ln or "spill" in ln]
         log(f"  {name}.cu {r['seconds']:.1f} s: " + "; ".join(usage))
 
-    kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card)]
+    kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     small_reference_phase(torch)
-    launches = main_path_phase(torch, card)
+    small_align_phase(torch, card)
+    launches = main_path_phase(torch, card)  # the decode path's kernel arm
+    flash_align = align_path_phase(torch, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -164,3 +164,102 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
         log_mel_spectrogram(np.zeros(1600, np.float32))
     assert resolve_device("cpu").type == "cpu"
     assert log_mel_spectrogram(np.zeros(1600, np.float32), device="cpu").shape == (80, 10)
+
+
+def test_io_types_equal():
+    from whisperx_tpu.io import types as j_types
+    from whisperx_tpu_torch.io import types as t_types
+
+    for name in ("SingleWordSegment", "SingleCharSegment", "SingleSegment", "SingleAlignedSegment",
+                 "TranscriptionResult", "AlignedTranscriptionResult"):
+        tcls, jcls = getattr(t_types, name), getattr(j_types, name)
+        assert set(tcls.__annotations__) == set(jcls.__annotations__), name
+        def text(ann):  # the annotation as written (forward references carry their module)
+            return {k: getattr(v, "__forward_arg__", str(v)) for k, v in ann.items()}
+
+        assert text(tcls.__annotations__) == text(jcls.__annotations__), name
+
+
+def test_sentences_and_registry_equal():
+    from whisperx_tpu.align import registry as j_registry
+    from whisperx_tpu.align import sentences as j_sentences
+    from whisperx_tpu_torch.align import registry as t_registry
+    from whisperx_tpu_torch.align import sentences as t_sentences
+
+    assert t_sentences.PUNKT_ABBREVIATIONS == j_sentences.PUNKT_ABBREVIATIONS
+    texts = [
+        "Hello world. How are you?", " Mr. Smith went to Washington. He was late.", "Wait... what happened next",
+        "The value is 4.5 and rising. Done.", 'He said "Stop." Then he left.', "J. Smith arrived. Prof. X too.",
+        "", "  leading spaces. And more.  ", "Number 5. follows.", "U.S. troops moved. Then stopped.",
+        "What?! Seriously?? yes.", "he said 'done.' then left.",
+    ]
+    for text in texts:
+        assert t_sentences.sentence_spans(text) == j_sentences.sentence_spans(text), text
+    for name in ("DEFAULT_ALIGN_MODELS_TORCH", "DEFAULT_ALIGN_MODELS_HF", "TORCH_BUNDLE_TO_HF"):
+        assert getattr(t_registry, name) == getattr(j_registry, name)
+    for lang in ("en", "fr", "ja", "hr"):
+        assert t_registry.default_align_model(lang) == j_registry.default_align_model(lang)
+    with pytest.raises(ValueError):
+        t_registry.default_align_model("xx")
+
+
+def test_utils_equal():
+    from whisperx_tpu import utils as j_utils
+    from whisperx_tpu_torch import utils as t_utils
+
+    for vals in ([np.nan, 1.0, np.nan, np.nan, 4.0, np.nan], [np.nan, 2.0, np.nan], [np.nan, np.nan], [1.0, 2.0]):
+        for method in ("nearest", "linear"):
+            np.testing.assert_array_equal(t_utils.interpolate_nans(vals, method), j_utils.interpolate_nans(vals, method))
+    for s in (0.0, 3.4567, 3725.5, 86399.999):
+        for hours in (False, True):
+            assert t_utils.format_timestamp(s, hours, ",") == j_utils.format_timestamp(s, hours, ",")
+    text = "the same words again " * 20
+    assert t_utils.compression_ratio(text) == j_utils.compression_ratio(text)
+    assert t_utils.make_safe("héllo") == j_utils.make_safe("héllo")
+    assert [t_utils.bucket_rows(n) for n in (1, 8, 9, 30)] == [j_utils.bucket_rows(n) for n in (1, 8, 9, 30)]
+    assert t_utils.str2bool("True") is j_utils.str2bool("True") is True
+    assert t_utils.optional_int("None") is None and t_utils.optional_float("2.5") == j_utils.optional_float("2.5")
+    assert t_utils.exact_div(12, 4) == j_utils.exact_div(12, 4)
+
+
+def test_telemetry_counters_equal():
+    from whisperx_tpu.utils import telemetry as j_tel
+    from whisperx_tpu_torch.utils import telemetry as t_tel
+
+    tp, jp = t_tel.PipelineTelemetry(), j_tel.PipelineTelemetry()
+    for p in (tp, jp):
+        p.record("align", seconds=2.0, audio_seconds=60.0)
+        p.record("align", seconds=1.0, audio_seconds=30.0)
+        p.record("decode", seconds=0.0)
+    assert tp.report() == jp.report()
+    assert tp.stages["align"].realtime_factor == jp.stages["align"].realtime_factor == 30.0
+    with tp.stage("vad", audio_seconds=5.0) as stats:
+        pass
+    assert stats.calls == 1 and stats.audio_seconds == 5.0
+
+
+def test_new_modules_import_without_jax_or_the_jax_package():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'whisperx_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import whisperx_tpu_torch.align.alignment, whisperx_tpu_torch.models.wav2vec2\n"
+        "import whisperx_tpu_torch.ops.ctc, whisperx_tpu_torch.ops.mel, whisperx_tpu_torch.ops.flash_attn\n"
+        "import whisperx_tpu_torch.utils.telemetry, whisperx_tpu_torch.io.types\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'whisperx_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_new_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
+    from whisperx_tpu_torch.models import wav2vec2 as tw2
+    from whisperx_tpu_torch.models.convert import wav2vec2_from_jax
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = tw2.random_params(t_configs.WAV2VEC2_TEST, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wav2vec2_from_jax(params, t_configs.WAV2VEC2_TEST)
+    assert wav2vec2_from_jax(params, t_configs.WAV2VEC2_TEST, device="cpu").device.type == "cpu"

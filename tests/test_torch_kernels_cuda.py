@@ -8,8 +8,9 @@ Every test needs a CUDA device and skips without one.
 import pytest
 import torch
 
+from whisperx_tpu_torch.audio import log_mel_spectrogram
 from whisperx_tpu_torch.models.whisper import flat_cross_kv
-from whisperx_tpu_torch.ops import cross_attn, int8_mm
+from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
 
 torch.set_num_threads(2)
 
@@ -60,3 +61,52 @@ def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
     # fp32 sums in another order; the bf16 rounding of the weights can land
     # one ulp apart.
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+# The Whisper large-v2 encoder, wav2vec2 base with rows of different pad
+# lengths, and edges: T = 1, T not a multiple of the 64-row tile, one valid
+# key, every key of a row excluded.
+@pytest.mark.parametrize(
+    "B,T,H,lengths",
+    [(8, 1500, 20, None), (8, 1499, 12, (1499, 1479, 1200, 700, 64, 65, 1, 1499)), (1, 1, 2, None),
+     (2, 100, 2, None), (3, 130, 4, (1, 130, 67)), (2, 64, 2, (0, 64))],
+)
+def test_flash_attn_kernel_matches_plain(gen, B, T, H, lengths):
+    q = (torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16()
+    k = (torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16()
+    v = torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16()
+    mask = None if lengths is None else torch.arange(T, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    before = flash_attn.launches
+    got = flash_attn.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, mask)
+    # Another summation order and another rescaling of exp(s - m) before its
+    # bf16 rounding: the bf16 output may land one ulp apart.
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+def test_flash_attn_kernel_takes_fused_qkv_slices(gen):
+    qkv = (torch.randn((2, 300, 3 * 4 * 64), device="cuda", generator=gen) * 0.35).bfloat16()
+    q, k, v = (qkv[..., i * 256 : (i + 1) * 256].reshape(2, 300, 4, 64) for i in range(3))
+    torch.testing.assert_close(
+        flash_attn.flash_attention(q, k, v).float(), flash_attn.flash_attention_plain(q, k, v).float(), atol=2e-3, rtol=2**-7
+    )
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,n_mels,int16", [(8, 480000, 80, False), (8, 480000, 128, False), (8, 480000, 80, True), (1, 16000, 80, False), (2, 1600, 128, True)])
+def test_log_mel_kernel_matches_plain(gen, B, n, n_mels, int16):
+    a = torch.randn((B, n), device="cuda", generator=gen) * 0.1
+    if int16:
+        a = (a * 32768).round().clamp(-32768, 32767).to(torch.int16)
+    before = mel.launches
+    got = mel.log_mel_kernel(a, n_mels)
+    torch.cuda.synchronize()
+    assert mel.launches == before + 1
+    # fp32 products in another order (chip_smoke.py's card-vs-CPU tolerance).
+    torch.testing.assert_close(got, log_mel_spectrogram(a, n_mels, device="cuda"), atol=1e-4, rtol=0)

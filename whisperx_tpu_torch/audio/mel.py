@@ -14,8 +14,10 @@ is True), which keeps about three decimal digits ahead of a ``log10``. A fp32
 ``torch.backends.cuda.matmul.allow_tf32`` keeps its default (False); callers
 that turn TF32 on for matmuls change this function's numbers.
 
-This is plain PyTorch: the JAX package computes it outside any Pallas kernel
-(``ops/pallas_mel.py:log_mel_pallas`` has no production caller).
+This is plain PyTorch, the front end by default, as in the JAX package. The
+fused kernel (``ops/mel.py:log_mel_kernel``, the counterpart of
+``ops/pallas_mel.py:log_mel_pallas``) computes the same function and uses
+this one as its plain version.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Build the port's modules from a parameter tree in the JAX package's layout.
 
-The tree is the nested dict ``whisperx_tpu`` keeps (``{"encoder": {...},
-"decoder": {...}}`` with ``layers_<i>`` subtrees), given as numpy arrays: fp,
-int8-quantized (:func:`..models.whisper.quantize_params`) and/or fused-QKV
-(:func:`..models.whisper.fuse_qkv_params`). The port's modules then compute
-the same function as the JAX ``Whisper`` with those parameters.
+The tree is the nested dict ``whisperx_tpu`` keeps, given as numpy arrays.
+For Whisper (``{"encoder": {...}, "decoder": {...}}`` with ``layers_<i>``
+subtrees) it may be fp, int8-quantized
+(:func:`..models.whisper.quantize_params`) and/or fused-QKV
+(:func:`..models.whisper.fuse_qkv_params`); for wav2vec2 it is the Flax
+``Wav2Vec2ForCTC`` tree. The port's modules then compute the same function
+as the JAX modules with those parameters.
 
 Layout changes, leaf by leaf:
 - Conv kernels: Flax stores (W, I, O); the port stores torch's (O, I, W).
@@ -18,9 +20,11 @@ import re
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import DeviceLike
-from .configs import WhisperConfig
+from .configs import Wav2Vec2Config, WhisperConfig
+from .wav2vec2 import Wav2Vec2ForCTC
 from .whisper import Whisper
 
 
@@ -42,7 +46,7 @@ def torch_name(path: tuple) -> str:
 
 
 @torch.no_grad()
-def load_jax_params(model: Whisper, params: dict) -> Whisper:
+def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     """Copy every leaf of ``params`` into ``model``; raises on a missing,
     extra or mis-shaped leaf."""
     named = dict(model.named_parameters())
@@ -74,6 +78,7 @@ def whisper_from_jax(
     config: WhisperConfig,
     *,
     dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
     device: DeviceLike = None,
 ) -> Whisper:
     """A port ``Whisper`` holding ``params`` (numpy tree, JAX layout).
@@ -85,5 +90,22 @@ def whisper_from_jax(
     q_dec = _has_key(params["decoder"], "kernel_scale")
     quantized = (q_enc and q_dec) or ("encoder" if q_enc else "decoder" if q_dec else False)
     fused = _has_key(params, "qkv")
-    model = Whisper(config, dtype=dtype, quantized=quantized, fused_qkv=fused, device=device)
+    model = Whisper(config, dtype=dtype, quantized=quantized, fused_qkv=fused, attn_impl=attn_impl, device=device)
+    return load_jax_params(model, params)
+
+
+def wav2vec2_from_jax(
+    params: dict,
+    config: Wav2Vec2Config,
+    *,
+    dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
+    device: DeviceLike = None,
+) -> Wav2Vec2ForCTC:
+    """A port ``Wav2Vec2ForCTC`` holding ``params`` (numpy tree, the Flax
+    layout of ``whisperx_tpu/models/wav2vec2.py``; fp only: the int8
+    variant is not ported). ``device=None`` means the card."""
+    if _has_key(params, "kernel_scale"):
+        raise NotImplementedError("int8 wav2vec2 trees (quantize_wav2vec2) are not ported")
+    model = Wav2Vec2ForCTC(config, dtype=dtype, attn_impl=attn_impl, device=device)
     return load_jax_params(model, params)

@@ -20,8 +20,10 @@ Differences in mechanism, not in value:
 - int8 projections with at most 256 rows (every decoder projection in a beam
   step) go through ``ops/int8_mm.py``, whose wrapper launches the Hopper
   kernel on CUDA tensors; decode-step cross attention over ``FlatCrossKV``
-  goes through ``ops/cross_attn.py``. The int4 weight and cache modes of the
-  JAX package are not ported.
+  goes through ``ops/cross_attn.py``; the encoder's self-attention through
+  ``ops/attention.py:fused_self_attention`` with the module's ``attn_impl``
+  ("flash" launches ``ops/flash_attn.py``'s kernel). The int4 weight and
+  cache modes of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import matmul_f32, self_attention
+from ..ops.attention import fused_self_attention, matmul_f32
 from ..ops.cross_attn import cross_attention_decode
 from ..ops.int8_mm import MAX_ROWS, int8_matmul
 from .configs import WhisperConfig
@@ -150,39 +152,47 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """fp32 LayerNorm (Flax names ``scale``/``bias``, epsilon 1e-5)."""
+    """fp32 LayerNorm (Flax names ``scale``/``bias``, epsilon 1e-5 by default)."""
 
-    def __init__(self, dim: int, device: DeviceLike):
+    def __init__(self, dim: int, device: DeviceLike, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.scale = _param((dim,), torch.float32, device)
         self.bias = _param((dim,), torch.float32, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, eps=1e-5)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, eps=self.eps)
 
 
 class Conv(nn.Module):
-    """1-D convolution over time with padding 1, channels last like Flax's
-    ``nn.Conv``: (B, T, C) → (B, T', O). ``kernel`` is torch's (O, I, W).
+    """1-D convolution over time, channels last like Flax's ``nn.Conv``:
+    (B, T, Cin) → (B, T', Cout), zero ``padding`` on both ends of time.
+    ``kernel`` is torch's (Cout, Cin / groups, W).
 
-    Runs as ``unfold`` + ``matmul`` so an fp32 model never meets cuDNN's
-    default TF32 convolution.
+    Runs as ``unfold`` + ``matmul`` (one product per group): an fp32 model
+    never meets cuDNN's default TF32 convolution, and no path depends on a
+    backend's grouped or low-precision convolution (PyTorch's CPU bf16
+    grouped ``conv1d`` returned wrong values in the port's wav2vec2 tests).
     """
 
-    def __init__(self, in_ch: int, out_ch: int, width: int, stride: int, *, dtype, device):
+    def __init__(self, cin, cout, width, stride=1, *, padding=0, groups=1, use_bias=True, dtype, device):
         super().__init__()
-        self.stride = stride
-        self.dtype = dtype
-        self.kernel = _param((out_ch, in_ch, width), torch.float32, device)
-        self.bias = _param((out_ch,), torch.float32, device)
+        self.stride, self.padding, self.groups, self.dtype = stride, padding, groups, dtype
+        self.kernel = _param((cout, cin // groups, width), torch.float32, device)
+        self.bias = _param((cout,), torch.float32, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        O, I, W = self.kernel.shape
-        x = F.pad(x.to(self.dtype), (0, 0, 1, 1))  # pad time by 1 on each side
-        cols = x.unfold(1, W, self.stride)  # (B, T', I, W)
-        cols = cols.reshape(cols.shape[0], cols.shape[1], I * W)
-        w = self.kernel.to(self.dtype).reshape(O, I * W).t()
-        return torch.matmul(cols, w) + self.bias.to(self.dtype)
+        O, Ig, W = self.kernel.shape
+        G = self.groups
+        x = x.to(self.dtype)
+        if self.padding:
+            x = F.pad(x, (0, 0, self.padding, self.padding))
+        cols = x.unfold(1, W, self.stride)  # (B, T', Cin, W): cols[b, t, c, j] = x[b, t*s + j, c]
+        B, T = cols.shape[:2]
+        w = self.kernel.to(self.dtype).reshape(G, O // G, Ig * W)
+        ys = [torch.matmul(cols[:, :, g * Ig : (g + 1) * Ig].reshape(B, T, Ig * W), w[g].t()) for g in range(G)]
+        y = ys[0] if G == 1 else torch.cat(ys, dim=-1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -196,6 +206,7 @@ class MultiHeadAttention(nn.Module):
         dtype: torch.dtype,
         quantized: bool,
         fused_qkv: bool = False,
+        attn_impl: str = "auto",
         device: DeviceLike,
     ):
         super().__init__()
@@ -204,6 +215,8 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = d_model // n_head
         self.dtype = dtype
         self.fused_qkv = fused_qkv
+        # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it.
+        self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, device=device)
         if fused_qkv:
             self.qkv = Dense(d_model, 3 * d_model, **kw)
@@ -268,7 +281,7 @@ class MultiHeadAttention(nn.Module):
 
         # Encoder path: full bidirectional self-attention, no cache.
         if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
-            out = self_attention(q, k * scale, v)
+            out = fused_self_attention(q, k * scale, v, impl=self.attn_impl)
             return self.out(out.reshape(x.shape[0], x.shape[1], self.d_model)), None
 
         new_cache = None
@@ -320,12 +333,13 @@ class MLP(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, device):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, attn_impl, device):
         super().__init__()
         self.dtype = dtype
         self.attn_ln = LayerNorm(d_model, device)
         self.attn = MultiHeadAttention(
-            d_model, n_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+            d_model, n_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, attn_impl=attn_impl,
+            device=device,
         )
         self.mlp_ln = LayerNorm(d_model, device)
         self.mlp = MLP(d_model, dtype=dtype, quantized=quantized, device=device)
@@ -337,16 +351,17 @@ class EncoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, device):
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, attn_impl="auto", device):
         super().__init__()
         cfg = config
         self.dtype = dtype
         D = cfg.n_audio_state
-        self.conv1 = Conv(cfg.n_mels, D, 3, 1, dtype=dtype, device=device)
-        self.conv2 = Conv(D, D, 3, 2, dtype=dtype, device=device)
+        self.conv1 = Conv(cfg.n_mels, D, 3, 1, padding=1, dtype=dtype, device=device)
+        self.conv2 = Conv(D, D, 3, 2, padding=1, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             EncoderBlock(
-                D, cfg.n_audio_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+                D, cfg.n_audio_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv,
+                attn_impl=attn_impl, device=device,
             )
             for _ in range(cfg.n_audio_layer)
         )
@@ -460,7 +475,9 @@ class Whisper(nn.Module):
 
     ``quantized``: False | True (both stacks) | "decoder" | "encoder".
     ``fused_qkv``: one (D, 3D) projection for every self-attention block;
-    pair with :func:`fuse_qkv_params`. ``device=None`` means the card.
+    pair with :func:`fuse_qkv_params`. ``attn_impl``: the encoder's
+    self-attention path ("auto" | "xla" | "flash"; ``ops.attention.
+    set_attn_impl`` changes it later). ``device=None`` means the card.
     """
 
     def __init__(
@@ -470,6 +487,7 @@ class Whisper(nn.Module):
         dtype: torch.dtype = torch.float32,
         quantized: Union[bool, str] = False,
         fused_qkv: bool = False,
+        attn_impl: str = "auto",
         device: DeviceLike = None,
     ):
         super().__init__()
@@ -480,7 +498,9 @@ class Whisper(nn.Module):
         self.fused_qkv = fused_qkv
         q_enc = quantized is True or quantized == "encoder"
         q_dec = quantized is True or quantized == "decoder"
-        self.encoder = AudioEncoder(config, dtype=dtype, quantized=q_enc, fused_qkv=fused_qkv, device=device)
+        self.encoder = AudioEncoder(
+            config, dtype=dtype, quantized=q_enc, fused_qkv=fused_qkv, attn_impl=attn_impl, device=device
+        )
         self.decoder = TextDecoder(config, dtype=dtype, quantized=q_dec, fused_qkv=fused_qkv, device=device)
 
     @property

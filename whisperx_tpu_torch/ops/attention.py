@@ -1,15 +1,53 @@
 """Bidirectional self-attention for the encoder stacks.
 
-Port of the path ``whisperx_tpu/ops/attention.py:fused_self_attention``
-takes, ``_naive`` (``:67-72``): ``resolve_attn_impl`` always returns "xla",
-so the flash branch is not on the ported path (it is queued as a kernel of
-its own). Plain matmul → fp32 softmax → matmul, as XLA runs it; the logits
-are materialized ((B, H, T, T) fp32: 1.44 GB per layer at large-v2 batch 8).
+Port of ``whisperx_tpu/ops/attention.py``. :func:`fused_self_attention`
+dispatches between two paths for (B, T, H, Dh) q, k, v whose q and k each
+carry Dh**-0.25:
+
+- "xla": :func:`_naive`, matmul → fp32 softmax → matmul as XLA runs it, with
+  an optional (B, T) key mask applied as an additive ``neg_mask``. The logits
+  are materialized ((B, H, T, T) fp32: 1.44 GB per layer at large-v2 batch 8).
+- "flash": ``ops/flash_attn.py``, the hand-written Hopper flash kernel (on
+  CPU tensors its plain version), which never materializes the logits.
+
+:func:`resolve_attn_impl` picks the path as the JAX package does.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
+
+from .flash_attn import flash_attention
+
+ATTN_IMPLS = ("auto", "xla", "flash")
+
+
+def resolve_attn_impl(impl: str = "auto") -> str:
+    """``WHISPERX_ATTN=flash|xla`` first, then ``impl``; "auto" → "xla".
+
+    "auto" keeps the JAX package's default (``whisperx_tpu/ops/attention.py:
+    41-64``); whether the card should default to "flash" is an open question
+    of ``PERF.md``.
+    """
+    env = os.environ.get("WHISPERX_ATTN", "")
+    if env in ("flash", "xla"):
+        return env
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}: expected one of {ATTN_IMPLS}")
+    return "xla" if impl == "auto" else impl
+
+
+def set_attn_impl(module: torch.nn.Module, impl: str) -> torch.nn.Module:
+    """Set ``attn_impl`` on every submodule of ``module`` that has one."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}: expected one of {ATTN_IMPLS}")
+    for m in module.modules():
+        if hasattr(m, "attn_impl"):
+            m.attn_impl = impl
+    return module
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -33,13 +71,34 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
-def self_attention(
+def _naive(
     q: torch.Tensor,  # (B, T, H, Dh), pre-scaled by Dh**-0.25
     k: torch.Tensor,  # (B, T, H, Dh), pre-scaled by Dh**-0.25
     v: torch.Tensor,  # (B, T, H, Dh)
+    pad_mask: Optional[torch.Tensor],  # (B, T), nonzero = valid key
+    neg_mask: float,
 ) -> torch.Tensor:
-    """Bidirectional self-attention without a key mask (Whisper's encoder),
-    (B, T, H, Dh) → (B, T, H, Dh)."""
+    """The reference's path (``whisperx_tpu/ops/attention.py:67-72``):
+    fp32 logits, additive ``neg_mask`` on excluded keys, fp32 softmax, the
+    weights rounded to v's type before the V product."""
     logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))  # (B, H, T, T)
+    if pad_mask is not None:
+        add = torch.where(pad_mask.bool(), 0.0, neg_mask).to(device=logits.device, dtype=torch.float32)
+        logits = logits + add[:, None, None, :]
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(w, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+
+
+def fused_self_attention(
+    q: torch.Tensor,  # (B, T, H, Dh), pre-scaled
+    k: torch.Tensor,  # (B, T, H, Dh), pre-scaled
+    v: torch.Tensor,  # (B, T, H, Dh)
+    pad_mask: Optional[torch.Tensor] = None,  # (B, T) bool/int, 1 = valid key
+    *,
+    impl: str = "auto",
+    neg_mask: float = -1e9,
+) -> torch.Tensor:
+    """Bidirectional self-attention, (B, T, H, Dh) → (B, T, H, Dh)."""
+    if resolve_attn_impl(impl) == "xla":
+        return _naive(q, k, v, pad_mask, neg_mask)
+    return flash_attention(q, k, v, pad_mask)

@@ -1,0 +1,292 @@
+"""CTC forced alignment: batched max-plus trellis and backtrack on the device.
+
+Port of ``whisperx_tpu/ops/ctc.py`` (reference recurrence:
+whisperx/alignment.py:359-421): trellis (T+1, N+1) with
+``new[j] = max(prev[j] + blank_t, prev[j-1] + token_t[j])``, a cumsum-of-blank
+first column whose last N rows are +inf (forcing full token consumption), and
+a greedy stay/change backtrack from the argmax of the final column.
+
+The JAX package runs the time recurrence as one ``lax.scan``; here it is a
+Python loop over T of three in-place tensor ops on a preallocated
+(B, T+1, N+1) buffer, vectorised over the batch. The device backtrack
+precomputes every stay/change decision at once, so its sequential walk over T
+is three small ops a step with no host sync. The JAX package has no Pallas
+trellis (``ctc.py:203-209``), so neither has the port.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+INF = float("inf")
+
+
+def ctc_trellis_batch(
+    log_probs: torch.Tensor,  # (B, T, V) log-softmax emissions
+    tokens: torch.Tensor,  # (B, N) int, padded with any valid id
+    t_len: torch.Tensor,  # (B,) true frame counts
+    n_len: torch.Tensor,  # (B,) true token counts
+    blank: int = 0,
+) -> torch.Tensor:
+    """Compute (B, T+1, N+1) alignment trellises for a padded segment batch."""
+    B, T, _ = log_probs.shape
+    N = tokens.shape[1]
+    dev = log_probs.device
+    lp = log_probs.float()
+    blank_em = lp[:, :, blank]  # (B, T)
+    tok_em = torch.gather(lp, 2, tokens.long()[:, None, :].expand(B, T, N))  # (B, T, N)
+
+    trellis = torch.empty((B, T + 1, N + 1), dtype=torch.float32, device=dev)
+    # Column 0: row 0 is 0; rows 1..T are the cumsum of blank, with the last
+    # n_len rows set to +inf (the full-consumption forcing trick).
+    csum = torch.cumsum(blank_em, dim=1)
+    rows = torch.arange(1, T + 1, device=dev)[None, :]
+    trellis[:, 1:, 0] = torch.where(rows > (t_len - n_len)[:, None].to(dev), INF, csum)
+    trellis[:, 0, 0] = 0.0
+    trellis[:, 0, 1:] = -INF
+    for t in range(T):
+        prev = trellis[:, t]
+        stay = prev[:, 1:] + blank_em[:, t, None]
+        advance = prev[:, :-1] + tok_em[:, t]
+        torch.maximum(stay, advance, out=trellis[:, t + 1, 1:])
+    return trellis
+
+
+@dataclass
+class PathPoint:
+    token_index: int
+    time_index: int
+    score: float  # frame-wise probability
+
+
+@dataclass
+class CharSpan:
+    label: str
+    start: int  # frame index (inclusive)
+    end: int  # frame index (exclusive)
+    score: float
+
+
+def backtrack(
+    trellis: np.ndarray,  # (T+1, N+1), true sizes (unpadded view)
+    blank_em: np.ndarray,  # (T,) blank log-probs
+    tok_em: np.ndarray,  # (T, N) per-token log-probs
+) -> Optional[List[PathPoint]]:
+    """Greedy stay/change walk from argmax of the last column.
+
+    Returns None when the walk exhausts time before consuming all tokens —
+    callers fall back to segment-level timestamps, the same degraded-output
+    contract as the reference (whisperx/alignment.py:245-248).
+    """
+    T = trellis.shape[0] - 1
+    N = trellis.shape[1] - 1
+    j = N
+    t_start = int(np.argmax(trellis[:, j]))
+
+    path: List[PathPoint] = []
+    for t in range(t_start, 0, -1):
+        stayed = trellis[t - 1, j] + blank_em[t - 1]
+        changed = trellis[t - 1, j - 1] + tok_em[t - 1, j - 1]
+        prob = float(np.exp(tok_em[t - 1, j - 1] if changed > stayed else blank_em[t - 1]))
+        path.append(PathPoint(j - 1, t - 1, prob))
+        if changed > stayed:
+            j -= 1
+            if j == 0:
+                break
+    else:
+        return None
+    return path[::-1]
+
+
+def merge_repeats(path: List[PathPoint], transcript: str) -> List[CharSpan]:
+    """Collapse consecutive path points of the same token into char spans."""
+    spans: List[CharSpan] = []
+    i1 = 0
+    while i1 < len(path):
+        i2 = i1
+        while i2 < len(path) and path[i1].token_index == path[i2].token_index:
+            i2 += 1
+        score = sum(p.score for p in path[i1:i2]) / (i2 - i1)
+        spans.append(
+            CharSpan(
+                transcript[path[i1].token_index],
+                path[i1].time_index,
+                path[i2 - 1].time_index + 1,
+                score,
+            )
+        )
+        i1 = i2
+    return spans
+
+
+def merge_words(spans: List[CharSpan], separator: str = "|") -> List[CharSpan]:
+    """Group char spans into word spans at separator chars (length-weighted score)."""
+    words: List[CharSpan] = []
+    i1, i2 = 0, 0
+    while i1 < len(spans):
+        if i2 >= len(spans) or spans[i2].label == separator:
+            if i1 != i2:
+                segs = spans[i1:i2]
+                word = "".join(s.label for s in segs)
+                total = sum(s.end - s.start for s in segs)
+                score = sum(s.score * (s.end - s.start) for s in segs) / total
+                words.append(CharSpan(word, segs[0].start, segs[-1].end, score))
+            i1 = i2 + 1
+            i2 = i1
+        else:
+            i2 += 1
+    return words
+
+
+def ctc_backtrack_device(
+    trellis: torch.Tensor,  # (B, T+1, N+1)
+    log_probs: torch.Tensor,  # (B, T, V)
+    tokens: torch.Tensor,  # (B, N)
+    t_len: torch.Tensor,  # (B,)
+    n_len: torch.Tensor,  # (B,)
+    blank: int = 0,
+):
+    """The greedy stay/change walk of :func:`backtrack` for every row at
+    once, on the trellis's device (``whisperx_tpu/ops/ctc.py:157-231``).
+
+    Step k walks t = T - k: with the token pointer j, ``stayed =
+    trellis[t-1, j] + blank[t-1]``, ``changed = trellis[t-1, j-1] +
+    tok[t-1, j-1]``, and j moves down when the step is active (t <= t_start,
+    j > 0) and ``changed > stayed``. All decisions are computed up front, so
+    the loop only gathers one of them per row and step.
+
+    Returns (token_idx, probs, active, success, t_start): (B, T) arrays in
+    descending-t order (position k holds time index T - 1 - k), then (B,).
+    """
+    B, T1, N1 = trellis.shape
+    T = T1 - 1
+    dev = trellis.device
+    lp = log_probs.float()
+    blank_em = lp[:, :, blank]  # (B, T)
+    tok_em = torch.gather(lp, 2, tokens.long()[:, None, :].expand(B, T, N1 - 1))  # (B, T, N)
+    t_len = t_len.to(dev).long()
+    n_len = n_len.to(dev).long()
+
+    # Start row: argmax over valid rows (t <= t_len) of the true final column
+    # (the first maximum, as jnp.argmax takes it).
+    col = torch.gather(trellis, 2, n_len[:, None, None].expand(B, T1, 1))[..., 0]  # (B, T+1)
+    rows = torch.arange(T1, device=dev)[None, :]
+    col = torch.where(rows <= t_len[:, None], col, -INF)
+    t_start = torch.argmax(col, dim=1)
+
+    # Every decision of the walk: for time t-1 (row r = t-1) and pointer j,
+    # jm1 = max(j-1, 0); take = changed > stayed; the step is active when
+    # t <= t_start and j > 0.
+    prev = trellis[:, :T]  # rows t-1 for t = 1..T, (B, T, N+1)
+    jm1 = torch.clamp(torch.arange(N1, device=dev) - 1, min=0)  # (N+1,)
+    stayed = prev + blank_em[:, :, None]
+    changed = prev[:, :, jm1] + tok_em[:, :, jm1]
+    take_all = changed > stayed
+    live = (torch.arange(1, T + 1, device=dev)[None, :] <= t_start[:, None])[:, :, None]  # t <= t_start
+    move = (take_all & live & (torch.arange(N1, device=dev) > 0)).long().reshape(B, T * N1)
+
+    j = n_len
+    js = []  # pointer before each step, descending t
+    for t in range(T, 0, -1):
+        js.append(j)
+        j = j - torch.gather(move, 1, (j + (t - 1) * N1)[:, None])[:, 0]
+    j_before = torch.stack(js, dim=1)  # (B, T)
+
+    # The step outputs, vectorised over the walk: row t-1 = T-1-k at position k.
+    r = torch.arange(T - 1, -1, -1, device=dev)[None, :].expand(B, T)
+    rows_b = torch.arange(B, device=dev)[:, None]
+    jm1_k = torch.clamp(j_before - 1, min=0)
+    take = take_all[rows_b, r, j_before]
+    tok_k = tok_em[rows_b, r, jm1_k]
+    blank_k = blank_em.flip(1)
+    probs = torch.exp(torch.where(take, tok_k, blank_k))
+    active = ((r + 1) <= t_start[:, None]) & (j_before > 0)
+    success = j == 0
+    return jm1_k, probs, active, success, t_start
+
+
+def ctc_align_batch_device(
+    log_probs: torch.Tensor,  # (B, T, V)
+    tokens: torch.Tensor,  # (B, N)
+    t_len: torch.Tensor,  # (B,)
+    n_len: torch.Tensor,  # (B,)
+    blank: int = 0,
+    backend: str = "scan",
+):
+    """Fused trellis + backtrack, entirely on the device (no host sync).
+
+    Returns (token_idx, probs, active, success, t_start) as
+    :func:`ctc_backtrack_device` does. ``backend`` "scan" is the only
+    trellis implementation; anything else raises, as in the JAX package.
+    """
+    if backend != "scan":
+        raise ValueError(
+            f"unknown CTC trellis backend {backend!r}: 'scan' is the only "
+            "implementation (the r2 Pallas trellis was deleted)"
+        )
+    trellis = ctc_trellis_batch(log_probs, tokens, t_len, n_len, blank=blank)
+    return ctc_backtrack_device(trellis, log_probs, tokens, t_len, n_len, blank=blank)
+
+
+def align_tokens_batch(
+    log_probs,  # (B, T, V) log-probs, numpy or tensor
+    token_lists: List[List[int]],
+    t_lens: List[int],
+    blank: int = 0,
+    backtrack_impl: str = None,
+    *,
+    device=None,
+):
+    """Batched trellis + backtrack for a padded batch of segments.
+
+    ``backtrack_impl`` is "device" (the vectorised walk,
+    default) or "host" (numpy reference walk, $WHISPERX_CTC_BACKTRACK).
+    ``device`` is where the trellis runs: a tensor's own device by default,
+    the CPU for numpy input. Returns a list (one per segment) of path lists
+    (or None on failure).
+    """
+    backtrack_impl = backtrack_impl or os.environ.get("WHISPERX_CTC_BACKTRACK", "device")
+    lp = torch.as_tensor(log_probs)
+    dev = torch.device(device) if device is not None else lp.device
+    lp = lp.to(dev)
+    B, T, V = lp.shape
+    # Bucket the token-count dim as the JAX package does (its compile
+    # signatures); the walk's results do not depend on it.
+    N_true = max((len(t) for t in token_lists), default=1)
+    N = max(64, -(-N_true // 64) * 64) if backtrack_impl == "device" else N_true
+    tokens = np.zeros((B, N), np.int64)
+    n_len = np.zeros((B,), np.int64)
+    for i, tl in enumerate(token_lists):
+        tokens[i, : len(tl)] = tl
+        n_len[i] = len(tl)
+    tokens_t = torch.from_numpy(tokens).to(dev)
+    t_len_t = torch.as_tensor(np.asarray(t_lens, np.int64)).to(dev)
+    n_len_t = torch.from_numpy(n_len).to(dev)
+
+    if backtrack_impl == "device":
+        tok_idx, probs, active, success, _ = ctc_align_batch_device(lp, tokens_t, t_len_t, n_len_t, blank=blank)
+        tok_idx, probs = tok_idx.cpu().numpy(), probs.cpu().numpy()
+        active, success = active.cpu().numpy(), success.cpu().numpy()
+        times = T - 1 - np.arange(T)  # time_index at each walk position
+        out = []
+        for i in range(len(token_lists)):
+            if not success[i]:
+                out.append(None)
+                continue
+            ks = np.nonzero(active[i])[0]
+            out.append([PathPoint(int(tok_idx[i, k]), int(times[k]), float(probs[i, k])) for k in ks][::-1])
+        return out
+
+    trellis = ctc_trellis_batch(lp, tokens_t, t_len_t, n_len_t, blank=blank).cpu().numpy()
+    lp_host = lp.float().cpu().numpy()
+    out = []
+    for i, tl in enumerate(token_lists):
+        Ti, Ni = int(t_lens[i]), len(tl)
+        em_i = lp_host[i, :Ti]
+        out.append(backtrack(trellis[i, : Ti + 1, : Ni + 1], em_i[:, blank], em_i[:, tl]))
+    return out
