@@ -70,7 +70,11 @@ def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
 @pytest.mark.parametrize(
     "B,T,H,lengths",
     [(8, 1500, 20, None), (8, 1499, 12, (1499, 1479, 1200, 700, 64, 65, 1, 1499)), (1, 1, 2, None),
-     (2, 100, 2, None), (3, 130, 4, (1, 130, 67)), (2, 64, 2, (0, 64))],
+     (2, 100, 2, None), (3, 130, 4, (1, 130, 67)), (2, 64, 2, (0, 64)),
+     # T around the 128-row tile and key tile; 180 work items (B x H x query
+     # tiles), more than the persistent grid's one CTA per SM.
+     (2, 127, 3, None), (2, 128, 3, (128, 5)), (2, 129, 3, (129, 128)), (2, 257, 3, (257, 129)),
+     (3, 1500, 5, (1500, 1479, 1)), (1, 33, 1, None)],
 )
 def test_flash_attn_kernel_matches_plain(gen, B, T, H, lengths):
     q = (torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16()
@@ -88,9 +92,26 @@ def test_flash_attn_kernel_matches_plain(gen, B, T, H, lengths):
 
 
 @pytest.mark.cuda
-def test_flash_attn_kernel_takes_fused_qkv_slices(gen):
-    qkv = (torch.randn((2, 300, 3 * 4 * 64), device="cuda", generator=gen) * 0.35).bfloat16()
-    q, k, v = (qkv[..., i * 256 : (i + 1) * 256].reshape(2, 300, 4, 64) for i in range(3))
+def test_flash_attn_kernel_skips_a_key_tile_with_no_valid_key(gen):
+    """Keys 128..255 (the middle 128-key tile) excluded in every row, plus a
+    row whose only valid keys lie in the last tile."""
+    B, T, H = 3, 384, 4
+    q, k = ((torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16() for _ in range(2))
+    v = torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16()
+    mask = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    mask[:, 128:256] = False
+    mask[2, :300] = False
+    got = flash_attn.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), flash_attn.flash_attention_plain(q, k, v, mask).float(), atol=2e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(2, 300, 4), (2, 1500, 20)])
+def test_flash_attn_kernel_takes_fused_qkv_slices(gen, B, T, H):
+    D = H * 64
+    qkv = (torch.randn((B, T, 3 * D), device="cuda", generator=gen) * 0.35).bfloat16()
+    q, k, v = (qkv[..., i * D : (i + 1) * D].reshape(B, T, H, 64) for i in range(3))
     torch.testing.assert_close(
         flash_attn.flash_attention(q, k, v).float(), flash_attn.flash_attention_plain(q, k, v).float(), atol=2e-3, rtol=2**-7
     )
@@ -99,7 +120,9 @@ def test_flash_attn_kernel_takes_fused_qkv_slices(gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,n_mels,int16", [(8, 480000, 80, False), (8, 480000, 128, False), (8, 480000, 80, True), (1, 16000, 80, False), (2, 1600, 128, True)])
+@pytest.mark.parametrize("B,n,n_mels,int16", [(8, 480000, 80, False), (8, 480000, 128, False), (8, 480000, 80, True), (1, 16000, 80, False), (2, 1600, 128, True),
+                                                 # 101 frames (not a multiple of the 16-frame tile); n_mels 128 from int16
+                                                 (3, 16160, 80, False), (3, 16160, 128, True), (8, 480000, 128, True)])
 def test_log_mel_kernel_matches_plain(gen, B, n, n_mels, int16):
     a = torch.randn((B, n), device="cuda", generator=gen) * 0.1
     if int16:

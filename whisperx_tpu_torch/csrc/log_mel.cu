@@ -4,38 +4,54 @@
 // log_mel_pallas. For each batch row of audio (n samples, fp32, or int16 PCM
 // divided by 32768) and each frame f < n / 160:
 //   frame    = reflect-padded samples [160 f, 160 f + 400)          (pad 200 per end)
-//   re, im   = frame @ [cos | -sin] (the Hann-windowed real DFT, 400 x 201 each)
-//   power    = re^2 + im^2                                          (201 bins)
+//   X[k]     = sum_t hann[t] frame[t] e^{-2 pi i t k / 400}, k = 0..200
+//   power    = |X|^2                                                (201 bins)
 //   mel      = power @ filters^T                                    (n_mels)
 //   x        = log10(max(mel, 1e-10))
 // then, per batch row, out = (max(x, max_row(x) - 8) + 4) / 4, written as
 // (B, n_mels, n_frames) fp32.
 //
-// What bounds it on the card: operations. The DFT is 400 x 402 multiply-adds
-// per frame: 7.7 GFLOP at B 8 x 3000 frames, plus 0.8 GFLOP for the mel
-// product at n_mels 80. It has to stay within 1e-4 of the fp32 plain version
-// after the log, which TF32 (10-bit mantissa) cannot promise and a split of
-// the operands into bf16 parts only narrowly does, so the products run in
-// fp32 on the CUDA cores (67 TFLOP/s peak: 0.127 ms for the batch), against
-// 23 MB of audio and output (7 us).
+// What bounds it on the card: bytes. At B 8 x 3000 frames of int16 audio the
+// call reads 7.7 MB and writes 7.7 MB (n_mels 80): 15.4 MB, 0.0046 ms at
+// 3.35 TB/s. A radix FFT's least work (2.5 N log2 N a frame, ~0.24 GFLOP for
+// the batch) would take 0.0036 ms at the 67 TFLOP/s fp32 peak.
 //
-// Design (the TPU kernel's stride-2 row slices of 80-sample blocks, and its
-// im2col-free framing, become a shared-memory window):
-//  - One CTA of 256 threads per (tile of 32 frames, batch row): 752 CTAs at
-//    8 x 3000 frames. The tile's 5,360 reflect-padded samples are read once
-//    into shared memory; frame i of the tile starts at sample 160 i there, so
-//    framing is an offset, not a copy.
-//  - The basis streams through shared memory 8 rows at a time. A warp owns
-//    4 frames and each lane 7 bins (224 >= 201), re and im: 56 fp32
-//    accumulators a thread, 56 FMAs per 18 shared loads, of which the 4
-//    sample loads are broadcasts.
-//  - power goes to shared memory (stride 201: the 32 frames of a warp hit 32
-//    banks); a warp then computes one mel band for the tile's 32 frames, so
-//    its output stores are coalesced and the filter loads are broadcasts.
-//  - The per-row max is reduced in the same launch: one atomicMax per warp on
+// The algorithm: a two-stage Cooley-Tukey split of the real DFT, 400 = 20 x 20,
+// with t = 20 n1 + n2 and k = k1 + 20 k2:
+//   Y[n2][k1] = sum_n1 x[20 n1 + n2] W20^(n1 k1)      20 real DFT-20s (k1 0..10,
+//                                                     the rest by conjugate symmetry)
+//   Z[n2][k1] = Y[n2][k1] W400^(n2 k1)                 one twiddle multiply
+//   X[k1 + 20 k2] = sum_n2 Z[n2][k1] W20^(n2 k2)       20 complex DFT-20s, 201 bins kept
+// All in fp32 on the CUDA cores: the result has to stay within 1e-4 of the
+// fp32 plain version after the log, which TF32 cannot promise. The small DFTs
+// are direct products, about 57 kFLOP a frame (1.37 GFLOP for the batch:
+// 0.020 ms at the fp32 peak) against 322 kFLOP for the dense DFT it replaces;
+// the mel product is banded, 391 taps a frame at n_mels 80 (394 at 128)
+// instead of 201 x n_mels.
+//
+// Design:
+//  - One CTA of 320 threads per (tile of 16 frames, batch row): 1,504 CTAs
+//    at 8 x 3000 frames. The tile's 2,800 reflect-padded samples are read
+//    from device memory once into shared memory, where frame i starts at
+//    sample 160 i: framing is an offset, not a copy.
+//  - Thread (frame, n2) computes one real DFT-20 and its twiddles; thread
+//    (frame, k1) then one complex DFT-20 and its 10 (or 11) power bins. The
+//    DFT-20 coefficients, built in float64 on the host, are a kernel
+//    parameter: with the loops unrolled every index is a constant, so they
+//    are read from the constant bank as FMA operands. The Hann window and
+//    the twiddles (runtime-indexed) sit in shared memory, 4.8 KB a CTA. The
+//    intermediate Z lives in shared memory with strides (500 a frame, 25 a
+//    k1) under which both the writes of stage 1 and the reads of stage 2 are
+//    free of bank conflicts.
+//  - The mel product reads a (start, length, taps) table per band: a warp
+//    takes two bands for the tile's 16 frames, so its output stores are two
+//    64-byte runs and the tap loads are broadcasts.
+//  - The per-row max is reduced in the same launch: one atomicMax per CTA on
 //    an order-preserving unsigned image of the float (exact, so the order of
 //    the atomics does not matter). A second, elementwise kernel of the same
 //    call applies the clip and the scale in place.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.065 ms at
+// 8 x 30 s int16, n_mels 80 (torch.stft + the filterbank matmul: 0.262 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,20 +62,31 @@ namespace {
 constexpr int N_FFT = 400;
 constexpr int HOP = 160;
 constexpr int HALF = N_FFT / 2;
-constexpr int NF = 201;          // one-sided bins
-constexpr int NFP = 224;         // bins padded to 7 x 32
-constexpr int FT = 32;           // frames per CTA
-constexpr int THREADS = 256;
-constexpr int KC = 8;            // basis rows per shared-memory chunk
-constexpr int WIN = FT * HOP + N_FFT - HOP;  // samples a tile reads (5,360)
-constexpr int BINS_PER_LANE = NFP / 32;      // 7
-constexpr int FRAMES_PER_WARP = FT / (THREADS / 32);  // 4
+constexpr int NF = 201;                       // one-sided bins
+constexpr int R = 20;                         // 400 = R x R
+constexpr int FT = 16;                        // frames per CTA
+constexpr int THREADS = FT * R;               // 320: one thread per (frame, n2) and per (frame, k1)
+constexpr int WARPS = THREADS / 32;
+constexpr int WIN = FT * HOP + N_FFT - HOP;   // samples a tile reads (2,800)
+constexpr int ZF = 500;                       // Z stride per frame (= 20 mod 32)
+constexpr int ZK = 25;                        // Z stride per k1 (= 1 mod 8)
+constexpr int MAX_TAPS = 16;                  // widest mel band (14 bins at n_mels 80)
 
-// Shared memory: the sample window and one basis chunk during the DFT, then
-// the tile's power spectrum in the same bytes.
-constexpr int SMEM_FLOATS_DFT = WIN + KC * 2 * NFP;
-constexpr int SMEM_FLOATS_POWER = FT * NF;
-constexpr int SMEM_FLOATS = SMEM_FLOATS_DFT > SMEM_FLOATS_POWER ? SMEM_FLOATS_DFT : SMEM_FLOATS_POWER;
+// Shared memory, in floats: window, Hann, twiddles (re, im; [k1][n2]), Z
+// (re, im planes). The power spectrum reuses the Z bytes after stage 2.
+constexpr int OFF_HANN = WIN;
+constexpr int OFF_TWR = OFF_HANN + N_FFT;
+constexpr int OFF_TWI = OFF_TWR + R * R;
+constexpr int OFF_ZR = OFF_TWI + R * R;
+constexpr int OFF_ZI = OFF_ZR + FT * ZF;
+constexpr int SMEM_FLOATS = OFF_ZI + FT * ZF;
+static_assert(FT * NF <= FT * ZF, "power fits in the Z planes");
+
+// cos and sin of 2 pi j / 20, j = 0..19 (built in float64 on the host).
+struct Dft20 {
+  float c[R];
+  float s[R];
+};
 
 __device__ __forceinline__ unsigned order_key(float x) {
   const unsigned u = __float_as_uint(x);
@@ -75,18 +102,23 @@ __device__ __forceinline__ float sample(const int16_t* x, long long i) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-log_mel_kernel(const T* __restrict__ audio, const float* __restrict__ basis,  // (400, 2 * NFP)
-               const float* __restrict__ filt,                                // (NF, n_mels)
+__global__ void __launch_bounds__(THREADS, 2)
+log_mel_kernel(const T* __restrict__ audio, const Dft20 w,
+               const float* __restrict__ tables,  // hann (400) | twiddle re (20 x 20) | twiddle im (20 x 20)
+               const int* __restrict__ band,      // start (n_mels) | length (n_mels)
+               const float* __restrict__ taps,    // (n_mels, MAX_TAPS)
                float* __restrict__ out, unsigned* __restrict__ row_max, int n, int n_frames, int n_mels) {
-  __shared__ __align__(16) float smem[SMEM_FLOATS];
-  float* win = smem;             // WIN samples
-  float* bas = smem + WIN;       // KC rows of [cos (NFP) | -sin (NFP)]
-  float* power = smem;           // FT x NF, after the DFT
+  extern __shared__ __align__(16) float smem[];
+  float* win = smem;
+  float* hann = smem + OFF_HANN;
+  float* twr = smem + OFF_TWR;
+  float* twi = smem + OFF_TWI;
+  float* zr = smem + OFF_ZR;
+  float* zi = smem + OFF_ZI;
+  float* power = zr;  // (FT, NF), after stage 2
+  __shared__ float warp_max[WARPS];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int f0 = blockIdx.x * FT;
   const int b = blockIdx.y;
   const T* x = audio + (long long)b * n;
@@ -100,63 +132,95 @@ log_mel_kernel(const T* __restrict__ audio, const float* __restrict__ basis,  //
     o = min(max(o, 0), n - 1);
     win[i] = sample(x, o);
   }
+  for (int i = tid; i < N_FFT + 2 * R * R; i += THREADS) hann[i] = tables[i];
+  __syncthreads();
 
-  float re[FRAMES_PER_WARP][BINS_PER_LANE], im[FRAMES_PER_WARP][BINS_PER_LANE];
-#pragma unroll
-  for (int f = 0; f < FRAMES_PER_WARP; ++f) {
-#pragma unroll
-    for (int j = 0; j < BINS_PER_LANE; ++j) re[f][j] = im[f][j] = 0.0f;
-  }
-  const float* wf = win + warp * FRAMES_PER_WARP * HOP;  // this warp's first frame
+  const int f = tid / R;   // frame of the tile
+  const int r = tid - f * R;  // n2 in stage 1, k1 in stage 2
 
-  for (int k0 = 0; k0 < N_FFT; k0 += KC) {
-    __syncthreads();  // the previous chunk is consumed (and the window is written)
-    for (int i = tid; i < KC * 2 * NFP; i += THREADS) bas[i] = basis[k0 * 2 * NFP + i];
-    __syncthreads();
+  // Stage 1: thread (f, n2) -> Z[f][k1][n2] for k1 = 0..19.
+  {
+    const int n2 = r;
+    float xs[R];
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float xs[FRAMES_PER_WARP];
+    for (int n1 = 0; n1 < R; ++n1) xs[n1] = win[f * HOP + R * n1 + n2] * hann[R * n1 + n2];
+    float yr[R / 2 + 1], yi[R / 2 + 1];
 #pragma unroll
-      for (int f = 0; f < FRAMES_PER_WARP; ++f) xs[f] = wf[f * HOP + k0 + kk];
+    for (int k1 = 0; k1 <= R / 2; ++k1) {
+      float a = 0.0f, c = 0.0f;
 #pragma unroll
-      for (int j = 0; j < BINS_PER_LANE; ++j) {
-        const float c = bas[kk * 2 * NFP + lane + 32 * j];
-        const float s = bas[kk * 2 * NFP + NFP + lane + 32 * j];
-#pragma unroll
-        for (int f = 0; f < FRAMES_PER_WARP; ++f) {
-          re[f][j] = fmaf(xs[f], c, re[f][j]);
-          im[f][j] = fmaf(xs[f], s, im[f][j]);
-        }
+      for (int n1 = 0; n1 < R; ++n1) {
+        a = fmaf(xs[n1], w.c[(n1 * k1) % R], a);
+        c = fmaf(xs[n1], w.s[(n1 * k1) % R], c);
       }
+      yr[k1] = a;
+      yi[k1] = -c;
     }
-  }
-  __syncthreads();  // the window and the basis are dead: power reuses the bytes
+    float* zr_f = zr + f * ZF + n2;
+    float* zi_f = zi + f * ZF + n2;
 #pragma unroll
-  for (int f = 0; f < FRAMES_PER_WARP; ++f) {
-#pragma unroll
-    for (int j = 0; j < BINS_PER_LANE; ++j) {
-      const int bin = lane + 32 * j;
-      if (bin < NF) power[(warp * FRAMES_PER_WARP + f) * NF + bin] = re[f][j] * re[f][j] + im[f][j] * im[f][j];
+    for (int k1 = 0; k1 < R; ++k1) {
+      const float ar = k1 <= R / 2 ? yr[k1] : yr[R - k1];
+      const float ai = k1 <= R / 2 ? yi[k1] : -yi[R - k1];
+      const float wr = twr[k1 * R + n2], wi = twi[k1 * R + n2];
+      zr_f[k1 * ZK] = ar * wr - ai * wi;
+      zi_f[k1 * ZK] = fmaf(ar, wi, ai * wr);
     }
   }
   __syncthreads();
 
-  // Mel bands: warp w takes bands w, w + 8, ...; lane = frame of the tile.
-  const int f = f0 + lane;
+  // Stage 2: thread (f, k1) -> bins k1 + 20 k2, k2 = 0..9 (and bin 200 for k1 = 0).
+  {
+    const int k1 = r;
+    float xr[R / 2 + 1], xi[R / 2 + 1];
+#pragma unroll
+    for (int k2 = 0; k2 <= R / 2; ++k2) xr[k2] = xi[k2] = 0.0f;
+    const float* zr_f = zr + f * ZF + k1 * ZK;
+    const float* zi_f = zi + f * ZF + k1 * ZK;
+#pragma unroll
+    for (int n2 = 0; n2 < R; ++n2) {
+      const float a = zr_f[n2], c = zi_f[n2];
+#pragma unroll
+      for (int k2 = 0; k2 <= R / 2; ++k2) {
+        const float cs = w.c[(n2 * k2) % R], sn = w.s[(n2 * k2) % R];
+        xr[k2] = fmaf(a, cs, fmaf(c, sn, xr[k2]));
+        xi[k2] = fmaf(c, cs, fmaf(-a, sn, xi[k2]));
+      }
+    }
+    __syncthreads();  // every Z read is done: power reuses the bytes
+    float* p = power + f * NF + k1;
+#pragma unroll
+    for (int k2 = 0; k2 < R / 2; ++k2) p[R * k2] = xr[k2] * xr[k2] + xi[k2] * xi[k2];
+    if (k1 == 0) p[R * (R / 2)] = xr[R / 2] * xr[R / 2] + xi[R / 2] * xi[R / 2];
+  }
+  __syncthreads();
+
+  // Stage 3: banded mel. Thread (f = tid % 16) takes bands tid / 16 + 20 j.
+  const int ff = tid & (FT - 1);
+  const int frame = f0 + ff;
+  const float* prow = power + ff * NF;
   float mx = -INFINITY;
-  for (int m = warp; m < n_mels; m += THREADS / 32) {
+  for (int m = tid / FT; m < n_mels; m += THREADS / FT) {
+    const int start = __ldg(band + m), len = __ldg(band + n_mels + m);
+    const float* tm = taps + m * MAX_TAPS;
     float acc = 0.0f;
-    const float* prow = power + lane * NF;
-    for (int c = 0; c < NF; ++c) acc = fmaf(prow[c], __ldg(filt + c * n_mels + m), acc);
+    for (int i = 0; i < len; ++i) acc = fmaf(prow[start + i], __ldg(tm + i), acc);
     const float lg = log10f(fmaxf(acc, 1e-10f));
-    if (f < n_frames) {
-      out[((long long)b * n_mels + m) * n_frames + f] = lg;
+    if (frame < n_frames) {
+      out[((long long)b * n_mels + m) * n_frames + frame] = lg;
       mx = fmaxf(mx, lg);
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if (lane == 0 && mx > -INFINITY) atomicMax(row_max + b, order_key(mx));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = mx;
+  __syncthreads();
+  if (tid == 0) {
+    float m = warp_max[0];
+#pragma unroll
+    for (int i = 1; i < WARPS; ++i) m = fmaxf(m, warp_max[i]);
+    if (m > -INFINITY) atomicMax(row_max + b, order_key(m));
+  }
 }
 
 // out = (max(out, row_max - 8) + 4) / 4, in place.
@@ -170,14 +234,19 @@ __global__ void clip_scale_kernel(float* __restrict__ out, const unsigned* __res
 }
 
 template <typename T>
-cudaError_t launch(const void* audio, const void* basis, const void* filt, void* out, void* row_max, int B, int n,
-                   int n_mels, cudaStream_t stream) {
+cudaError_t launch(const void* audio, const Dft20& w, const void* tables, const void* band, const void* taps,
+                   void* out, void* row_max, int B, int n, int n_mels, cudaStream_t stream) {
   const int n_frames = n / HOP;
-  cudaError_t e = cudaMemsetAsync(row_max, 0, sizeof(unsigned) * B, stream);  // 0 is below every key
+  const size_t smem = SMEM_FLOATS * sizeof(float);
+  auto kern = log_mel_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  log_mel_kernel<T><<<dim3((n_frames + FT - 1) / FT, B), THREADS, 0, stream>>>(
-      static_cast<const T*>(audio), static_cast<const float*>(basis), static_cast<const float*>(filt),
-      static_cast<float*>(out), static_cast<unsigned*>(row_max), n, n_frames, n_mels);
+  e = cudaMemsetAsync(row_max, 0, sizeof(unsigned) * B, stream);  // 0 is below every key
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((n_frames + FT - 1) / FT, B), THREADS, smem, stream>>>(
+      static_cast<const T*>(audio), w, static_cast<const float*>(tables), static_cast<const int*>(band),
+      static_cast<const float*>(taps), static_cast<float*>(out), static_cast<unsigned*>(row_max), n, n_frames,
+      n_mels);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long per_row = (long long)n_mels * n_frames;
@@ -193,13 +262,20 @@ cudaError_t launch(const void* audio, const void* basis, const void* filt, void*
 
 // The caller (whisperx_tpu_torch/ops/mel.py) checks shapes and types: audio
 // (B, n) fp32 (is_int16 = 0) or int16 (1), n a multiple of 160 and above 200;
-// basis (400, 448) fp32; filt (201, n_mels) fp32; out (B, n_mels, n / 160)
+// dft20 40 host floats (cos | sin of 2 pi j / 20); tables 1,200 fp32 on the
+// card (hann | twiddle re | twiddle im, [k1][n2]); band 2 x n_mels int32
+// (start | length <= 16); taps (n_mels, 16) fp32; out (B, n_mels, n / 160)
 // fp32; row_max B words of scratch.
-extern "C" int log_mel(const void* audio, int is_int16, const void* basis, const void* filt, void* out,
-                       void* row_max, int B, int n, int n_mels, void* stream) {
+extern "C" int log_mel(const void* audio, int is_int16, const float* dft20, const void* tables, const void* band,
+                       const void* taps, void* out, void* row_max, int B, int n, int n_mels, void* stream) {
+  Dft20 w;
+  for (int j = 0; j < R; ++j) {
+    w.c[j] = dft20[j];
+    w.s[j] = dft20[R + j];
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = is_int16 ? launch<int16_t>(audio, basis, filt, out, row_max, B, n, n_mels, st)
-                                 : launch<float>(audio, basis, filt, out, row_max, B, n, n_mels, st);
+  const cudaError_t e = is_int16 ? launch<int16_t>(audio, w, tables, band, taps, out, row_max, B, n, n_mels, st)
+                                 : launch<float>(audio, w, tables, band, taps, out, row_max, B, n, n_mels, st);
   return static_cast<int>(e);
 }
 

@@ -7,7 +7,10 @@ power → mel → log10 with a 1e-10 floor, then the per-row clip to max - 8 and
 
 On a CUDA tensor :func:`log_mel_kernel` launches the hand-written Hopper
 kernel ``csrc/log_mel.cu`` (or raises); on a CPU tensor it runs its plain
-version, the port's ``audio/mel.py:log_mel_spectrogram``.
+version, the port's ``audio/mel.py:log_mel_spectrogram``. The kernel runs
+the DFT as a 20 x 20 Cooley-Tukey FFT and the filterbank as bands; the
+tables it is handed are built here (:func:`fft_tables`, :func:`mel_bands`)
+and the CPU tests check them.
 
 Input scaling follows ``audio/mel.py``, which the decode path uses: int16 PCM
 is divided by 32768 (on the card, inside the kernel). ``log_mel_pallas``
@@ -23,34 +26,72 @@ import functools
 import numpy as np
 import torch
 
-from ..audio.constants import HOP_LENGTH, N_FFT, N_FREQS
-from ..audio.mel import _dft_basis, log_mel_spectrogram, mel_filters
+from ..audio.constants import HOP_LENGTH, N_FFT
+from ..audio.mel import log_mel_spectrogram, mel_filters
 from ..device import DeviceLike, resolve_device
 from . import _build
 
-_BINS_PADDED = 224  # the kernel's bins per half (7 x 32 lanes)
+FFT_RADIX = 20  # the kernel's real DFT of 400 is split as 20 x 20
+MAX_TAPS = 16  # the kernel's widest mel band (14 bins at n_mels 80, 9 at 128)
 
 # Kernel launches since the last reset (chip_smoke.py zeroes and reads it).
 # One launch is one call: the tile kernel and its clip-and-scale epilogue.
 launches = 0
 
 
+@functools.cache
+def fft_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's FFT tables, built in float64 and rounded to float32.
+
+    Returns (dft20, tables): ``dft20`` (2, 20) is cos | sin of 2 pi j / 20
+    (the coefficients of both stages' DFT-20s, exact zeros where they are
+    zero); ``tables`` (1200,) is the periodic Hann window (400), then the
+    twiddles W400^(n2 k1) = exp(-2 pi i n2 k1 / 400) as real (20 x 20) and
+    imaginary (20 x 20) parts, laid out [k1][n2].
+    """
+    r = FFT_RADIX
+    ang = 2.0 * np.pi * np.arange(r, dtype=np.float64) / r
+    dft20 = np.stack([np.cos(ang), np.sin(ang)])
+    dft20[np.abs(dft20) < 1e-12] = 0.0
+    n = np.arange(N_FFT, dtype=np.float64)
+    hann = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / N_FFT))
+    k1, n2 = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
+    tw = np.exp(-2j * np.pi * (n2 * k1) / N_FFT)
+    tables = np.concatenate([hann, tw.real.ravel(), tw.imag.ravel()])
+    return dft20.astype(np.float32), tables.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_bands(n_mels: int) -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank as bands: (band (2, n_mels) int32: first bin | number of
+    bins, taps (n_mels, 16) float32 zero-padded). Every filter's nonzero taps
+    are one contiguous run of bins, so the band rebuilds ``mel_filters``."""
+    filt = mel_filters(n_mels)
+    band = np.zeros((2, n_mels), np.int32)
+    taps = np.zeros((n_mels, MAX_TAPS), np.float32)
+    for m, row in enumerate(filt):
+        nz = np.flatnonzero(row)
+        start, length = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
+        if length > MAX_TAPS:
+            raise ValueError(f"mel band {m} of {n_mels} spans {length} bins; the kernel takes at most {MAX_TAPS}")
+        band[:, m] = start, length
+        taps[m, :length] = row[start : start + length]
+    return band, taps
+
+
 @functools.lru_cache(maxsize=8)
-def _tables(n_mels: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(basis (400, 2 x 224): cos | -sin, each zero-padded from 201 bins;
-    filters transposed (201, n_mels)), fp32 on ``device``."""
-    dft = _dft_basis()  # (400, 402)
-    basis = np.zeros((N_FFT, 2 * _BINS_PADDED), np.float32)
-    basis[:, :N_FREQS] = dft[:, :N_FREQS]
-    basis[:, _BINS_PADDED : _BINS_PADDED + N_FREQS] = dft[:, N_FREQS:]
-    filt = np.ascontiguousarray(mel_filters(n_mels).T)
-    return torch.from_numpy(basis).to(device), torch.from_numpy(filt).to(device)
+def _device_tables(n_mels: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(FFT tables (1200,), band (2, n_mels) int32, taps (n_mels, 16)) on ``device``."""
+    band, taps = mel_bands(n_mels)
+    return tuple(torch.from_numpy(a).to(device) for a in (fft_tables()[1], band, taps))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("log_mel")
-    lib.log_mel.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.log_mel.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
     lib.log_mel.restype = ctypes.c_int
     return lib
 
@@ -81,7 +122,7 @@ def log_mel_kernel(audio, n_mels: int = 80, *, device: DeviceLike = None) -> tor
         out = log_mel_spectrogram(x, n_mels=n_mels, device=dev)
         return out[0] if squeeze else out
     B, n = x.shape
-    basis, filt = _tables(n_mels, dev)
+    tables, band, taps = _device_tables(n_mels, dev)
     out = torch.empty((B, n_mels, n // HOP_LENGTH), dtype=torch.float32, device=dev)
     row_max = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _lib()
@@ -89,8 +130,10 @@ def log_mel_kernel(audio, n_mels: int = 80, *, device: DeviceLike = None) -> tor
         code = lib.log_mel(
             x.data_ptr(),
             int(x.dtype == torch.int16),
-            basis.data_ptr(),
-            filt.data_ptr(),
+            fft_tables()[0].ctypes.data,
+            tables.data_ptr(),
+            band.data_ptr(),
+            taps.data_ptr(),
             out.data_ptr(),
             row_max.data_ptr(),
             B,
