@@ -153,16 +153,21 @@ def int8_mm_phase(torch, card: str) -> dict:
     # fp32 sums in another order; the bf16 output may round one ulp apart.
     atol, rtol = 1e-3, 2**-7
     path_err = 0.0
-    cases = [(40, layer), (32, layer), (256, [(D, 4 * D)]), (1, [(D, D)])]  # decode, prompt, edges
-    for M, shapes in cases:
+    # Decode, prompt, edges; then x rows around the n8 columns and the 64-row
+    # block at the widest K (ten chunks a split), without a bias.
+    cases = [(40, layer, True), (32, layer, True), (256, [(D, 4 * D)], True), (1, [(D, D)], True)]
+    cases += [(M, [(4 * D, D)], False) for M in (8, 39, 41, 64, 65, 128, 255)]
+    for M, shapes, with_bias in cases:
         for K, N in dict.fromkeys(shapes):
             x, w, s, b = operands(M, K, N)
+            b = b if with_bias else None
             got = int8_mm.int8_matmul(x, w, s, b)
             torch.cuda.synchronize()
             err = max_err_within(torch, f"int8_mm M={M} K={K} N={N}", got, int8_mm.int8_matmul_plain(x, w, s, b), atol, rtol)
             if M in (40, 32):
                 path_err = max(path_err, err)
-            log(f"int8_mm M={M} K={K} N={N} bf16 out: max abs err {err:.3g} vs plain (atol {atol}, rtol {rtol}): ok")
+            log(f"int8_mm M={M} K={K} N={N} bf16 out{'' if with_bias else ', no bias'}: max abs err {err:.3g} vs plain "
+                f"(atol {atol}, rtol {rtol}): ok")
 
     # Timing unit: one decoder layer's six projections at M = 40 (batch 8 x
     # beam 5). Weights of 8 distinct layers (183 MB) rotate, so every call
@@ -202,6 +207,8 @@ def int8_mm_phase(torch, card: str) -> dict:
     return {
         "name": "int8_matmul",
         "route": "cuda",
+        "design": "swap-AB mma.sync m16n8k16, W by TMA all at once (one round trip), int8->bf16 in registers, "
+                  "split K summed through a cluster by st.async",
         "source": "whisperx_tpu_torch/csrc/int8_mm.cu",
         "replaces": "whisperx_tpu/ops/pallas_int8_mm.py:42",
         "launches": None,
@@ -241,6 +248,20 @@ def cross_attn_phase(torch, card: str) -> dict:
         if kv_int8:
             path_err = max(path_err, err)
         log(f"cross_attn {what} B={B} G={g} S={S} H={H}: max abs err {err:.3g} vs plain (atol {atol}, rtol {rtol}): ok")
+    # Edges, bf16 K/V: S around the 64-position chunk and long, G from one row
+    # to five blocks of 8. q and K on coarse grids (q in 1/64, K in 1/8
+    # steps) make every logit exact in any order: with few positions a weight
+    # is ~1/S, and one bf16 ulp of a weight rounding the other way would move
+    # the output by ~1e-4 * |v|.
+    for s_len in (1, 63, 64, 65, 3000):
+        for g in (1, 16, 17, 40):
+            q = (torch.randint(-4, 5, (2, g, 4 * Dh), device="cuda", generator=gen) / 64).bfloat16()
+            k = torch.randint(-8, 9, (2, s_len, 4, Dh), device="cuda", generator=gen) / 8
+            f = flat_cross_kv(k, torch.randn((2, s_len, 4, Dh), device="cuda", generator=gen), False)
+            got = cross_attn.cross_attention_decode(q, *f)
+            torch.cuda.synchronize()
+            max_err_within(torch, f"cross_attn edge S={s_len} G={g}", got, cross_attn.cross_attention_plain(q, *f), atol, rtol)
+    log(f"cross_attn edges (bf16 K/V, B=2 H=4, S in 1/63/64/65/3000 x G in 1/16/17/40): within atol {atol}, rtol {rtol}: ok")
 
     # Three distinct layers' K/V (98 MB) rotate: cold in HBM, as in decode.
     sets = [operands(G, True) for _ in range(3)]
@@ -279,6 +300,9 @@ def cross_attn_phase(torch, card: str) -> dict:
     return {
         "name": "cross_attention_decode",
         "route": "cuda",
+        "design": "one wave of clusters per (b, h), sized by the card's cluster count; K then V streamed by TMA "
+                  "through a 4-slot ring; "
+                  "both products on mma.sync (G on the n8 side); (max, sum) and outputs exchanged once each",
         "source": "whisperx_tpu_torch/csrc/cross_attn.cu",
         "replaces": "whisperx_tpu/ops/pallas_cross_attn.py:104",
         "launches": None,
@@ -684,6 +708,7 @@ def main_path_phase(torch, card: str) -> dict:
 
     # Per-stage breakdown: the same stages generate() runs, each ended by a
     # sync; then a profiled window of the beam loop for the device busy share.
+    profiles = {}
     with torch.inference_mode():
         for arm in ("reference", "kernel"):
             o, mel_of = use(arm)
@@ -711,15 +736,20 @@ def main_path_phase(torch, card: str) -> dict:
                 f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms "
                 f"({loop_ms / max_new:.2f} ms/step), {batch * 30.0 / (stamps[-1] - stamps[0]):.2f} audio-s/s"
             )
-            profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], o, card)
+            profiles[arm] = profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], o, card)
     same = float((runs["reference"]["tokens"] == runs["kernel"]["tokens"]).mean())
     log(f"main path tokens equal between the two arms: {same:.3f} of positions (random weights)")
-    return runs["kernel"]["launches"]
+    return runs["kernel"]["launches"], profiles["kernel"]
 
 
-def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card: str, steps: int = 8) -> None:
+# The CUDA kernels of the port by their device names, as the profiler lists them.
+STEP_KERNELS = {"int8_matmul": "int8_mm_kernel", "cross_attention_decode": "cross_attn_kernel"}
+
+
+def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card: str, steps: int = 8) -> dict:
     """Device busy share and the costliest kernels over ``steps`` beam steps
-    (torch.profiler; its own overhead lengthens the host side)."""
+    (torch.profiler; its own overhead lengthens the host side). Returns the
+    device busy ms per step and each port kernel's device ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from whisperx_tpu_torch.decode.search import beam_decode
@@ -737,14 +767,20 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         log(f"profile cross={opts.cross_attn}: the profiler recorded no device time; busy share not measured")
-        return
+        return {}
+    step_ms = {
+        name: sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3 / steps
+        for name, key in STEP_KERNELS.items()
+    }
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     log(
         f"profile cross={opts.cross_attn} [{card}], {steps} beam steps under torch.profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.2f} ms ({busy_ms / steps:.3f} ms/step), idle share {1 - busy_ms / wall_ms:.3f}; "
         "top kernels: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms/step x{e.count // steps}" for e in top)
+        + "; port kernels: " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in step_ms.items())
     )
+    return {"busy_ms_per_step": busy_ms / steps, **step_ms}
 
 
 # ---- phase 5: the alignment path -------------------------------------------
@@ -871,10 +907,14 @@ def main() -> int:
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     small_reference_phase(torch)
     small_align_phase(torch, card)
-    launches = main_path_phase(torch, card)  # the decode path's kernel arm
+    launches, profile = main_path_phase(torch, card)  # the decode path's kernel arm
     flash_align = align_path_phase(torch, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in STEP_KERNELS and k["name"] in profile:
+            k["beam_step_device_ms"] = profile[k["name"]]  # per beam step, profiled kernel arm
+    if profile:
+        log(f"beam loop (kernel arm) device busy {profile['busy_ms_per_step']:.3f} ms/step under torch.profiler")
     kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -66,3 +66,36 @@ def test_wrapper_rejects_head_dims_outside_the_contract():
     s = torch.ones((1, 3, 8))
     with pytest.raises(ValueError):
         cross_attn.cross_attention_decode(q, kv, kv, s, s)
+
+
+# The flagship (int8 and bf16), the prompt, small S, S one past a chunk,
+# S beyond one CTA per (b, h), long S.
+@pytest.mark.parametrize(
+    "B,S,H,kv_int8",
+    [(8, 1500, 20, True), (8, 1500, 20, False), (2, 96, 4, True), (2, 300, 4, True), (1, 2100, 2, True),
+     (1, 1, 2, True), (2, 63, 4, False), (2, 65, 4, True), (8, 3000, 20, True), (1, 36000, 2, True)],
+)
+def test_launch_plan_covers_s_once_with_no_empty_cta(B, S, H, kv_int8):
+    p = cross_attn.launch_plan(B, S, H, kv_int8)
+    assert 1 <= p.cluster <= 8 and p.rows_pad % 64 == 0
+    assert p.smem_bytes == cross_attn.smem_bytes(p.rows_pad, kv_int8) <= 232_448
+    covered = np.zeros(S, int)
+    for r in range(p.cluster):
+        s0 = r * p.rows_pad
+        assert s0 < S  # every CTA owns at least one position
+        covered[s0 : s0 + p.rows_pad] += 1
+    assert (covered == 1).all()
+
+
+def test_launch_plan_cuts_the_split_until_every_cluster_is_resident():
+    # 160 (b, h) of the flagship: a card that holds 154 clusters of 4 and 203
+    # of 3 runs clusters of 3 in one wave.
+    held = {6: 100, 5: 120, 4: 154, 3: 203}
+    p = cross_attn.launch_plan(8, 1500, 20, True, max_clusters=lambda rows_pad, cluster: held[cluster])
+    assert p.cluster == 3 and p.rows_pad == 512
+    assert cross_attn.launch_plan(8, 1500, 20, True, max_clusters=lambda *a: 0).cluster == 6  # none fit: the largest
+
+
+def test_launch_plan_raises_when_the_logits_do_not_fit():
+    with pytest.raises(ValueError):
+        cross_attn.launch_plan(1, 50_000, 2, True)

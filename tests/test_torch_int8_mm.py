@@ -61,11 +61,53 @@ def test_cpu_path_does_not_count_launches():
     assert int8_mm.launches == before
 
 
+# The decode shapes (M = 40), the prompt (M = 32), and edges: one row, rows
+# around a block of 64, the widest K at every M block, K past one pass.
 @pytest.mark.parametrize(
-    "M,K,N", [(40, 1280, 1280), (40, 1280, 3840), (40, 1280, 5120), (40, 5120, 1280), (256, 1280, 5120), (1, 128, 128)]
+    "M,K,N",
+    [(40, 1280, 1280), (40, 1280, 3840), (40, 1280, 5120), (40, 5120, 1280), (32, 1280, 5120), (256, 1280, 5120),
+     (256, 5120, 1280), (1, 128, 128), (65, 5120, 1280), (8, 5120, 1280), (255, 64, 256), (256, 8192, 128)],
 )
-def test_split_k_covers_k_with_nonempty_splits(M, K, N):
-    splits, per_split = int8_mm.split_k(M, K, N)
-    k_tiles = K // 64
-    assert 1 <= splits <= min(k_tiles, 8)  # a cluster holds the splits of one tile
-    assert (splits - 1) * per_split < k_tiles <= splits * per_split
+def test_launch_plan_covers_the_output_and_k_once(M, K, N):
+    p = int8_mm.launch_plan(M, K, N)
+    k_chunks = K // 64
+    assert p.bm % 8 == 0 and 8 <= p.bm <= 64 and 1 <= p.splits <= 8  # a cluster holds the splits of one slab
+    assert p.smem_bytes == int8_mm.smem_bytes(p.bm, p.slots, p.splits) <= 232_448
+    assert 1 <= p.slots <= p.chunks_per_split
+    rows = np.zeros(M, int)
+    for mb in range(p.m_blocks):
+        m0 = mb * p.bm
+        assert m0 < M  # no empty row block
+        rows[m0 : m0 + p.bm] += 1
+    chunks = np.zeros(k_chunks, int)
+    for s in range(p.splits):
+        mine = range(s * p.chunks_per_split, min(k_chunks, (s + 1) * p.chunks_per_split))
+        assert len(mine) >= 1  # no empty split
+        chunks[list(mine)] += 1
+    assert (rows == 1).all() and (chunks == 1).all()
+    assert N % 128 == 0  # N // 128 slabs of 128 channels cover the columns once
+
+
+def test_launch_plan_fills_the_card_at_the_widest_decode_projection():
+    p = int8_mm.launch_plan(40, 1280, 5120)
+    assert 100 <= (5120 // 128) * p.splits <= 2 * 132 and p.slots == p.chunks_per_split  # one pass
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    from whisperx_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build._target("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build._target("k") != before
+
+
+def test_launch_plan_cuts_the_split_until_every_cluster_is_resident():
+    # 40 slabs of the widest decode projection: 3 splits fill the card, but
+    # a card that holds only 38 clusters of 3 would run a second wave.
+    held = {3: 38, 2: 60}
+    p = int8_mm.launch_plan(40, 1280, 5120, max_clusters=lambda bm, slots, splits: held[splits])
+    assert p.splits == 2 and p.chunks_per_split == 10
+    assert int8_mm.launch_plan(40, 1280, 5120, max_clusters=lambda *a: 132).splits == 3

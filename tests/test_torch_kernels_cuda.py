@@ -15,6 +15,18 @@ from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
 torch.set_num_threads(2)
 
 
+def exact_logit_operands(gen, B, G, S, H):
+    """q and K on coarse grids (q in 1/64 steps, K in 1/8 steps), so that
+    every logit is exact in fp32 in any summation order. With few positions
+    the weights are large (~1/S), and one bf16 ulp of a weight that rounds
+    the other way moves the output by ~1e-4 * |v|: exact logits keep such
+    flips out of a test of the kernel's tiling."""
+    q = (torch.randint(-4, 5, (B, G, H * 64), device="cuda", generator=gen) / 64).bfloat16()
+    k = torch.randint(-8, 9, (B, S, H, 64), device="cuda", generator=gen) / 8
+    v = torch.randn((B, S, H, 64), device="cuda", generator=gen)
+    return q, k, v
+
+
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
@@ -43,10 +55,35 @@ def test_int8_mm_kernel_matches_plain(gen, M, K, N, out_dtype):
 
 
 @pytest.mark.cuda
+# x rows around the n8 columns and the 64-row block, at the widest K (ten
+# chunks a split), without a bias.
+@pytest.mark.parametrize("M", [8, 39, 41, 64, 65, 128, 255])
+def test_int8_mm_kernel_matches_plain_without_bias(gen, M):
+    K, N = 5120, 1280
+    x = torch.randn((M, K), device="cuda", generator=gen).bfloat16()
+    w = torch.randint(-127, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8)
+    scale = torch.rand((N,), device="cuda", generator=gen) * 0.01
+    got = int8_mm.int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), int8_mm.int8_matmul_plain(x, w, scale).float(), atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+def test_launch_plans_size_shared_memory_as_the_kernels_do(gen):
+    lib = int8_mm._lib()
+    for M, K, N in [(40, 1280, 3840), (40, 5120, 1280), (256, 1280, 5120), (1, 128, 128)]:
+        p = int8_mm.launch_plan(M, K, N)
+        assert lib.int8_mm_smem_bytes(p.bm, p.slots, p.splits) == p.smem_bytes
+    lib = cross_attn._lib()
+    for B, S, H, kv_int8 in [(8, 1500, 20, True), (8, 1500, 20, False), (1, 36000, 2, True)]:
+        p = cross_attn.launch_plan(B, S, H, kv_int8)
+        assert lib.cross_attn_smem_bytes(p.rows_pad, int(kv_int8)) == p.smem_bytes
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv_int8", [True, False])
-# The flagship beam step and prompt, a small S (one CTA per head), G > 16
-# (several blocks of query rows), and S beyond 8 x 256 (eight CTAs of more
-# than 256 positions each).
+# The flagship beam step and prompt, a small S (one chunk per CTA), G > 8
+# (several passes of 8 query rows), and S split over a cluster of 7.
 @pytest.mark.parametrize("B,G,S,H", [(8, 5, 1500, 20), (8, 4, 1500, 20), (2, 3, 96, 4), (2, 20, 300, 4), (1, 3, 2100, 2)])
 def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
     q = (torch.randn((B, G, H * 64), device="cuda", generator=gen) * 0.05).bfloat16()
@@ -61,6 +98,19 @@ def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
     # fp32 sums in another order; the bf16 rounding of the weights can land
     # one ulp apart.
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+# S around the 64-position chunk and long, G from one row to five blocks of 8.
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 3000])
+@pytest.mark.parametrize("G", [1, 16, 17, 40])
+def test_cross_attn_kernel_matches_plain_bf16_edges(gen, S, G):
+    B, H = 2, 4
+    q, k, v = exact_logit_operands(gen, B, G, S, H)
+    f = flat_cross_kv(k, v, False)
+    got = cross_attn.cross_attention_decode(q, *f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, cross_attn.cross_attention_plain(q, *f), atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``whisperx_tpu_torch/_build/lib<name>-<digest>.so`` for ``sm_90a``, at
-first use. The digest covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Sources never include PyTorch's
+first use. The digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. Sources never include PyTorch's
 headers: a build takes seconds where ``torch.utils.cpp_extension.load``
 takes minutes.
 
@@ -48,9 +49,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its digest covers the source, every shared
+    ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> dict[str, dict]:
