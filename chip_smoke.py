@@ -14,7 +14,9 @@ Phases:
   3. on small models, check that the card gives the CPU's results: decode
      tokens (kernels against plain versions) and fp32 alignment segments,
      words and timestamps; then the flash route's bf16 emissions against the
-     card's plain route;
+     card's plain route; then the production pipeline (VAD → transcribe →
+     align on a 128-wide Whisper and wav2vec2, fp32): identical segments,
+     tokens, words and timestamps;
   4. drive the decode path: Whisper large-v2 with random weights from a seed,
      int8 weights, fused QKV, int8 KV cache; batch 8 of 30 s int16 audio →
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
@@ -24,7 +26,14 @@ Phases:
   5. drive the alignment path: wav2vec2 base (published widths, random
      weights from seed 0, bf16) aligning bench.py's fixed transcript to 8 x
      30 s of int16 audio through align_begin(...).finish(), with the "xla"
-     and the flash encoder attention.
+     and the flash encoder attention;
+  6. drive the production pipeline through the user entry points (bench.py's
+     BENCH_PIPELINE configuration): a 6-minute WAV file of bench.py's tone
+     bursts → load_audio → SpeechBandVAD cut & merge → phase 4's large-v2
+     model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
+     .finish() with phase 5's wav2vec2 base and bench.py's transcript per
+     chunk; once with the JAX package's defaults and once with
+     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash.
 Every kernel's launch count is zeroed just before each run of a path and
 read just after.
 
@@ -52,6 +61,25 @@ KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "log_mel")
 _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
 ALIGN_TEXT = " " + " ".join(_WORDS * 4)[:400]
+PIPELINE_MINUTES = 6.0  # 9 VAD chunks: two decode batches of 8, the last one padded
+
+
+def pipeline_audio(minutes: float, seed: int = 0) -> np.ndarray:
+    """bench.py's _pipeline_audio (bench.py:86-102): 15 s tone bursts (220 Hz
+    carrier, 3 Hz syllabic AM at shallow depth) every 25 s; SpeechBandVAD
+    packs burst pairs into ~25.6 s chunks."""
+    sr = 16000
+    n = int(minutes * 60 * sr)
+    rng = np.random.default_rng(seed)
+    audio = np.zeros(n, np.float32)
+    tb = np.arange(15 * sr) / sr
+    burst = (
+        0.3 * np.sin(2 * np.pi * 220 * tb) * (0.75 + 0.25 * np.sin(2 * np.pi * 3 * tb))
+        + 0.01 * rng.standard_normal(15 * sr)
+    ).astype(np.float32)
+    for start_s in range(0, int(minutes * 60) - 15, 25):
+        audio[start_s * sr : (start_s + 15) * sr] = burst
+    return audio
 
 
 def align_transcript(n: int) -> list:
@@ -623,26 +651,140 @@ def small_align_phase(torch, card: str) -> None:
     )
 
 
+def small_pipeline_phase(torch) -> None:
+    """The production pipeline on small models, card against CPU: a
+    128-wide Whisper (int8 weights, fused QKV, int8 KV cache, fp32 compute;
+    the int8 and cross-attention kernels on the card, their plain versions on
+    the CPU) transcribes three tone bursts, then a 128-wide wav2vec2 (fp32,
+    "xla") aligns bench.py's transcript in each VAD chunk. The text backend
+    renders every token id, so equal text is equal tokens."""
+    from whisperx_tpu_torch.align.alignment import AlignModel, align
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import ByteBackend, WhisperTokenizer
+    from whisperx_tpu_torch.models import wav2vec2 as tw2
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_TEST
+    from whisperx_tpu_torch.models.convert import wav2vec2_from_jax, whisper_from_jax
+    from whisperx_tpu_torch.ops import cross_attn, int8_mm
+    from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
+    from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
+
+    class Ids(ByteBackend):
+        def decode(self, ids):
+            return "".join(f"<{i}>" for i in ids)
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    w2v_cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
+    w2v_params = tw2.random_params(w2v_cfg, seed=0)
+    dictionary = {c: i for i, c in enumerate(["[pad]", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)])}
+    meta = {"language": "en", "dictionary": dictionary, "type": "torch"}
+    sr = 16000
+    rng = np.random.default_rng(5)
+    audio = np.zeros(16 * sr, np.float32)
+    t = np.arange(2 * sr) / sr
+    for i, start in enumerate((1, 6, 11)):  # three bursts → three chunks at chunk_size 5
+        audio[start * sr : (start + 2) * sr] = 0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    audio += (0.005 * rng.standard_normal(len(audio))).astype(np.float32)
+
+    def pipeline(dev, language="en"):
+        tok = WhisperTokenizer(Ids(cfg.n_vocab), cfg.n_vocab, language=language or "en")
+        return WhisperPipeline(
+            engine=WhisperEngine(whisper_from_jax(params, cfg, device=dev), tok),
+            vad=VadPipeline(EnergyVAD()),
+            vad_params={"vad_onset": 0.5, "vad_offset": 0.363},
+            options=TranscriptionOptions(beam_size=2, max_new_tokens=6),
+            tokenizer=tok if language else None,
+            language=language,
+            kv_cache_dtype="int8",
+        )
+
+    results, detected = {}, {}
+    os.environ["WHISPERX_CROSS_ATTN"] = "pallas"
+    try:
+        for dev in ("cuda", "cpu"):
+            pipe = pipeline(dev)
+            int8_mm.launches = cross_attn.launches = 0
+            res = pipe.transcribe(audio, batch_size=2, chunk_size=5)
+            launched = (int8_mm.launches, cross_attn.launches)
+            am = AlignModel(wav2vec2_from_jax(w2v_params, w2v_cfg, device=dev), dictionary, "en")
+            aligned = align([dict(s, text=" the quick brown fox jumps") for s in res["segments"]], am, meta, audio, dev)
+            results[dev] = (res, aligned, launched)
+            # Multilingual mode: language detection on the first 30 s, then
+            # the tokenizer is dropped for the next file.
+            multi = pipeline(dev, language=None)
+            detected[dev] = (multi.transcribe(audio, batch_size=2, chunk_size=5), multi.tokenizer)
+        # The temperature fallback's sampled retries, on the card only (the
+        # samples are the card's own): every chunk fails the logprob gate once.
+        pipe = pipeline("cuda")
+        pipe.options = dataclasses.replace(
+            pipe.options, enable_fallback=True, best_of=2, temperatures=(0.0, 0.5), log_prob_threshold=0.0,
+            compression_ratio_threshold=None, no_speech_threshold=None,
+        )
+        fallback = pipe.transcribe(audio, batch_size=2, chunk_size=5)
+    finally:
+        os.environ.pop("WHISPERX_CROSS_ATTN", None)
+    (got, got_al, launched), (want, want_al, cpu_launched) = results["cuda"], results["cpu"]
+    if detected["cuda"] != detected["cpu"] or detected["cuda"][1] is not None:
+        raise AssertionError(f"small pipeline, language detection: card {detected['cuda']} != cpu {detected['cpu']}")
+    if [(s["start"], s["end"]) for s in fallback["segments"]] != [(s["start"], s["end"]) for s in got["segments"]]:
+        raise AssertionError(f"small pipeline, temperature fallback on the card: {fallback}")
+    if got != want:
+        raise AssertionError(f"small pipeline: card segments {got} != cpu {want}")
+    n = len(got["segments"])
+    if n != 3 or not all(s["text"] for s in got["segments"]):
+        raise AssertionError(f"small pipeline: expected 3 transcribed chunks, got {got['segments']}")
+    # The beam loop may end early on EOT, so the card's counts are only known
+    # to be positive: 6 projections and 1 cross attention a layer and step.
+    if not (launched[0] > 0 and launched[0] == 6 * launched[1]) or cpu_launched != (0, 0):
+        raise AssertionError(f"small pipeline: launches card {launched}, cpu {cpu_launched}")
+
+    def timestamps(res):
+        return [(w["word"], w.get("start"), w.get("end")) for w in res["word_segments"]]
+
+    if not all(s["words"] and all("start" in w for w in s["words"]) for s in got_al["segments"]):
+        raise AssertionError(f"small pipeline: not every chunk aligned: {got_al['segments']}")
+
+    if [(s["text"], s["start"], s["end"]) for s in got_al["segments"]] != [
+        (s["text"], s["start"], s["end"]) for s in want_al["segments"]
+    ] or timestamps(got_al) != timestamps(want_al):
+        raise AssertionError("small pipeline: the card's aligned segments, words or timestamps differ from the CPU's")
+    log(
+        f"small pipeline (128-wide Whisper int8 + 128-wide wav2vec2, fp32): VAD -> transcribe -> align, card == cpu: "
+        f"{n} chunks, tokens and VAD times identical, {len(timestamps(got_al))} words and timestamps identical, "
+        f"detected language {detected['cuda'][0]['language']!r} on both; card launches int8_matmul {launched[0]}, "
+        f"cross_attention_decode {launched[1]}; the fallback's sampled retries ran on the card: ok"
+    )
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
-def main_path_phase(torch, card: str) -> dict:
-    from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
-    from whisperx_tpu_torch.decode.engine import WhisperEngine
-    from whisperx_tpu_torch.decode.search import beam_decode
-    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+def large_v2(torch):
+    """Whisper large-v2 at its published widths, random weights from seed 0,
+    int8 weights + fused QKV, bf16 compute, on the card (phases 4 and 6)."""
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import get_whisper_config
     from whisperx_tpu_torch.models.convert import whisper_from_jax
-    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
 
     cfg = get_whisper_config("large-v2")
-    batch, beam, max_new = 8, 5, 112
     t0 = time.perf_counter()
     params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0)))
     model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
     del params
     log(f"large-v2 random weights (seed 0), int8 + fused QKV, on the card in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def main_path_phase(torch, card: str, model) -> dict:
+    from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.search import beam_decode
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+
+    cfg = model.config
+    batch, beam, max_new = 8, 5, 112
     engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
     opts = engine.build_options(beam_size=beam, max_new_tokens=max_new, kv_cache_dtype="int8")
     # Ban EOT (bench.py:75-82): every segment pays the full 112-token horizon.
@@ -786,11 +928,11 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
 # ---- phase 5: the alignment path -------------------------------------------
 
 
-def align_path_phase(torch, card: str) -> int:
+def align_path_phase(torch, card: str):
     """wav2vec2 base (published widths, depth not cut), random weights from
     seed 0, bf16, max_batch 8: bench.py's alignment of its fixed transcript
     to 8 x 30 s of int16 audio (bench.py:257-289). Returns the flash
-    launches counted in the last flash run."""
+    launches counted in the last flash run, and the align model."""
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import N_SAMPLES
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
@@ -872,7 +1014,115 @@ def align_path_phase(torch, card: str) -> int:
             )
     finally:
         alignment._emissions, ctc.ctc_trellis_batch, ctc.ctc_backtrack_device = originals
-    return flash_launches
+    return flash_launches, am
+
+
+# ---- phase 6: the production pipeline --------------------------------------
+
+
+def pipeline_phase(torch, card: str, model, align_model) -> dict:
+    """bench.py's BENCH_PIPELINE configuration (bench.py:105-231) through the
+    port's entry points: a WAV file → transcribe (load_audio, SpeechBandVAD
+    at onset 0.5 / offset 0.363, batches of 8, int16 uploads, beam 5, 112
+    tokens with EOT suppressed, int8 KV cache) → align_begin(...).finish()
+    with each chunk's text replaced by bench.py's transcript (bench.py:180).
+    Two runs: the JAX package's defaults, then the kernel arm
+    (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash, set for the run only).
+    Returns the kernel arm's launches."""
+    import tempfile
+
+    from whisperx_tpu_torch import native
+    from whisperx_tpu_torch.align import alignment
+    from whisperx_tpu_torch.audio import io as audio_io
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
+    from whisperx_tpu_torch.utils import telemetry
+    from whisperx_tpu_torch.vad.model import SpeechBandVAD, VadPipeline
+
+    cfg = model.config
+    batch, beam, max_new = 8, 5, 112
+    for m in (model, align_model.model):
+        attention.set_attn_impl(m, "auto")  # each arm's WHISPERX_ATTN decides
+    tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
+    pipe = WhisperPipeline(
+        engine=WhisperEngine(model, tok),
+        vad=VadPipeline(SpeechBandVAD(), onset=0.5, offset=0.363),
+        vad_params={"vad_onset": 0.5, "vad_offset": 0.363},
+        # Suppressing EOT forces the full decode horizon on random weights.
+        options=TranscriptionOptions(beam_size=beam, max_new_tokens=max_new, suppress_tokens=(-1, tok.eot)),
+        tokenizer=tok,
+        language="en",
+        kv_cache_dtype="int8",
+    )
+    meta = {"language": "en", "dictionary": align_model.dictionary, "type": "torch"}
+    audio = pipeline_audio(PIPELINE_MINUTES)
+    audio_s = len(audio) / 16000
+    # The native decoder is compiled by g++ on its first use: once per
+    # checkout, outside the timed runs (as the kernels' nvcc build is).
+    t0 = time.perf_counter()
+    ready = native.available()
+    log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
+    arms = {"default": {}, "kernel": {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}}
+    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
+    L, runs = cfg.n_text_layer, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline.wav")
+        audio_io.write_wav(path, audio)
+        for arm, env in arms.items():
+            os.environ.update(env)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                pipe.telemetry.stages.clear()
+                telemetry.GLOBAL.stages.clear()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                result = pipe.transcribe(path, batch_size=batch)
+                decoder = audio_io.LAST_DECODER
+                t1 = time.perf_counter()
+                segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
+                aligned = alignment.align_begin(segs, align_model, meta, path).finish()
+                t2 = time.perf_counter()
+                launches = {name: c.launches for name, c in counters.items()}
+            finally:
+                for knob in env:
+                    os.environ.pop(knob, None)
+            chunks = result["segments"]
+            n_batches = -(-len(chunks) // batch)  # decode batches; align batches too (max batch 8)
+            if n_batches < 2 or len(chunks) % batch == 0:
+                raise AssertionError(f"pipeline {arm}: {len(chunks)} chunks, expected two or more batches, the last partial")
+            if any(s["end"] - s["start"] > 30.0 for s in chunks):
+                raise AssertionError(f"pipeline {arm}: a chunk longer than 30 s: {chunks}")
+            if len(aligned["segments"]) != len(chunks) or not all(
+                s["words"] and all("start" in w and "end" in w for w in s["words"]) for s in aligned["segments"]
+            ):
+                raise AssertionError(f"pipeline {arm}: not every chunk aligned: {[len(s['words']) for s in aligned['segments']]}")
+            kernel = arm == "kernel"
+            want = {
+                "int8_matmul": 6 * L * (1 + max_new) * n_batches,
+                "cross_attention_decode": L * (1 + max_new) * n_batches if kernel else 0,
+                "flash_self_attention": (cfg.n_audio_layer + align_model.model.config.num_layers) * n_batches if kernel else 0,
+                "log_mel": 0,
+            }
+            if launches != want:
+                raise AssertionError(f"pipeline {arm}: launches {launches}, expected {want}")
+            stages = {**pipe.telemetry.report(), **telemetry.GLOBAL.report()}
+            runs[arm] = {"vad": [(s["start"], s["end"]) for s in chunks], "launches": launches}
+            log(
+                f"pipeline {arm} arm [{card}]: {audio_s:.1f} s WAV (decoded by {decoder}) -> {len(chunks)} chunks, "
+                f"{n_batches} decode batches of {batch} (last {len(chunks) - (n_batches - 1) * batch} rows), {n_batches} "
+                f"align batches; transcribe {(t1 - t0) * 1e3:.1f} ms, align {(t2 - t1) * 1e3:.1f} ms, end to end "
+                f"{audio_s / (t2 - t0):.2f} audio-s/s; stages "
+                + ", ".join(f"{k} {stages[k]['seconds'] * 1e3:.1f} ms" for k in ("vad", "asr_decode", "align"))
+                + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}: ok"
+            )
+    if runs["default"]["vad"] != runs["kernel"]["vad"]:
+        raise AssertionError("pipeline: the two arms' VAD segments differ")
+    log(f"pipeline: both arms cut the same {len(runs['kernel']['vad'])} VAD segments: ok")
+    return runs["kernel"]["launches"]
 
 
 def main() -> int:
@@ -907,8 +1157,11 @@ def main() -> int:
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     small_reference_phase(torch)
     small_align_phase(torch, card)
-    launches, profile = main_path_phase(torch, card)  # the decode path's kernel arm
-    flash_align = align_path_phase(torch, card)
+    small_pipeline_phase(torch)
+    model = large_v2(torch)
+    launches, profile = main_path_phase(torch, card, model)  # the decode path's kernel arm
+    flash_align, align_model = align_path_phase(torch, card)
+    pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in STEP_KERNELS and k["name"] in profile:
@@ -916,6 +1169,8 @@ def main() -> int:
     if profile:
         log(f"beam loop (kernel arm) device busy {profile['busy_ms_per_step']:.3f} ms/step under torch.profiler")
     kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
+    for k in kernels:
+        k["launches_pipeline"] = pipeline_launches[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -143,13 +143,19 @@ def test_int16_uploads_equal_float(monkeypatch):
     assert got16["word_segments"] and "start" in got16["word_segments"][0]
 
 
-def test_entry_points_need_the_card_unless_cpu_is_asked(models, monkeypatch):
+def test_entry_points_need_the_card_unless_cpu_is_asked(models, monkeypatch, tmp_path):
     _, tm = models
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ta.test_align_model()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ta.align([{"start": 0.0, "end": 1.0, "text": " a"}], tm, _meta(tm), _audio(0, 1))
-    with pytest.raises(NotImplementedError):
-        ta.align([], tm, _meta(tm), "speech.wav", "cpu")
+    # A file path goes through load_audio: the same result as its waveform.
+    from whisperx_tpu_torch.audio.io import load_audio, write_wav
+
+    write_wav(str(tmp_path / "speech.wav"), _audio(0, 1))
+    transcript = [{"start": 0.1, "end": 0.9, "text": " hello"}]
+    assert ta.align([dict(s) for s in transcript], tm, _meta(tm), str(tmp_path / "speech.wav"), "cpu") == ta.align(
+        [dict(s) for s in transcript], tm, _meta(tm), load_audio(str(tmp_path / "speech.wav")), "cpu"
+    )
     assert ta.test_align_model(device="cpu", seed=3).model.device.type == "cpu"

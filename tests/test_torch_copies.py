@@ -263,3 +263,81 @@ def test_new_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         wav2vec2_from_jax(params, t_configs.WAV2VEC2_TEST)
     assert wav2vec2_from_jax(params, t_configs.WAV2VEC2_TEST, device="cpu").device.type == "cpu"
+
+
+# Files the port carries byte for byte.
+VERBATIM = {
+    "whisperx_tpu_torch/vad/binarize.py": "whisperx_tpu/vad/binarize.py",
+    "whisperx_tpu_torch/vad/__init__.py": "whisperx_tpu/vad/__init__.py",
+    "whisperx_tpu_torch/models/pinned.py": "whisperx_tpu/models/pinned.py",
+    "whisperx_tpu_torch/native/audio_native.cpp": "whisperx_tpu/native/audio_native.cpp",
+}
+
+
+@pytest.mark.parametrize("port", list(VERBATIM))
+def test_verbatim_copies(port):
+    assert (REPO / port).read_bytes() == (REPO / VERBATIM[port]).read_bytes()
+
+
+def test_pinned_registry_and_binarize_equal():
+    import importlib
+
+    from whisperx_tpu.models import pinned as j_pinned
+    from whisperx_tpu_torch.models import pinned as t_pinned
+
+    # The packages' vad/__init__.py export a function named binarize.
+    j_bin = importlib.import_module("whisperx_tpu.vad.binarize")
+    t_bin = importlib.import_module("whisperx_tpu_torch.vad.binarize")
+
+    assert t_pinned.PINNED == j_pinned.PINNED
+    for name in ("openai/whisper-large-v2", "/ckpts/whisper-tiny.en", "large-v3", "facebook/wav2vec2-base-960h", "custom"):
+        assert t_pinned.pinned_key_for(name) == j_pinned.pinned_key_for(name)
+    rng = np.random.default_rng(0)
+    scores = np.clip(np.cumsum(rng.standard_normal(3000)) / 30 + 0.5, 0, 1).astype(np.float32)
+    times = (np.arange(3000) * 270 + 495.5) / 16000
+    for kw in (dict(max_duration=30.0), dict(max_duration=5.0, min_duration_on=0.5)):
+        got, want = t_bin.binarize(scores, times, **kw), j_bin.binarize(scores, times, **kw)
+        assert [(t.start, t.end) for t in got] == [(t.start, t.end) for t in want]
+        assert t_bin.merge_chunks(got, 30.0) == j_bin.merge_chunks(want, 30.0)
+
+
+PIPELINE_MODULES = (
+    "whisperx_tpu_torch.vad", "whisperx_tpu_torch.vad.model", "whisperx_tpu_torch.vad.binarize",
+    "whisperx_tpu_torch.models.pinned", "whisperx_tpu_torch.native", "whisperx_tpu_torch.audio.io",
+    "whisperx_tpu_torch.models.convert", "whisperx_tpu_torch.pipeline", "whisperx_tpu_torch.pipeline.asr",
+)
+
+
+def test_pipeline_modules_import_without_jax_or_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'whisperx_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import whisperx_tpu_torch as w\n"
+        f"for m in {PIPELINE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "for name in ('load_model', 'load_audio', 'align', 'align_begin', 'AlignJob', 'load_align_model'):\n"
+        "    assert hasattr(w, name), name\n"
+        "assert w.native.available()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'whisperx_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_pipeline_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from whisperx_tpu_torch import load_align_model, load_model
+    from whisperx_tpu_torch.pipeline.asr import load_test_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: load_test_pipeline(),
+        lambda: load_model("tiny", checkpoint=str(tmp_path)),
+        lambda: load_align_model("en", model_name=str(tmp_path)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = load_test_pipeline(device="cpu")
+    assert p.device.type == "cpu" and p.model.device.type == "cpu"

@@ -15,10 +15,10 @@ launches every batch without waiting (PyTorch's launches are asynchronous;
 uploads go through pinned memory) and keeps at most ``WHISPERX_ALIGN_INFLIGHT``
 packs pending; ``AlignJob.finish()`` fetches them and aggregates on the host.
 
-Not ported: ``load_align_model`` (reads HF checkpoints, with the other
-checkpoint loaders), the ``mesh`` of ``AlignModel``/``shard_align_model``
-(multi-device), the int8 wav2vec2, and decoding audio files (pass a
-waveform).
+``load_align_model`` reads a local HF wav2vec2-CTC checkpoint
+(``models/convert.py:load_wav2vec2``). Not ported: the ``mesh`` of
+``AlignModel``/``shard_align_model`` (multi-device) and the int8 wav2vec2
+(``compute_type="int8"`` raises); both are ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -26,13 +26,13 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Iterable, List, Union
+from typing import Any, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..audio.constants import SAMPLE_RATE
-from ..audio.io import pcm16
+from ..audio.io import load_audio, pcm16
 from ..device import DeviceLike, resolve_device
 from ..io.languages import LANGUAGES_WITHOUT_SPACES
 from ..io.types import AlignedTranscriptionResult, SingleAlignedSegment, SingleSegment
@@ -40,6 +40,7 @@ from ..models.configs import WAV2VEC2_TEST
 from ..models.wav2vec2 import Wav2Vec2ForCTC
 from ..ops.ctc import PathPoint, align_tokens_batch, ctc_align_batch_device, merge_repeats
 from ..utils import interpolate_nans, telemetry
+from .registry import TORCH_BUNDLE_TO_HF, default_align_model
 from .sentences import PUNKT_ABBREVIATIONS, sentence_spans
 
 
@@ -56,6 +57,50 @@ class AlignModel:
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+
+def _find_blank_id(dictionary: dict) -> int:
+    for char, code in dictionary.items():
+        if char in ("[pad]", "<pad>"):
+            return code
+    return 0
+
+
+def load_align_model(
+    language_code: str,
+    device: DeviceLike = None,
+    model_name: Optional[str] = None,
+    model_dir: Optional[str] = None,
+    compute_type: Optional[str] = None,
+):
+    """Build the alignment model + metadata (reference alignment.py:64-97 API).
+
+    ``model_name`` may be a local HF checkpoint directory (offline), an HF hub
+    id (resolved through the local cache), or a torchaudio bundle name
+    (mapped to its HF twin). The compute dtype is bf16 on the card and fp32
+    on the CPU; ``compute_type="int8"`` (the JAX package's int8 wav2vec2)
+    raises. ``device=None`` means the card. Returns (AlignModel,
+    {"language", "dictionary", "type"}).
+    """
+    if compute_type == "int8":
+        raise NotImplementedError(
+            "compute_type='int8' (quantize_wav2vec2) is not ported: it comes "
+            "with the multi-device and int4 slice (ROADMAP.md queue 1, item 9)"
+        )
+    from ..models.convert import load_wav2vec2
+
+    if model_name is None:
+        model_name = default_align_model(language_code)
+    model_name = TORCH_BUNDLE_TO_HF.get(model_name, model_name)
+    model, dictionary = load_wav2vec2(model_name, cache_dir=model_dir, device=resolve_device(device))
+    align_model = AlignModel(
+        model=model,
+        dictionary={c.lower(): i for c, i in dictionary.items()},
+        language=language_code,
+        blank_id=_find_blank_id(dictionary),
+    )
+    metadata = {"language": language_code, "dictionary": align_model.dictionary, "type": "torch"}
+    return align_model, metadata
 
 
 def test_align_model(
@@ -264,7 +309,7 @@ def align_begin(
     if model.device.type != dev.type:
         raise ValueError(f"align: the align model lives on {model.device}, but {dev} was asked for")
     if isinstance(audio, str):
-        raise NotImplementedError("align: decoding audio files is not ported; pass a waveform")
+        audio = load_audio(audio)
     audio = np.asarray(audio, dtype=np.float32).reshape(-1)
     max_duration = len(audio) / SAMPLE_RATE
 

@@ -10,7 +10,7 @@ from .constants import (
     SAMPLE_RATE,
     TOKENS_PER_SECOND,
 )
-from .io import pcm16
+from .io import load_audio, pad_or_trim, pcm16, resample, write_wav
 from .mel import log_mel_spectrogram, mel_filters
 
 __all__ = [
@@ -24,7 +24,11 @@ __all__ = [
     "N_SAMPLES_PER_TOKEN",
     "SAMPLE_RATE",
     "TOKENS_PER_SECOND",
+    "load_audio",
+    "pad_or_trim",
     "pcm16",
+    "resample",
+    "write_wav",
     "log_mel_spectrogram",
     "mel_filters",
 ]

@@ -21,25 +21,42 @@ from .search import SearchOptions, beam_decode, greedy_decode
 from .tokenizer import WhisperTokenizer
 
 
-class DecodeResult:
-    """Decode outputs on the host: ``tokens`` (B, max_new) int32 and the
-    per-row statistics packed as one (3, B) float32 array."""
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
-    def __init__(self, tokens: np.ndarray, stats: np.ndarray):
-        self.tokens = tokens
+
+class DecodeResult:
+    """Decode outputs: ``tokens`` (B, max_new) int32 and the per-row
+    statistics packed as one (3, B) float32 buffer.
+
+    Either may still be a device tensor (``generate(..., sync=False)``); the
+    first read copies it to the host, which waits for the decode to finish.
+    """
+
+    def __init__(self, tokens, stats):
+        self._tokens = tokens
         self._stats = stats  # [sum_logprobs, lengths, no_speech]
+
+    def fetch(self) -> "DecodeResult":
+        """Copy both buffers to the host (once)."""
+        self._tokens, self._stats = _host(self._tokens), _host(self._stats)
+        return self
+
+    @property
+    def tokens(self) -> np.ndarray:
+        return self.fetch()._tokens
 
     @property
     def sum_logprobs(self) -> np.ndarray:
-        return self._stats[0]
+        return self.fetch()._stats[0]
 
     @property
     def lengths(self) -> np.ndarray:
-        return self._stats[1].astype(np.int32)
+        return self.fetch()._stats[1].astype(np.int32)
 
     @property
     def no_speech_probs(self) -> np.ndarray:
-        return self._stats[2]
+        return self.fetch()._stats[2]
 
     @property
     def avg_logprobs(self) -> np.ndarray:
@@ -277,9 +294,15 @@ class WhisperEngine:
         initial_prompt: Optional[str] = None,
         prefix: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        sync: bool = True,
     ) -> DecodeResult:
         """Transcribe a (B, n_mels, 3000) feature batch; beam search when
-        ``beam_size > 1`` at temperature 0, greedy/sampling otherwise."""
+        ``beam_size > 1`` at temperature 0, greedy/sampling otherwise.
+
+        ``sync=False`` returns a result that still holds device tensors: the
+        copy to the host (and the wait for the last launches) happens on the
+        first read, so the caller can prepare and launch the next batch
+        first."""
         opts = options or self.build_options()
         prompt = self.build_prompt(
             mel.shape[0], initial_prompt=initial_prompt, prefix_tokens=self.prefix_tokens(prefix)
@@ -288,8 +311,10 @@ class WhisperEngine:
             tokens, sum_lp, lengths, no_speech = self.decode_beam(mel, prompt, opts)
         else:
             tokens, sum_lp, lengths, no_speech = self.decode_greedy(mel, prompt, opts, generator)
+        # One buffer for the per-row scalars: one copy to the host later.
         stats = torch.stack([sum_lp.float(), lengths.float(), no_speech.float()])
-        return DecodeResult(tokens.to(torch.int32).cpu().numpy(), stats.cpu().numpy())
+        result = DecodeResult(tokens.to(torch.int32), stats)
+        return result.fetch() if sync else result
 
     def decode_text(self, result: DecodeResult) -> list[str]:
         return self.tokenizer.decode_batch([row.tolist() for row in np.asarray(result.tokens)])
