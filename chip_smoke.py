@@ -16,7 +16,11 @@ Phases:
      words and timestamps; then the flash route's bf16 emissions against the
      card's plain route; then the production pipeline (VAD → transcribe →
      align on a 128-wide Whisper and wav2vec2, fp32): identical segments,
-     tokens, words and timestamps;
+     tokens, words and timestamps; then diarization at published widths on
+     a few windows (seeded ResNet34 + PyanNet, overlap-aware, and the
+     weight-free default): identical turns and labels; then ``cli.cli``
+     with --diarize on 128-wide HF directories: the six output files of
+     --device cuda byte-equal to those of --device cpu;
   4. drive the decode path: Whisper large-v2 with random weights from a seed,
      int8 weights, fused QKV, int8 KV cache; batch 8 of 30 s int16 audio →
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
@@ -33,7 +37,15 @@ Phases:
      model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
      .finish() with phase 5's wav2vec2 base and bench.py's transcript per
      chunk; once with the JAX package's defaults and once with
-     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash.
+     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash;
+  7. drive the command line as a user runs ``python -m whisperx_tpu_torch
+     <wav> --diarize``: ``cli.cli`` in-process on checkpoints written from
+     seeds in their published layouts (large-v2 HF directory with fp16
+     safetensors, wav2vec2 base HF directory, WeSpeaker ResNet34 and
+     pyannote PyanNet ``.bin`` files) and a 6-minute two-speaker WAV file:
+     neural VAD, int8 beam-5 decode of 224 tokens (EOT banned), alignment,
+     overlap-aware diarization, six output files; then ``python -m
+     whisperx_tpu_torch --help``.
 Every kernel's launch count is zeroed just before each run of a path and
 read just after.
 
@@ -100,6 +112,279 @@ def align_frames(conv_layers, transcript: list) -> tuple[list, int]:
 
     lens = [int(s["end"] * 16_000) - int(s["start"] * 16_000) for s in transcript]
     return [frames(n) for n in lens], frames(-(-max(lens) // 16_000) * 16_000)
+
+
+# ---- checkpoints and audio written from seeds -------------------------------
+# The card has no network and no checkpoints: phases 3 and 7 write HF,
+# pyannote and WeSpeaker files in their published layouts from seeds, and the
+# port's loaders read them back.
+
+# The JAX tree's names → HF Whisper module names (convert_whisper inverted).
+_HF_WHISPER_NAMES = {
+    "attn": "self_attn", "cross_attn": "encoder_attn", "attn_ln": "self_attn_layer_norm",
+    "cross_attn_ln": "encoder_attn_layer_norm", "mlp_ln": "final_layer_norm", "ln_post": "layer_norm",
+    "ln": "layer_norm", "query": "q_proj", "key": "k_proj", "value": "v_proj", "out": "out_proj",
+    "positional_embedding": "embed_positions", "token_embedding": "embed_tokens", "scale": "weight",
+    "kernel": "weight",
+}
+# The JAX tree's names → HF Wav2Vec2ForCTC module names (convert_wav2vec2 inverted).
+_HF_W2V_NAMES = {
+    "feat_layer_norm": "feature_projection.layer_norm", "feat_projection": "feature_projection.projection",
+    "encoder_layer_norm": "encoder.layer_norm", "pos_conv_embed": "encoder.pos_conv_embed",
+    "intermediate": "intermediate_dense", "output": "output_dense", "scale": "weight", "kernel": "weight",
+}
+
+
+def _sorted_leaves(shapes: dict, prefix: tuple = ()):
+    """(path, shape) of a shape tree in JAX's flattening order (sorted keys)."""
+    for name in sorted(shapes):
+        child = shapes[name]
+        if isinstance(child, dict):
+            yield from _sorted_leaves(child, prefix + (name,))
+        else:
+            yield prefix + (name,), tuple(child)
+
+
+def _hf_whisper_key(path: tuple) -> str:
+    parts = []
+    for p in path:
+        if p.startswith("layers_"):
+            parts += ["layers", p[len("layers_"):]]
+        elif p != "mlp":
+            parts.append(_HF_WHISPER_NAMES.get(p, p))
+    if path[-1] in ("positional_embedding", "token_embedding"):
+        parts.append("weight")
+    return "model." + ".".join(parts)
+
+
+def _hf_w2v_key(path: tuple) -> str:
+    if path[0] == "lm_head":
+        return "lm_head." + _HF_W2V_NAMES.get(path[1], path[1])
+    if path[0] == "feature_extractor":
+        i = path[1].split("_")[1]
+        sub = "conv" if path[1].startswith("conv_") else "layer_norm"
+        return f"wav2vec2.feature_extractor.conv_layers.{i}.{sub}.{_HF_W2V_NAMES.get(path[2], path[2])}"
+    parts = []
+    for p in path:
+        if p.startswith("layers_"):
+            parts += ["encoder.layers", p[len("layers_"):]]
+        else:
+            parts.append(_HF_W2V_NAMES.get(p, p))
+    return "wav2vec2." + ".".join(parts)
+
+
+def _to_hf(path: tuple, arr: np.ndarray) -> np.ndarray:
+    """A JAX-layout leaf in torch's layout: Dense (in, out) → (out, in),
+    conv (k, in, out) → (out, in, k)."""
+    if path[-1] == "kernel" and arr.ndim == 2:
+        return arr.T
+    if path[-1] == "kernel" and arr.ndim == 3:
+        return arr.transpose(2, 1, 0)
+    return arr
+
+
+def write_safetensors(path: str, leaves, key, draw, dtype: str) -> None:
+    """Write a ``.safetensors`` file by hand, one tensor at a time: an 8-byte
+    little-endian header length, the JSON header (padded to 8 bytes), then
+    the raw little-endian buffers. ``leaves`` is a list of (path, shape);
+    ``draw(path, shape)`` gives each leaf in the JAX layout, called in the
+    list's order; ``key(path)`` names it."""
+    np_dtype = {"F16": "<f2", "F32": "<f4"}[dtype]
+    header, offset = {}, 0
+    for p, shape in leaves:
+        hf_shape = list(_to_hf(p, np.empty(shape, np.uint8)).shape)
+        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(np_dtype).itemsize
+        header[key(p)] = {"dtype": dtype, "shape": hf_shape, "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(blob)).astype("<u8").tobytes() + blob)
+        for p, shape in leaves:
+            f.write(np.ascontiguousarray(_to_hf(p, draw(p, shape)), np_dtype).tobytes())
+
+
+def worded_vocab() -> dict:
+    """A 50,257-entry byte-level BPE vocabulary: the 256 byte symbols, then
+    letter strings with and without a leading space, so that every text id a
+    random Whisper emits decodes to letters the aligner can place."""
+    import itertools
+
+    byte_symbols = [chr(c) for c in range(ord("!"), ord("~") + 1)] + [chr(c) for c in range(ord("\u00a1"), ord("\u00ac") + 1)]
+    byte_symbols += [chr(c) for c in range(ord("\u00ae"), ord("\u00ff") + 1)]
+    byte_symbols += [chr(256 + i) for i in range(256 - len(byte_symbols))]  # GPT-2's remap of the rest
+    vocab = sorted(byte_symbols)
+    seen = set(vocab)
+    for n in itertools.count(1):
+        for combo in itertools.product("abcdefghijklmnopqrstuvwxyz", repeat=n):
+            for word in ("\u0120" + "".join(combo), "".join(combo)):
+                if word not in seen and len(vocab) < 50257:
+                    seen.add(word)
+                    vocab.append(word)
+        if len(vocab) == 50257:
+            return {c: i for i, c in enumerate(vocab)}
+
+
+def write_hf_whisper(path: str, cfg, seed: int = 0, scale: float = 0.02, dtype: str = "F16") -> str:
+    """An HF Whisper checkpoint directory: config.json, model.safetensors with
+    the leaves of ``models/whisper.py:random_params(cfg, seed, scale)`` (the
+    same draws, in the same order; rounded to ``dtype``) under the HF names,
+    and byte-level BPE files (:func:`worded_vocab`, no merges)."""
+    from whisperx_tpu_torch.models.whisper import param_shapes
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def draw(p, shape):
+        if p[-1] == "scale":
+            return np.ones(shape, np.float32)
+        if p[-1] == "bias":
+            return np.zeros(shape, np.float32)
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    leaves = list(_sorted_leaves(param_shapes(cfg)))
+    write_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_whisper_key, draw, dtype)
+    config = {
+        "model_type": "whisper", "_name_or_path": cfg.name, "vocab_size": cfg.n_vocab, "num_mel_bins": cfg.n_mels,
+        "d_model": cfg.n_audio_state, "encoder_layers": cfg.n_audio_layer, "encoder_attention_heads": cfg.n_audio_head,
+        "decoder_layers": cfg.n_text_layer, "decoder_attention_heads": cfg.n_text_head,
+        "encoder_ffn_dim": 4 * cfg.n_audio_state, "decoder_ffn_dim": 4 * cfg.n_text_state,
+        "max_source_positions": cfg.n_audio_ctx, "max_target_positions": cfg.n_text_ctx,
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(worded_vocab(), f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return path
+
+
+ALIGN_CHARS = ["<pad>", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+
+
+def write_hf_wav2vec2(path: str, cfg, seed: int = 0) -> str:
+    """An HF Wav2Vec2ForCTC directory: config.json, model.safetensors (fp32)
+    with the leaves of ``models/wav2vec2.py:random_params(cfg, seed)`` under
+    the HF names, and a character vocab.json."""
+    from whisperx_tpu_torch.models.wav2vec2 import param_shapes
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def draw(p, shape):
+        if p[-1] == "scale":
+            return np.ones(shape, np.float32)
+        if p[-1] == "bias":
+            return np.zeros(shape, np.float32)
+        return (rng.standard_normal(shape) / np.sqrt(int(np.prod(shape[:-1])))).astype(np.float32)
+
+    leaves = list(_sorted_leaves(param_shapes(cfg)))
+    write_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_w2v_key, draw, "F32")
+    config = {
+        "model_type": "wav2vec2", "_name_or_path": cfg.name, "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.intermediate_size,
+        "conv_dim": [c[0] for c in cfg.conv_layers], "conv_kernel": [c[1] for c in cfg.conv_layers],
+        "conv_stride": [c[2] for c in cfg.conv_layers], "conv_bias": cfg.conv_bias,
+        "do_stable_layer_norm": cfg.do_stable_layer_norm, "feat_extract_norm": cfg.feat_extract_norm,
+        "num_conv_pos_embeddings": cfg.num_conv_pos_embeddings,
+        "num_conv_pos_embedding_groups": cfg.num_conv_pos_embedding_groups, "layer_norm_eps": cfg.layer_norm_eps,
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump({c: i for i, c in enumerate(ALIGN_CHARS)}, f)
+    return path
+
+
+def write_pyannet_bin(path: str, seed: int = 0, classifier_bias: float = 0.0) -> str:
+    """A pyannote segmentation checkpoint (Lightning ``state_dict``,
+    ``model.`` prefix, the sinc parameters under ``filterbank``) holding the
+    port's seeded 3-class PyanNet (``models/vad_net.py:init_vad_params``),
+    its classifier bias set to ``classifier_bias``."""
+    import torch
+
+    from whisperx_tpu_torch.models.convert import pyannet_from_jax
+    from whisperx_tpu_torch.models.vad_net import init_vad_params
+
+    tree = init_vad_params(seed=seed)
+    tree["classifier"]["bias"][:] = classifier_bias
+    sd = pyannet_from_jax(tree, device="cpu").state_dict()
+    sd = {k.replace("sincnet.conv1d.0.", "sincnet.conv1d.0.filterbank."): v for k, v in sd.items()}
+    torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()}}, path)
+    return path
+
+
+def seeded_wespeaker(seed: int = 0):
+    """The port's seeded ResNet34 on the CPU
+    (``diarize/embed.py:init_resnet34_params``: 32 base channels, [3, 4, 6,
+    3], 256-d, 80 fbank bins) with BN running statistics measured on 5 s of
+    each of the two speakers, as training leaves them. With the init's unit
+    statistics the activations grow by orders of magnitude over the stages
+    and every embedding points the same way; measured ones keep each layer
+    at unit scale, and the random net's embeddings differ by speaker."""
+    import torch
+
+    from whisperx_tpu_torch.audio.fbank import kaldi_fbank
+    from whisperx_tpu_torch.diarize.embed import init_resnet34_params
+    from whisperx_tpu_torch.models.convert import resnet34_from_jax
+
+    net = resnet34_from_jax(init_resnet34_params(seed=seed), device="cpu")
+    calib = np.stack([noise_floor(speaker_tones(5, k % 2, t0=k), seed=seed + k) for k in range(4)])
+    for m in net.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None  # a cumulative average: the batch's own statistics
+    net.train()
+    with torch.no_grad():
+        net(kaldi_fbank(torch.from_numpy(calib)))
+    return net.eval()
+
+
+def write_wespeaker_bin(path: str, seed: int = 0) -> str:
+    """A WeSpeaker ResNet34 checkpoint in the pyannote wrapper layout
+    (``resnet.``-prefixed keys) holding :func:`seeded_wespeaker`."""
+    import torch
+
+    torch.save({"state_dict": {f"resnet.{k}": v for k, v in seeded_wespeaker(seed).state_dict().items()}}, path)
+    return path
+
+
+def speaker_tones(seconds: float, speaker: int, t0: float = 0.0) -> np.ndarray:
+    """tests/test_diarize.py:98-107's two synthetic speakers: AM tones at
+    160 + 320 Hz (4 Hz AM) and 1200 + 2400 Hz (5 Hz AM)."""
+    t = t0 + np.arange(int(seconds * 16000)) / 16000
+    f, am = ((160, 4), (1200, 5))[speaker]
+    return 0.5 * np.sin(2 * np.pi * f * t) * (1 + 0.4 * np.sin(2 * np.pi * am * t)) + 0.2 * np.sin(2 * np.pi * 2 * f * t)
+
+
+def noise_floor(audio: np.ndarray, seed: int) -> np.ndarray:
+    """``audio`` over a -50 dB white-noise floor: pure tones leave most sinc
+    bands at rounding level, where the PyanNet's InstanceNorm turns float
+    noise into features and two devices' roundings into different turns."""
+    return (audio + 0.003 * np.random.default_rng(seed).standard_normal(len(audio))).astype(np.float32)
+
+
+def two_speaker_audio() -> np.ndarray:
+    """tests/test_diarize.py:98-107: 3 s of each speaker around 1 s of
+    silence, over the noise floor."""
+    return noise_floor(np.concatenate([speaker_tones(3, 0), np.zeros(16000), speaker_tones(3, 1)]), seed=0)
+
+
+def conversation_audio(minutes: float, seed: int = 0) -> np.ndarray:
+    """The two speakers taking turns of 40-50 s with 0.5-1.5 s silences
+    between them (lengths drawn from ``seed``), over the noise floor."""
+    rng = np.random.default_rng(seed)
+    n = int(minutes * 60 * 16000)
+    parts, total, speaker = [], 0, 0
+    while total < n:
+        turn = speaker_tones(rng.uniform(40, 50), speaker, t0=total / 16000)
+        gap = np.zeros(int(rng.uniform(0.5, 1.5) * 16000))
+        parts += [turn, gap]
+        total += len(turn) + len(gap)
+        speaker = 1 - speaker
+    return noise_floor(np.concatenate(parts)[:n], seed=seed)
 
 
 def log(msg: str) -> None:
@@ -757,6 +1042,138 @@ def small_pipeline_phase(torch) -> None:
     )
 
 
+def small_diarize_phase(torch) -> None:
+    """Diarization card against CPU at published widths on few windows
+    (TF32 off, as set in main): the seeded WeSpeaker ResNet34 of
+    :func:`seeded_wespeaker` and a seeded 3-class PyanNet (SincNet 80 x 251
+    / 10, two 60-channel convs, 4-layer BiLSTM of 128, two 128-unit
+    linears; classifier weights x 30 so that activities spread over [0, 1])
+    in the overlap-aware mode; then the weight-free default (EnergyVAD
+    windows + MelStatsEmbedding). Same turns and labels."""
+    import copy
+
+    from whisperx_tpu_torch.diarize.embed import NeuralSpeakerEmbedding
+    from whisperx_tpu_torch.diarize.pipeline import DiarizationPipeline
+    from whisperx_tpu_torch.diarize.segmentation import NeuralSegmentation
+    from whisperx_tpu_torch.models.convert import pyannet_from_jax
+    from whisperx_tpu_torch.models.vad_net import init_vad_params
+
+    audio = two_speaker_audio()
+    wespeaker = seeded_wespeaker(seed=0)
+    seg_tree = init_vad_params(seed=0)
+    seg_tree["classifier"]["kernel"] *= 30.0
+    windows = np.stack([audio[s : s + 80_000] for s in (0, 16_000, len(audio) - 80_000)])  # 5 s windows, as the diarizer cuts
+    res = {}
+    for dev in ("cuda", "cpu"):
+        embedder = NeuralSpeakerEmbedding(copy.deepcopy(wespeaker).to(dev))
+        seg = NeuralSegmentation(pyannet_from_jax(seg_tree, device=dev))
+        neural = DiarizationPipeline(device=dev, embedder=embedder, segmentation=seg)
+        default = DiarizationPipeline(device=dev)
+        res[dev] = {
+            "neural": [tuple(r) for r in neural(audio, num_speakers=2)[["start", "end", "speaker"]].itertuples(index=False)],
+            "default": [tuple(r) for r in default(audio, num_speakers=2)[["start", "end", "speaker"]].itertuples(index=False)],
+            "acts": seg(windows),
+            "emb": embedder(windows),
+            "melstats": default.embedder(windows[:, :24_000]),
+        }
+    got, want = res["cuda"], res["cpu"]
+    for mode in ("neural", "default"):
+        if got[mode] != want[mode] or not want[mode]:
+            raise AssertionError(f"small diarization {mode}: card turns {got[mode]} != cpu {want[mode]}")
+    if len({t[2] for t in want["default"]}) != 2:
+        raise AssertionError(f"small diarization default: expected two speakers, got {want['default']}")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in ("acts", "emb", "melstats")}
+    log(
+        f"small diarization (ResNet34 + PyanNet at published widths, seeded; two-speaker audio): card == cpu "
+        f"{len(got['neural'])} overlap-aware turns and labels ({len({t[2] for t in got['neural']})} speakers), "
+        f"{len(got['default'])} weight-free turns (EnergyVAD + MelStats, 2 speakers); largest card-vs-cpu difference: "
+        f"activities {errs['acts']:.3g}, L2-normalised ResNet34 embeddings {errs['emb']:.3g}, MelStats embeddings "
+        f"{errs['melstats']:.3g}: ok"
+    )
+
+
+CLI_FORMATS = ("txt", "vtt", "srt", "tsv", "json", "aud")
+
+
+def meeting_wav(path: str) -> str:
+    """Two in-band tone speakers taking 3 s turns with 0.5 s pauses, over
+    the noise floor (the CLI checks' WAV file)."""
+    from whisperx_tpu_torch.audio.io import write_wav
+
+    t = np.arange(3 * 16000) / 16000
+    a = 0.4 * np.sin(2 * np.pi * 500 * t) * (1 + 0.5 * np.sin(2 * np.pi * 4 * t))
+    b = 0.4 * np.sin(2 * np.pi * 2000 * t) * (1 + 0.5 * np.sin(2 * np.pi * 5 * t))
+    gap = np.zeros(8000)
+    write_wav(path, noise_floor(np.concatenate([gap, a, gap, b, gap, a, gap]), seed=0))
+    return path
+
+
+def small_cli_configs():
+    """The CLI checks' models: Whisper 128 wide (2 + 2 layers, 2 heads, 64
+    text positions) and wav2vec2 128 wide (three 32-channel convs, 2 layers)."""
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_TEST
+
+    whisper = dataclasses.replace(TEST_CONFIG, name="cli-128", n_audio_state=128, n_text_state=128, n_text_ctx=64)
+    w2v = dataclasses.replace(
+        WAV2VEC2_TEST, name="cli-128", hidden_size=128, intermediate_size=256,
+        conv_layers=((32, 10, 5), (32, 3, 2), (32, 3, 2)), num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+    )
+    return whisper, w2v
+
+
+def small_cli_phase(torch) -> None:
+    """``cli.cli`` in-process on a 128-wide HF Whisper and wav2vec2 written by
+    hand, float32, --diarize (weight-free diarizer), once with --device
+    cuda and once with --device cpu; each run writes the five formats of
+    "all" and then "aud". The six files must be byte-equal; the JSON may
+    differ only in alignment scores, within 2e-3."""
+    import tempfile
+
+    from whisperx_tpu_torch import cli
+
+    whisper_cfg, w2v_cfg = small_cli_configs()
+    with tempfile.TemporaryDirectory() as tmp:
+        whisper = write_hf_whisper(os.path.join(tmp, "hf-whisper"), whisper_cfg, seed=0, dtype="F32")
+        w2v = write_hf_wav2vec2(os.path.join(tmp, "hf-wav2vec2"), w2v_cfg, seed=0)
+        wav = meeting_wav(os.path.join(tmp, "meeting.wav"))
+        argv = [wav, "--checkpoint", whisper, "--align_model", w2v, "--compute_type", "float32", "--language", "en",
+                "--beam_size", "2", "--batch_size", "2", "--chunk_size", "5", "--diarize", "--min_speakers", "1",
+                "--max_speakers", "2", "--suppress_tokens=-1,50257", "--verbose", "False"]
+        for dev in ("cuda", "cpu"):
+            for fmt in ("all", "aud"):
+                cli.cli(argv + ["--device", dev, "--output_format", fmt, "--output_dir", os.path.join(tmp, dev)])
+        files = {
+            dev: {ext: open(os.path.join(tmp, dev, f"meeting.{ext}"), "rb").read() for ext in CLI_FORMATS}
+            for dev in ("cuda", "cpu")
+        }
+    same = [ext for ext in CLI_FORMATS if files["cuda"][ext] == files["cpu"][ext]]
+    score_err = 0.0
+    if "json" not in same:
+        got, want = json.loads(files["cuda"]["json"]), json.loads(files["cpu"]["json"])
+        pairs = [(a, b) for sa, sb in zip(got["segments"], want["segments"]) for a, b in zip(sa.get("words", []), sb.get("words", []))]
+        score_err = max((abs(a.get("score", 0) - b.get("score", 0)) for a, b in pairs), default=0.0)
+        for res in (got, want):
+            for seg in res["segments"]:
+                for w in seg.get("words", []):
+                    w.pop("score", None)
+            for w in res.get("word_segments", []):
+                w.pop("score", None)
+        if got != want or score_err > 2e-3:
+            raise AssertionError(f"small CLI: the card's JSON differs from the CPU's beyond the scores (score err {score_err})")
+    if [ext for ext in CLI_FORMATS if ext not in same and ext != "json"]:
+        raise AssertionError(f"small CLI: card files differ from the cpu's: {sorted(set(CLI_FORMATS) - set(same))}")
+    data = json.loads(files["cpu"]["json"])
+    speakers = {seg.get("speaker") for seg in data["segments"]}
+    if not data["segments"] or not data["word_segments"] or not speakers <= {"SPEAKER_00", "SPEAKER_01"}:
+        raise AssertionError(f"small CLI: expected transcribed, aligned and diarized segments, got {data['segments']}")
+    log(
+        f"small CLI (cli.cli, 128-wide Whisper + wav2vec2 from hand-written HF directories, float32, --diarize): "
+        f"--device cuda == --device cpu, byte-equal {', '.join(same)}"
+        + ("" if "json" in same else f"; json equal but for alignment scores within {score_err:.3g} (atol 2e-3)")
+        + f"; {len(data['segments'])} segments, {len(data['word_segments'])} words, speakers {sorted(speakers)}: ok"
+    )
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -1125,6 +1542,176 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     return runs["kernel"]["launches"]
 
 
+# ---- phase 7: the command line at full width --------------------------------
+
+CLI_MINUTES = 6.0  # two speakers in ~45 s turns; the all-active VAD cuts 30 s chunks
+
+
+def cli_phase(torch, card: str) -> dict:
+    """``whisperx_tpu_torch.cli.cli`` in-process, as a user runs
+    ``python -m whisperx_tpu_torch <wav> --diarize``, on checkpoints written
+    here from seeds in their published layouts (nothing reused from phases
+    4-6, so the loaders run on the card): large-v2 as an HF directory (fp16
+    safetensors, BPE files), wav2vec2 base as an HF directory, a WeSpeaker
+    ResNet34 ``.bin`` (pyannote wrapper layout) and a pyannote PyanNet
+    ``.bin`` whose classifier bias is +3, so that every class is active and
+    the path runs deterministically: neural VAD finds speech everywhere,
+    30 s chunks, every (window, class) pair embedded and clustered. int8,
+    batch 8, beam 5, EOT banned (the 224-token default horizon), the JAX
+    package's defaults otherwise (no kernel env knob). Returns the launches."""
+    import tempfile
+
+    from whisperx_tpu_torch import cli, native
+    from whisperx_tpu_torch.audio import io as audio_io
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.diarize import embed, segmentation
+    from whisperx_tpu_torch.io import get_writer
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE, get_whisper_config
+    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
+
+    cfg = get_whisper_config("large-v2")
+    steps, L, batch = cfg.n_text_ctx // 2, cfg.n_text_layer, 8  # decode/engine.py's default horizon
+    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
+    times: dict = {}
+    seen: dict = {"generate": 0, "pool_decodes": 0}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t
+            if name == "transcribe":
+                seen["chunks"] = len(a[1][0].result["segments"])
+            if name == "load_model":
+                seen["pipeline"] = out
+            return out
+
+        return wrapper
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+
+        return wrapper
+
+    def assign(turns, result, *a, **kw):
+        seen["turns"] = turns
+        return cli_assign(turns, result, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        whisper_dir = write_hf_whisper(os.path.join(tmp, "hf-whisper-large"), cfg, seed=0, dtype="F16")
+        w2v_dir = write_hf_wav2vec2(os.path.join(tmp, "hf-wav2vec2-base"), WAV2VEC2_BASE, seed=0)
+        wespeaker = write_wespeaker_bin(os.path.join(tmp, "wespeaker-resnet34.bin"), seed=0)
+        pyannet = write_pyannet_bin(os.path.join(tmp, "segmentation.bin"), seed=0, classifier_bias=3.0)
+        audio = conversation_audio(CLI_MINUTES)
+        wav = os.path.join(tmp, "conversation.wav")
+        audio_io.write_wav(wav, audio)
+        audio_s = len(audio) / 16000
+        sizes = {os.path.basename(p): os.path.getsize(os.path.join(p, "model.safetensors") if os.path.isdir(p) else p)
+                 for p in (whisper_dir, w2v_dir, wespeaker, pyannet)}
+        log(f"cli inputs written from seeds in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items()) + f"; {audio_s:.1f} s WAV")
+        native.available()  # the g++ build, outside the timed run
+
+        out = os.path.join(tmp, "out")
+        argv = [wav, "--checkpoint", whisper_dir, "--compute_type", "int8", "--batch_size", str(batch),
+                "--beam_size", "5", "--language", "en", "--align_model", w2v_dir, "--vad_checkpoint", pyannet,
+                "--diarize", "--diarize_checkpoint", wespeaker, "--min_speakers", "2", "--max_speakers", "2",
+                "--suppress_tokens=-1,50257", "--output_dir", out, "--output_format", "all", "--verbose", "False"]
+        cli_assign = cli.assign_word_speakers
+        patches = [
+            (cli, "assign_word_speakers", assign),
+            (cli, "load_model", timed("load_model", cli.load_model)),
+            (cli, "load_align_model", timed("load_align_model", cli.load_align_model)),
+            (cli, "DiarizationPipeline", timed("DiarizationPipeline", cli.DiarizationPipeline)),
+            (cli, "_transcribe_stage", timed("transcribe", cli._transcribe_stage)),
+            (cli, "_align_stage", timed("align", cli._align_stage)),
+            (cli, "_diarize_stage", timed("diarize", cli._diarize_stage)),
+            (cli, "_write_stage", timed("write", cli._write_stage)),
+            (segmentation.NeuralSegmentation, "__call__", timed("segmentation forward", segmentation.NeuralSegmentation.__call__)),
+            (embed.NeuralSpeakerEmbedding, "__call__", timed("fbank + ResNet34", embed.NeuralSpeakerEmbedding.__call__)),
+            (segmentation, "cluster_speakers", timed("clustering", segmentation.cluster_speakers)),
+            (segmentation, "binarize", timed("binarize", segmentation.binarize)),
+            (WhisperEngine, "generate", counted("generate", WhisperEngine.generate)),
+            (native.IngestPool, "get", counted("pool_decodes", native.IngestPool.get)),
+        ]
+        originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        audio_io.LAST_DECODER = None
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            cli.cli(argv)
+            wall = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+        finally:
+            for obj, name, fn in originals:
+                setattr(obj, name, fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        written = sorted(os.listdir(out))
+        with open(os.path.join(out, "conversation.json")) as f:
+            result = json.load(f)
+        # "all" writes five formats, as in the JAX CLI; the sixth, "aud", from the same result.
+        get_writer("aud", out)(result, wav, {"max_line_width": None, "max_line_count": None, "highlight_words": False})
+        written_all = sorted(os.listdir(out))
+    stages = seen["pipeline"].telemetry.report()
+
+    n_batches = -(-seen["chunks"] // batch)
+    want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0}
+    if written != sorted(f"conversation.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")) or len(written_all) != 6:
+        raise AssertionError(f"cli: wrote {written}, then {written_all}")
+    if seen["generate"] != n_batches or n_batches < 2:
+        raise AssertionError(f"cli: {seen['chunks']} chunks, {seen['generate']} decode batches")
+    # One file: AudioPrefetcher's native pool decodes it once, and the later
+    # stages reuse the waveform; load_audio's own routes are never taken.
+    if seen["pool_decodes"] != 1 or audio_io.LAST_DECODER is not None:
+        raise AssertionError(f"cli: {seen['pool_decodes']} pool decodes, load_audio route {audio_io.LAST_DECODER}")
+    if launches != want:
+        raise AssertionError(f"cli: launches {launches}, expected {want} ({n_batches} decode batches of {steps} steps)")
+    segs = result["segments"]
+    if not segs or any(s["end"] - s["start"] > 30.0 for s in segs):
+        raise AssertionError(f"cli: segments empty or longer than 30 s: {[(s['start'], s['end']) for s in segs]}")
+    speakers = [s.get("speaker") for s in segs]
+    if not set(speakers) <= {"SPEAKER_00", "SPEAKER_01"} or None in speakers:
+        raise AssertionError(f"cli: a segment without a speaker of the two: {sorted(set(map(str, speakers)))}")
+    turn_speakers = sorted(set(seen["turns"]["speaker"]))
+    if turn_speakers != ["SPEAKER_00", "SPEAKER_01"]:
+        raise AssertionError(f"cli: --min_speakers 2 --max_speakers 2 gave turns of {turn_speakers}")
+    helped = subprocess.run([sys.executable, "-m", "whisperx_tpu_torch", "--help"], capture_output=True, text=True, timeout=120)
+    if helped.returncode != 0 or "--diarize_checkpoint" not in helped.stdout:
+        raise AssertionError(f"python -m whisperx_tpu_torch --help: rc {helped.returncode}: {helped.stderr[-500:]}")
+
+    ms = {k: v * 1e3 for k, v in times.items()}
+    run_ms = sum(ms[k] for k in ("transcribe", "align", "diarize", "write"))
+    loads = ms["load_model"] + ms["load_align_model"] + ms["DiarizationPipeline"]
+    log(
+        f"cli [{card}]: python -m whisperx_tpu_torch <{audio_s:.1f} s WAV> --compute_type int8 --batch_size 8 "
+        f"--beam_size 5 --vad_checkpoint --diarize --diarize_checkpoint, large-v2 / wav2vec2 base / ResNet34 / "
+        f"PyanNet: {seen['chunks']} chunks, {n_batches} decode batches of {steps} steps; loads: load_model "
+        f"{ms['load_model']:.1f} ms, load_align_model {ms['load_align_model']:.1f} ms, DiarizationPipeline with the "
+        f"converters {ms['DiarizationPipeline']:.1f} ms; stages: transcribe {ms['transcribe'] - ms['load_model']:.1f} ms "
+        f"(vad {stages['vad']['seconds'] * 1e3:.1f}, asr_decode {stages['asr_decode']['seconds'] * 1e3:.1f}), align "
+        f"{ms['align'] - ms['load_align_model']:.1f} ms, diarize {ms['diarize'] - ms['DiarizationPipeline']:.1f} ms "
+        f"(segmentation forward {ms['segmentation forward']:.1f}, fbank + ResNet34 {ms['fbank + ResNet34']:.1f}, "
+        f"clustering {ms['clustering']:.1f}, binarize {ms['binarize']:.1f}), write {ms['write']:.1f} ms; "
+        f"file {audio_s / wall:.2f} audio-s/s end to end ({wall:.1f} s with the loads), "
+        f"{audio_s / ((run_ms - loads) / 1e3):.2f} audio-s/s without them; peak {peak:.2f} GiB; the WAV decoded once "
+        f"by AudioPrefetcher's native pool (load_audio's routes not taken: LAST_DECODER None); "
+        f"{len(seen['turns'])} speaker turns of {turn_speakers}; {len(segs)} segments, speakers "
+        f"{sorted(set(speakers))}, six files; launches {launches}; "
+        f"python -m whisperx_tpu_torch --help rc 0: ok"
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1158,10 +1745,14 @@ def main() -> int:
     small_reference_phase(torch)
     small_align_phase(torch, card)
     small_pipeline_phase(torch)
+    small_diarize_phase(torch)
+    small_cli_phase(torch)
     model = large_v2(torch)
     launches, profile = main_path_phase(torch, card, model)  # the decode path's kernel arm
     flash_align, align_model = align_path_phase(torch, card)
     pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
+    del model, align_model
+    cli_launches = cli_phase(torch, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in STEP_KERNELS and k["name"] in profile:
@@ -1171,6 +1762,7 @@ def main() -> int:
     kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
     for k in kernels:
         k["launches_pipeline"] = pipeline_launches[k["name"]]
+        k["launches_cli"] = cli_launches[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -23,5 +23,10 @@ setup(
         "nltk",
     ],
     extras_require={"dev": ["pytest"]},
-    entry_points={"console_scripts": ["whisperx-tpu=whisperx_tpu.cli:cli"]},
+    entry_points={
+        "console_scripts": [
+            "whisperx-tpu=whisperx_tpu.cli:cli",
+            "whisperx-tpu-torch=whisperx_tpu_torch.cli:cli",
+        ]
+    },
 )

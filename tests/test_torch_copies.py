@@ -271,6 +271,14 @@ VERBATIM = {
     "whisperx_tpu_torch/vad/__init__.py": "whisperx_tpu/vad/__init__.py",
     "whisperx_tpu_torch/models/pinned.py": "whisperx_tpu/models/pinned.py",
     "whisperx_tpu_torch/native/audio_native.cpp": "whisperx_tpu/native/audio_native.cpp",
+    "whisperx_tpu_torch/io/__init__.py": "whisperx_tpu/io/__init__.py",
+    "whisperx_tpu_torch/io/conjunctions.py": "whisperx_tpu/io/conjunctions.py",
+    "whisperx_tpu_torch/io/subtitles.py": "whisperx_tpu/io/subtitles.py",
+    "whisperx_tpu_torch/io/writers.py": "whisperx_tpu/io/writers.py",
+    "whisperx_tpu_torch/diarize/__init__.py": "whisperx_tpu/diarize/__init__.py",
+    "whisperx_tpu_torch/diarize/assign.py": "whisperx_tpu/diarize/assign.py",
+    "whisperx_tpu_torch/diarize/cluster.py": "whisperx_tpu/diarize/cluster.py",
+    "whisperx_tpu_torch/__main__.py": "whisperx_tpu/__main__.py",
 }
 
 
@@ -341,3 +349,59 @@ def test_pipeline_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch, tm
             call()
     p = load_test_pipeline(device="cpu")
     assert p.device.type == "cpu" and p.model.device.type == "cpu"
+
+
+CLI_MODULES = (
+    "whisperx_tpu_torch.cli", "whisperx_tpu_torch.io", "whisperx_tpu_torch.io.writers",
+    "whisperx_tpu_torch.io.subtitles", "whisperx_tpu_torch.io.conjunctions", "whisperx_tpu_torch.diarize",
+    "whisperx_tpu_torch.diarize.assign", "whisperx_tpu_torch.diarize.cluster", "whisperx_tpu_torch.diarize.embed",
+    "whisperx_tpu_torch.diarize.pipeline", "whisperx_tpu_torch.diarize.segmentation",
+    "whisperx_tpu_torch.models.vad_net", "whisperx_tpu_torch.audio.fbank",
+)
+
+
+def test_cli_and_diarize_modules_import_without_jax_or_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'whisperx_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import whisperx_tpu_torch as w\n"
+        f"for m in {CLI_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from whisperx_tpu_torch.models.convert import pyannet_from_jax, resnet34_from_jax, load_pyannet_vad, load_wespeaker_resnet34\n"
+        "from whisperx_tpu_torch.vad.model import NeuralVAD\n"
+        "for name in ('DiarizationPipeline', 'assign_word_speakers'):\n"
+        "    assert name in w.__all__ and hasattr(w, name), name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'whisperx_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    res = subprocess.run([sys.executable, "-m", "whisperx_tpu_torch", "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "--diarize_checkpoint" in res.stdout, res.stderr
+
+
+def test_cli_and_diarization_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from whisperx_tpu_torch import DiarizationPipeline, cli
+    from whisperx_tpu_torch.audio.fbank import kaldi_fbank
+    from whisperx_tpu_torch.diarize.embed import MelStatsEmbedding
+    from whisperx_tpu_torch.models.convert import pyannet_from_jax
+    from whisperx_tpu_torch.models.vad_net import init_vad_params
+    from whisperx_tpu_torch.vad.model import load_vad_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = np.zeros(16000, np.float32)
+    for call in (
+        lambda: DiarizationPipeline(),
+        lambda: MelStatsEmbedding(),
+        lambda: kaldi_fbank(wav),
+        lambda: pyannet_from_jax(init_vad_params(seed=0)),
+        lambda: load_vad_model(checkpoint=str(tmp_path / "segmentation.bin")),
+        lambda: cli.cli(["a.wav", "--checkpoint", str(tmp_path), "--output_dir", str(tmp_path)]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert cli.build_parser().parse_args(["a.wav"]).device == "cuda"
+    assert DiarizationPipeline(device="cpu").device.type == "cpu"
+    assert pyannet_from_jax(init_vad_params(seed=0), device="cpu").device.type == "cpu"

@@ -96,18 +96,41 @@ def test_pipeline_segments_equal(scorer, what):
         assert t_pipe(audio) == []
 
 
-def test_load_vad_model_and_neural_vad_raise():
+def test_load_vad_model_and_neural_vad_raise(tmp_path):
+    """The weight-free default, then a PyanNet ``.bin`` that loads into
+    NeuralVAD and scores as the JAX package's (within 1e-4, the same cut &
+    merge segments); a checkpoint that does not load raises."""
+    import torch
+
+    from tests.test_real_checkpoints import write_synthetic_pyannet_ckpt
+
     pipe = tv.load_vad_model(vad_onset=0.4, vad_offset=0.3)
     assert isinstance(pipe.scorer, tv.SpeechBandVAD)
     assert (pipe.onset, pipe.offset, pipe.min_duration_on) == (0.4, 0.3, 0.5)
     jpipe = jv.load_vad_model(vad_onset=0.4, vad_offset=0.3)
     audio = _bursts(60)
     assert pipe(audio) == jpipe(audio)
-    for kw in (dict(checkpoint="segmentation.bin"), dict(model_fp="segmentation.bin")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tv.load_vad_model(**kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tv.NeuralVAD(None, None)
+
+    ckpt = str(write_synthetic_pyannet_ckpt(tmp_path / "segmentation.bin"))
+    audio = _speech_band(20)
+    for kw in (dict(checkpoint=ckpt), dict(model_fp=ckpt)):
+        with pytest.warns(UserWarning, match="pinned reference"):
+            pipe = tv.load_vad_model("cpu", vad_onset=0.5, vad_offset=0.363, **kw)
+        with pytest.warns(UserWarning, match="pinned reference"):
+            jpipe = jv.load_vad_model(None, vad_onset=0.5, vad_offset=0.363, **kw)
+        assert isinstance(pipe.scorer, tv.NeuralVAD) and pipe.scorer.model.device.type == "cpu"
+        got, want = pipe.scorer(audio), jpipe.scorer(audio)
+        np.testing.assert_array_equal(got.timestamps, want.timestamps)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4)
+        assert pipe(audio, chunk_size=5.0) == jpipe(audio, chunk_size=5.0)
+    with pytest.raises(RuntimeError, match="mismatch"):
+        tv.load_vad_model("cpu", checkpoint=ckpt, expected_sha256="0" * 64)
+    bad = tmp_path / "bad.bin"
+    torch.save({"state_dict": {"classifier.weight": torch.zeros(3, 128)}}, bad)
+    with pytest.warns(UserWarning), pytest.raises((KeyError, ValueError)):
+        tv.load_vad_model("cpu", checkpoint=str(bad))
+    with pytest.raises(FileNotFoundError):
+        tv.load_vad_model("cpu", checkpoint=str(tmp_path / "missing"))
 
 
 def test_checkpoint_digest_check_equal(tmp_path):

@@ -8,14 +8,14 @@ The public API is the JAX package's (reference: whisperx/__init__.py):
     result = model.transcribe(audio, batch_size=8)
     align_model, metadata = whisperx.load_align_model(result["language"])
     result = whisperx.align(result["segments"], align_model, metadata, audio)
+    diarize = whisperx.DiarizationPipeline()
+    result = whisperx.assign_word_speakers(diarize(audio), result)
 
-``DiarizationPipeline`` and ``assign_word_speakers`` come with the
-diarization slice.
-
+The command line is ``python -m whisperx_tpu_torch <audio> ...`` (``cli.py``).
 The package mirrors the JAX package's layout (``audio/``, ``io/``,
-``models/``, ``decode/``, ``align/``, ``vad/``, ``pipeline/``, ``native/``,
-``ops/``, ``utils/``) so each module's counterpart is easy to find. It
-imports ``torch`` and never ``jax``, ``flax`` or ``whisperx_tpu``;
+``models/``, ``decode/``, ``align/``, ``vad/``, ``diarize/``, ``pipeline/``,
+``native/``, ``ops/``, ``utils/``) so each module's counterpart is easy to
+find. It imports ``torch`` and never ``jax``, ``flax`` or ``whisperx_tpu``;
 framework-free modules are carried as copies.
 
 Every Pallas kernel of the JAX package is a hand-written CUDA C++ kernel
@@ -28,12 +28,16 @@ version.
 from .align.alignment import AlignJob, align, align_begin, load_align_model
 from .audio.io import load_audio
 from .device import resolve_device
+from .diarize.assign import assign_word_speakers
+from .diarize.pipeline import DiarizationPipeline
 from .pipeline.asr import load_model
 
 __all__ = [
     "AlignJob",
+    "DiarizationPipeline",
     "align",
     "align_begin",
+    "assign_word_speakers",
     "load_align_model",
     "load_audio",
     "load_model",

@@ -8,11 +8,14 @@ gives (torch ``nn.Linear.weight`` (out, in) → Dense kernel (in, out); conv1d
 (out, in, k) → (k, in, out); LayerNorm weight/bias → scale/bias).
 Safetensors files are parsed here (an 8-byte little-endian header length, a
 JSON header, raw little-endian buffers), so loading needs no ``safetensors``
-package. The pyannote and WeSpeaker converters come with the diarization
-slice.
+package. The pyannote PyanNet and WeSpeaker ResNet34 converters
+(``whisperx_tpu/models/convert.py:349-501``) give the JAX package's trees
+the same way.
 
 The second half builds the port's modules from such a tree.
 The tree is the nested dict ``whisperx_tpu`` keeps, given as numpy arrays.
+PyanNet and ResNet34 trees map explicitly (:func:`pyannet_from_jax`,
+:func:`resnet34_from_jax`); Whisper and wav2vec2 trees by name, below.
 For Whisper (``{"encoder": {...}, "decoder": {...}}`` with ``layers_<i>``
 subtrees) it may be fp, int8-quantized
 (:func:`..models.whisper.quantize_params`) and/or fused-QKV
@@ -39,7 +42,9 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..diarize.embed import ResNet34Embedding
 from .configs import Wav2Vec2Config, WhisperConfig
+from .vad_net import PyanNetVAD
 from .wav2vec2 import Wav2Vec2ForCTC
 from .whisper import Whisper
 
@@ -400,6 +405,157 @@ def load_wav2vec2(
 
 
 # ---------------------------------------------------------------------------
+# pyannote segmentation (VAD)
+# ---------------------------------------------------------------------------
+
+
+def _lstm_layer(sd, l: int, reverse: bool) -> dict:
+    sfx = f"l{l}" + ("_reverse" if reverse else "")
+    return {
+        "w_ih": sd[f"lstm.weight_ih_{sfx}"].astype(np.float32),
+        "w_hh": sd[f"lstm.weight_hh_{sfx}"].astype(np.float32),
+        "b_ih": sd[f"lstm.bias_ih_{sfx}"].astype(np.float32),
+        "b_hh": sd[f"lstm.bias_hh_{sfx}"].astype(np.float32),
+    }
+
+
+def convert_pyannet(sd: dict) -> tuple[dict, int]:
+    """pyannote PyanNet checkpoint → (the JAX param tree, num_classes)."""
+    sd = {(k[len("model."):] if k.startswith("model.") else k): v for k, v in sd.items()}
+
+    def sinc_param(name):
+        for key in (f"sincnet.conv1d.0.filterbank.{name}", f"sincnet.conv1d.0.{name}"):
+            if key in sd:
+                return sd[key].astype(np.float32)
+        raise KeyError(name)
+
+    num_classes = sd["classifier.weight"].shape[0]
+    lstm_layers = max(int(k.split("_l")[-1].replace("_reverse", "")) for k in sd if k.startswith("lstm.weight_ih")) + 1
+
+    params: dict[str, Any] = {
+        "wav_norm": {
+            "scale": sd["sincnet.wav_norm1d.weight"].reshape(-1).astype(np.float32),
+            "bias": sd["sincnet.wav_norm1d.bias"].reshape(-1).astype(np.float32),
+        },
+        "sinc": {"low_hz": sinc_param("low_hz_"), "band_hz": sinc_param("band_hz_")},
+        "conv_1": _conv1d(sd, "sincnet.conv1d.1"),
+        "conv_2": _conv1d(sd, "sincnet.conv1d.2"),
+        "classifier": _linear(sd, "classifier"),
+        "lstm": {},
+    }
+    for i in range(3):
+        params[f"norm_{i}"] = {
+            "scale": sd[f"sincnet.norm1d.{i}.weight"].reshape(-1).astype(np.float32),
+            "bias": sd[f"sincnet.norm1d.{i}.bias"].reshape(-1).astype(np.float32),
+        }
+    for l in range(lstm_layers):
+        params["lstm"][f"fwd_{l}"] = _lstm_layer(sd, l, False)
+        params["lstm"][f"bwd_{l}"] = _lstm_layer(sd, l, True)
+    for i in range(2):
+        params[f"linear_{i}"] = _linear(sd, f"linear.{i}")
+    return params, num_classes
+
+
+def load_pyannet_vad(path: str, *, device: DeviceLike = None) -> PyanNetVAD:
+    """Pinned segmentation checkpoint (whisperx/vad.py:18) → the port's
+    ``PyanNetVAD`` holding its weights. ``device=None`` means the card."""
+    device = resolve_device(device)
+    params, _ = convert_pyannet(load_state_dict(path))
+    return pyannet_from_jax(params, device=device)
+
+
+# ---------------------------------------------------------------------------
+# WeSpeaker ResNet34 speaker embedding (diarization)
+# ---------------------------------------------------------------------------
+
+
+def _conv2d(sd, prefix):
+    """torch conv2d weight (out, in, kh, kw) → Flax kernel (kh, kw, in, out)."""
+    return {"kernel": sd[prefix + ".weight"].transpose(2, 3, 1, 0).astype(np.float32)}
+
+
+def _batchnorm(sd, prefix):
+    """torch BN → (params {scale,bias}, batch_stats {mean,var})."""
+    return (
+        {
+            "scale": sd[prefix + ".weight"].astype(np.float32),
+            "bias": sd[prefix + ".bias"].astype(np.float32),
+        },
+        {
+            "mean": sd[prefix + ".running_mean"].astype(np.float32),
+            "var": sd[prefix + ".running_var"].astype(np.float32),
+        },
+    )
+
+
+def convert_wespeaker_resnet34(sd: dict) -> tuple[dict, dict]:
+    """WeSpeaker ResNet34 state dict → (the JAX variables tree, model kwargs).
+
+    Accepts the pyannote wrapper layout (``resnet.``-prefixed — the
+    ``wespeaker-voxceleb-resnet34-LM`` checkpoint behind the reference's
+    pyannote/speaker-diarization-3.1, whisperx/diarize.py:19) or a bare
+    wespeaker export. The residual projection may be named ``shortcut`` or
+    ``downsample``. Returns kwargs (embed_dim/base_channels/stage_blocks/
+    two_emb_layer) inferred from the checkpoint.
+    """
+    for prefix in ("model.", "resnet.", "speaker_encoder."):
+        if any(k.startswith(prefix) for k in sd):
+            sd = {
+                (k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()
+            }
+
+    params: dict[str, Any] = {"conv1": _conv2d(sd, "conv1")}
+    stats: dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = _batchnorm(sd, "bn1")
+
+    stage_blocks = []
+    for stage in range(1, 5):
+        n_blocks = len(
+            {k.split(".")[1] for k in sd if k.startswith(f"layer{stage}.")}
+        )
+        stage_blocks.append(n_blocks)
+        for b in range(n_blocks):
+            src = f"layer{stage}.{b}"
+            dst = f"layer{stage}_{b}"
+            block_p: dict[str, Any] = {"conv1": _conv2d(sd, src + ".conv1")}
+            block_s: dict[str, Any] = {}
+            block_p["bn1"], block_s["bn1"] = _batchnorm(sd, src + ".bn1")
+            block_p["conv2"] = _conv2d(sd, src + ".conv2")
+            block_p["bn2"], block_s["bn2"] = _batchnorm(sd, src + ".bn2")
+            for proj in ("shortcut", "downsample"):
+                if src + f".{proj}.0.weight" in sd:
+                    block_p["shortcut_conv"] = _conv2d(sd, src + f".{proj}.0")
+                    block_p["shortcut_bn"], block_s["shortcut_bn"] = _batchnorm(
+                        sd, src + f".{proj}.1"
+                    )
+                    break
+            params[dst] = block_p
+            stats[dst] = block_s
+
+    params["seg_1"] = _linear(sd, "seg_1")
+    kwargs = {
+        "embed_dim": int(sd["seg_1.weight"].shape[0]),
+        "base_channels": int(sd["conv1.weight"].shape[0]),
+        "stage_blocks": tuple(stage_blocks),
+        "two_emb_layer": "seg_2.weight" in sd,
+    }
+    if kwargs["two_emb_layer"]:
+        params["seg_bn_1"], stats["seg_bn_1"] = _batchnorm(sd, "seg_bn_1")
+        params["seg_2"] = _linear(sd, "seg_2")
+    return {"params": params, "batch_stats": stats}, kwargs
+
+
+def load_wespeaker_resnet34(path: str, *, device: DeviceLike = None) -> ResNet34Embedding:
+    """Speaker-embedding checkpoint → the port's ``ResNet34Embedding``
+    holding its weights. Its ``n_mels`` (the fbank dim the net was trained
+    on — 80 for the pyannote 3.1 checkpoint) is recovered from seg_1's input
+    width, as the JAX loader does. ``device=None`` means the card."""
+    device = resolve_device(device)
+    variables, _ = convert_wespeaker_resnet34(load_state_dict(path))
+    return resnet34_from_jax(variables, device=device)
+
+
+# ---------------------------------------------------------------------------
 # the port's modules from a JAX-layout tree
 # ---------------------------------------------------------------------------
 
@@ -485,3 +641,100 @@ def wav2vec2_from_jax(
         raise NotImplementedError("int8 wav2vec2 trees (quantize_wav2vec2) are not ported")
     model = Wav2Vec2ForCTC(config, dtype=dtype, attn_impl=attn_impl, device=device)
     return load_jax_params(model, params)
+
+
+def _module_from_state(model: nn.Module, sd: dict, device: torch.device) -> nn.Module:
+    """``sd`` (numpy, the module's own names) loaded strictly: a missing,
+    extra or mis-shaped entry raises."""
+    keys = model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}, strict=False)
+    missing = [k for k in keys.missing_keys if not k.endswith("num_batches_tracked")]
+    if missing or keys.unexpected_keys:
+        raise KeyError(f"tree does not fit the module: missing {missing[:5]}, extra {keys.unexpected_keys[:5]}")
+    return model.to(device).eval()
+
+
+def pyannet_from_jax(params: dict, *, device: DeviceLike = None) -> PyanNetVAD:
+    """A port ``PyanNetVAD`` holding ``params`` (numpy, the tree of
+    ``whisperx_tpu/models/vad_net.py:PyanNetVAD``): Conv1d kernel
+    (k, in, out) → weight (out, in, k), Dense kernel (in, out) → Linear
+    weight (out, in); the LSTM's (w_ih, w_hh, b_ih, b_hh) per layer and
+    direction are torch's own layout. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    layers = len(params["lstm"]) // 2
+    model = PyanNetVAD(num_classes=params["classifier"]["kernel"].shape[1], lstm_layers=layers)
+    sd = {
+        "sincnet.wav_norm1d.weight": params["wav_norm"]["scale"],
+        "sincnet.wav_norm1d.bias": params["wav_norm"]["bias"],
+        "sincnet.conv1d.0.low_hz_": params["sinc"]["low_hz"],
+        "sincnet.conv1d.0.band_hz_": params["sinc"]["band_hz"],
+        "classifier.weight": params["classifier"]["kernel"].T,
+        "classifier.bias": params["classifier"]["bias"],
+    }
+    for i in range(3):
+        sd[f"sincnet.norm1d.{i}.weight"] = params[f"norm_{i}"]["scale"]
+        sd[f"sincnet.norm1d.{i}.bias"] = params[f"norm_{i}"]["bias"]
+    for i in (1, 2):
+        sd[f"sincnet.conv1d.{i}.weight"] = params[f"conv_{i}"]["kernel"].transpose(2, 1, 0)
+        sd[f"sincnet.conv1d.{i}.bias"] = params[f"conv_{i}"]["bias"]
+    for l in range(layers):
+        for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            p = params["lstm"][f"{direction}_{l}"]
+            sd[f"lstm.weight_ih_l{l}{sfx}"], sd[f"lstm.weight_hh_l{l}{sfx}"] = p["w_ih"], p["w_hh"]
+            sd[f"lstm.bias_ih_l{l}{sfx}"], sd[f"lstm.bias_hh_l{l}{sfx}"] = p["b_ih"], p["b_hh"]
+    for i in range(len(model.linear)):
+        sd[f"linear.{i}.weight"] = params[f"linear_{i}"]["kernel"].T
+        sd[f"linear.{i}.bias"] = params[f"linear_{i}"]["bias"]
+    return _module_from_state(model, sd, dev)
+
+
+def resnet34_from_jax(variables: dict, *, device: DeviceLike = None) -> ResNet34Embedding:
+    """A port ``ResNet34Embedding`` holding ``variables`` (numpy, the
+    {"params", "batch_stats"} tree of
+    ``whisperx_tpu/diarize/embed.py:ResNet34Embedding``): Conv2d kernel
+    (kh, kw, in, out) → weight (out, in, kh, kw), Dense kernel (in, out) →
+    Linear weight (out, in), BN scale/bias → weight/bias and batch_stats
+    mean/var → running_mean/running_var. The widths, depths and fbank bins
+    are read off the tree. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    params, stats = variables["params"], variables["batch_stats"]
+    stage_blocks = tuple(
+        sum(1 for k in params if k.startswith(f"layer{s}_")) for s in range(1, 5) if f"layer{s}_0" in params
+    )
+    base = params["conv1"]["kernel"].shape[-1]
+    c_final = base * 2 ** (len(stage_blocks) - 1)
+    seg_in, embed_dim = params["seg_1"]["kernel"].shape
+    n_mels = (seg_in // (2 * c_final)) * 2 ** (len(stage_blocks) - 1)
+    model = ResNet34Embedding(
+        embed_dim=embed_dim, base_channels=base, stage_blocks=stage_blocks,
+        two_emb_layer="seg_2" in params, n_mels=n_mels,
+    )
+    sd: dict = {}
+
+    def conv(dst, p):
+        sd[dst + ".weight"] = p["kernel"].transpose(3, 2, 0, 1)
+
+    def bn(dst, p, st):
+        sd[dst + ".weight"], sd[dst + ".bias"] = p["scale"], p["bias"]
+        sd[dst + ".running_mean"], sd[dst + ".running_var"] = st["mean"], st["var"]
+
+    def dense(dst, p):
+        sd[dst + ".weight"], sd[dst + ".bias"] = p["kernel"].T, p["bias"]
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"], stats["bn1"])
+    for s, blocks in enumerate(stage_blocks, start=1):
+        for b in range(blocks):
+            src, dst = params[f"layer{s}_{b}"], f"layer{s}.{b}"
+            st = stats[f"layer{s}_{b}"]
+            conv(dst + ".conv1", src["conv1"])
+            conv(dst + ".conv2", src["conv2"])
+            bn(dst + ".bn1", src["bn1"], st["bn1"])
+            bn(dst + ".bn2", src["bn2"], st["bn2"])
+            if "shortcut_conv" in src:
+                conv(dst + ".shortcut.0", src["shortcut_conv"])
+                bn(dst + ".shortcut.1", src["shortcut_bn"], st["shortcut_bn"])
+    dense("seg_1", params["seg_1"])
+    if "seg_2" in params:
+        bn("seg_bn_1", params["seg_bn_1"], stats["seg_bn_1"])
+        dense("seg_2", params["seg_2"])
+    return _module_from_state(model, sd, dev)

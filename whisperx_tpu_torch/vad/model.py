@@ -1,13 +1,16 @@
-"""VAD pipelines: weight-free host scorers, binarize, cut & merge.
+"""VAD pipelines: neural (PyanNet) and weight-free host scorers, binarize,
+cut & merge.
 
-Port of ``whisperx_tpu/vad/model.py``. The scorers (``EnergyVAD``,
-``SpeechBandVAD``) are numpy on the host, as in the JAX package, so their
-scores are bit-equal to it; ``VadPipeline`` turns scores into the ≤chunk_size
-windows the batched decode takes (``binarize.py`` is a verbatim copy).
-
-Not ported: ``NeuralVAD``, the sliding-window PyanNet scorer. It needs
-``models/vad_net.py``, which comes with the diarization slice (ROADMAP.md
-queue 1, item 8); ``load_vad_model(checkpoint=...)`` raises until then.
+Port of ``whisperx_tpu/vad/model.py``. ``NeuralVAD`` cuts long audio into
+fixed 5 s windows that run through the PyanNet segmentation net
+(``models/vad_net.py``) on the device as one batch (in row chunks that bound
+memory, ``device.map_rows``), max-reduces the classes and overlap-averages
+the window scores with Hamming weights onto the global 16.875 ms frame grid
+on the host, as the JAX package does. The weight-free scorers
+(``EnergyVAD``, ``SpeechBandVAD``) are numpy on the host, as in the JAX
+package, so their scores are bit-equal to it; ``VadPipeline`` turns scores
+into the ≤chunk_size windows the batched decode takes (``binarize.py`` is a
+verbatim copy).
 """
 
 from __future__ import annotations
@@ -18,17 +21,12 @@ from typing import List, Optional
 import numpy as np
 
 from ..audio.constants import SAMPLE_RATE
+from ..device import map_rows
 from .binarize import SpeechTurn, binarize, merge_chunks
 
 # PyanNet frame grid (see whisperx_tpu/models/vad_net.py conv arithmetic).
 FRAME_STEP = 270
 FRAME_SIZE = 991
-
-_NEURAL_VAD_MISSING = (
-    "the neural (PyanNet) VAD is not ported yet: it comes with the diarization "
-    "slice (ROADMAP.md queue 1, item 8). Leave checkpoint unset for the "
-    "weight-free SpeechBandVAD"
-)
 
 
 @dataclass
@@ -40,10 +38,41 @@ class VadScores:
 
 
 class NeuralVAD:
-    """Placeholder for the PyanNet scorer: raises (see the module docstring)."""
+    """Sliding-window segmentation inference, batched on the model's device."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NEURAL_VAD_MISSING)
+    def __init__(self, model, *, window: float = 5.0, step: float = 0.5):
+        self.model = model.eval()
+        self.window = window
+        self.step = step
+
+    def __call__(self, audio: np.ndarray) -> VadScores:
+        win = int(self.window * SAMPLE_RATE)
+        hop = int(self.step * SAMPLE_RATE)
+        n = len(audio)
+        if n < win:
+            audio = np.pad(audio, (0, win - n))
+            n = win
+        starts = list(range(0, max(n - win, 0) + 1, hop))
+        if starts[-1] + win < n:
+            starts.append(n - win)
+        windows = np.stack([audio[s : s + win] for s in starts])  # (W, win)
+
+        frame_scores = map_rows(lambda x: self.model(x).amax(dim=-1), windows, self.model.device)
+        t_frames = frame_scores.shape[1]
+
+        # Overlap-average onto the global frame grid with Hamming weights.
+        total_frames = (n - FRAME_SIZE) // FRAME_STEP + 1
+        acc = np.zeros(total_frames)
+        wsum = np.zeros(total_frames)
+        hamming = np.hamming(t_frames)
+        for w_idx, s in enumerate(starts):
+            f0 = s // FRAME_STEP
+            count = min(t_frames, total_frames - f0)
+            acc[f0 : f0 + count] += frame_scores[w_idx, :count] * hamming[:count]
+            wsum[f0 : f0 + count] += hamming[:count]
+        scores = acc / np.maximum(wsum, 1e-12)
+        times = ((np.arange(total_frames) * FRAME_STEP) + FRAME_SIZE / 2) / SAMPLE_RATE
+        return VadScores(scores.astype(np.float32), times.astype(np.float32))
 
 
 class EnergyVAD:
@@ -352,16 +381,27 @@ def load_vad_model(
 ) -> VadPipeline:
     """Build the VAD pipeline (reference load_vad_model contract, vad.py:20-59).
 
-    The weight-free ``SpeechBandVAD`` scorer, as the JAX package uses without
-    a checkpoint. A ``checkpoint`` (or ``model_fp``) asks for the neural
-    scorer, which is not ported: that raises NotImplementedError rather than
-    quietly scoring with SpeechBandVAD. ``device`` is accepted for API
-    parity; the scorers run on the host.
+    With ``checkpoint`` (or ``model_fp``) pointing at the pinned pyannote
+    segmentation weights, SHA256-checks the file (strictly when
+    ``expected_sha256`` is given) and loads them into the port's PyanNet on
+    ``device`` (``None`` means the card) for the neural scorer; a checkpoint
+    that does not load raises. Otherwise the weight-free ``SpeechBandVAD``
+    scores on the host, as in the JAX package.
     """
-    if checkpoint or model_fp:
-        raise NotImplementedError(_NEURAL_VAD_MISSING)
-    # Weight-free default for real runs: SpeechBandVAD beat EnergyVAD
-    # decisively on the JAX package's adversarial eval (benchmarks/vad_eval.py
-    # — frame F1 0.92-0.95 vs 0.56-0.85 across seeds). EnergyVAD remains for
-    # tests whose synthetic tones sit below the speech band.
-    return VadPipeline(SpeechBandVAD(), onset=vad_onset, offset=vad_offset)
+    path = checkpoint or model_fp
+    if path:
+        import os
+
+        from ..models.convert import load_pyannet_vad
+
+        if os.path.isfile(path):
+            verify_checkpoint_sha256(path, expected_sha256)
+        scorer = NeuralVAD(load_pyannet_vad(path, device=device))
+    else:
+        # Weight-free default for real runs: SpeechBandVAD beat EnergyVAD
+        # decisively on the JAX package's adversarial eval
+        # (benchmarks/vad_eval.py — frame F1 0.92-0.95 vs 0.56-0.85 across
+        # seeds). EnergyVAD remains for tests whose synthetic tones sit below
+        # the speech band.
+        scorer = SpeechBandVAD()
+    return VadPipeline(scorer, onset=vad_onset, offset=vad_offset)
