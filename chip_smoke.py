@@ -10,7 +10,9 @@ Phases:
   1. build every CUDA kernel of the paths (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (plus edge shapes), and time the kernel, the plain version and
-     one PyTorch library call (the yardstick) with cold caches;
+     one PyTorch library call (the yardstick) with cold caches; the flash
+     forward's lse output and the two flash backward kernels at the
+     training shape (large-v2 encoder, batch 2);
   3. on small models, check that the card gives the CPU's results: decode
      tokens (kernels against plain versions) and fp32 alignment segments,
      words and timestamps; then the flash route's bf16 emissions against the
@@ -20,7 +22,9 @@ Phases:
      a few windows (seeded ResNet34 + PyanNet, overlap-aware, and the
      weight-free default): identical turns and labels; then ``cli.cli``
      with --diarize on 128-wide HF directories: the six output files of
-     --device cuda byte-equal to those of --device cpu;
+     --device cuda byte-equal to those of --device cpu; then three fp32
+     AdamW steps of a 128-wide Whisper on the card and on the CPU (equal
+     losses and parameters) and a save_params/load_params round trip;
   4. drive the decode path: Whisper large-v2 with random weights from a seed,
      int8 weights, fused QKV, int8 KV cache; batch 8 of 30 s int16 audio →
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
@@ -45,7 +49,12 @@ Phases:
      pyannote PyanNet ``.bin`` files) and a 6-minute two-speaker WAV file:
      neural VAD, int8 beam-5 decode of 224 tokens (EOT banned), alignment,
      overlap-aware diarization, six output files; then ``python -m
-     whisperx_tpu_torch --help``.
+     whisperx_tpu_torch --help``;
+  8. drive the training step: ``train.make_train_step`` on Whisper large-v2
+     (published widths and depth, fp32 masters from seed 0, bf16 compute),
+     five AdamW steps on 2 x 30 s of random mel and 129 random tokens, with
+     the "xla" and then the flash encoder attention (the forward with lse
+     and both backward kernels: 32 launches of each a step).
 Every kernel's launch count is zeroed just before each run of a path and
 read just after.
 
@@ -68,7 +77,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet)
-KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "log_mel")
+KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel")
 # bench.py's alignment transcript (bench.py:277-285): ~70 words per 30 s chunk.
 _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
@@ -183,25 +192,19 @@ def _to_hf(path: tuple, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def write_safetensors(path: str, leaves, key, draw, dtype: str) -> None:
-    """Write a ``.safetensors`` file by hand, one tensor at a time: an 8-byte
-    little-endian header length, the JSON header (padded to 8 bytes), then
-    the raw little-endian buffers. ``leaves`` is a list of (path, shape);
-    ``draw(path, shape)`` gives each leaf in the JAX layout, called in the
-    list's order; ``key(path)`` names it."""
-    np_dtype = {"F16": "<f2", "F32": "<f4"}[dtype]
-    header, offset = {}, 0
-    for p, shape in leaves:
-        hf_shape = list(_to_hf(p, np.empty(shape, np.uint8)).shape)
-        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(np_dtype).itemsize
-        header[key(p)] = {"dtype": dtype, "shape": hf_shape, "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(np.uint64(len(blob)).astype("<u8").tobytes() + blob)
-        for p, shape in leaves:
-            f.write(np.ascontiguousarray(_to_hf(p, draw(p, shape)), np_dtype).tobytes())
+def write_hf_safetensors(path: str, leaves, key, draw, dtype: str) -> None:
+    """A ``.safetensors`` file in the HF layout through the package's own
+    writer (``models/convert.py:write_safetensors``, one tensor at a time):
+    ``leaves`` is a list of (path, shape); ``draw(path, shape)`` gives each
+    leaf in the JAX layout, called in the list's order; ``key(path)`` names
+    it; ``dtype`` is "F16" or "F32"."""
+    from whisperx_tpu_torch.models.convert import write_safetensors
+
+    np_dtype = {"F16": np.float16, "F32": np.float32}[dtype]
+    write_safetensors(path, [
+        (key(p), _to_hf(p, np.empty(shape, np.uint8)).shape, np_dtype, lambda p=p, shape=shape: _to_hf(p, draw(p, shape)))
+        for p, shape in leaves
+    ])
 
 
 def worded_vocab() -> dict:
@@ -243,7 +246,7 @@ def write_hf_whisper(path: str, cfg, seed: int = 0, scale: float = 0.02, dtype: 
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
     leaves = list(_sorted_leaves(param_shapes(cfg)))
-    write_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_whisper_key, draw, dtype)
+    write_hf_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_whisper_key, draw, dtype)
     config = {
         "model_type": "whisper", "_name_or_path": cfg.name, "vocab_size": cfg.n_vocab, "num_mel_bins": cfg.n_mels,
         "d_model": cfg.n_audio_state, "encoder_layers": cfg.n_audio_layer, "encoder_attention_heads": cfg.n_audio_head,
@@ -280,7 +283,7 @@ def write_hf_wav2vec2(path: str, cfg, seed: int = 0) -> str:
         return (rng.standard_normal(shape) / np.sqrt(int(np.prod(shape[:-1])))).astype(np.float32)
 
     leaves = list(_sorted_leaves(param_shapes(cfg)))
-    write_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_w2v_key, draw, "F32")
+    write_hf_safetensors(os.path.join(path, "model.safetensors"), leaves, _hf_w2v_key, draw, "F32")
     config = {
         "model_type": "wav2vec2", "_name_or_path": cfg.name, "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
@@ -431,6 +434,37 @@ def graph_ms(torch, fn, iters: int) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(torch, graph.replay, iters)
+
+
+def profiled(torch, fn, iters: int = 1) -> dict:
+    """``fn`` run ``iters`` times under torch.profiler: wall ms and device
+    busy ms per run (the sum of the CUDA kernels' self time, gaps left out),
+    and the kernels by device time. Empty if the profiler saw no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # A record_function range (AdamW's "Optimizer.step#AdamW.step") also shows
+    # as a device event spanning its kernels: leave it out, or it counts twice.
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))
+    ]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    if busy_ms <= 0:
+        return {}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    return {
+        "wall_ms": wall_ms, "busy_ms": busy_ms,
+        "kernels": [(e.key, e.self_device_time_total / 1e3 / iters, e.count // iters) for e in top],
+    }
 
 
 def max_err_within(torch, what: str, got, want, atol: float, rtol: float) -> float:
@@ -731,6 +765,151 @@ def flash_phase(torch, card: str) -> dict:
             unit=f"one call, alignment path batch B=8 T={align_T} H=12 Dh=64, valid keys {align_lengths}",
         ),
     }
+
+
+# Whisper large-v2's encoder under training (phase 8): batch 2 x 30 s, 20 heads of 64.
+TRAIN_SHAPE = (2, 1500, 20)
+
+
+def flash_bwd_phase(torch, card: str, flash: dict) -> list:
+    """The training path's flash kernels: the forward kernel's lse output
+    and the two backward kernels of ``csrc/flash_attn_bwd.cu``, each held
+    against its plain version at the training shape and at edges (the
+    backward kernels on the kernel forward's out and lse, so that the check
+    isolates them), then timed with cold caches. Adds the lse mode's
+    numbers to ``flash`` and returns the two backward kernels' entries."""
+    from whisperx_tpu_torch.ops import flash_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def operands(B, T, H, lengths=None):
+        q, k = ((torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16() for _ in range(2))
+        v, dout = (torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16() for _ in range(2))
+        mask = None if lengths is None else torch.arange(T, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+        return q, k, v, dout, mask
+
+    cases = [
+        ("Whisper large-v2 encoder, training batch", (*TRAIN_SHAPE, None)),
+        ("T=100 (not a tile multiple)", (2, 100, 2, None)),
+        ("one valid key", (3, 130, 4, (1, 130, 67))),
+        ("a row with no valid key", (2, 64, 2, (0, 64))),
+        ("T=129 (one key past a tile)", (2, 129, 3, (129, 128))),
+        ("T=1", (1, 1, 2, None)),
+        ("masked rows, T=1500", (3, 1500, 5, (1500, 1479, 1))),
+    ]
+    errs = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for what, shape in cases:
+        q, k, v, dout, mask = operands(*shape)
+        out, lse = flash_attn._forward(q, k, v, mask, with_lse=True)
+        dq, dk, dv = flash_attn.flash_attention_backward(q, k, v, out, lse, dout, mask)
+        torch.cuda.synchronize()
+        want_out, want_lse = flash_attn.flash_attention_fwd_plain(q, k, v, mask)
+        if not torch.equal(torch.isinf(lse), torch.isinf(want_lse)):
+            raise AssertionError(f"flash lse {what}: -inf rows differ from the plain version's")
+        finite = torch.isfinite(want_lse)
+        # fp32 m + ln(l) from sums in another order.
+        e = {"lse": max_err_within(torch, f"flash lse {what}", lse[finite], want_lse[finite], 1e-5, 1e-5)}
+        max_err_within(torch, f"flash out (with lse) {what}", out, want_out, 2e-3, 2**-7)
+        want = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, dout, mask)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            # Both sum in fp32 and round bf16(P), bf16(dS) and the output at the
+            # same points; another summation order (and exp2 for exp) may flip
+            # a rounding: one bf16 ulp of the largest element, 2**-7 relative.
+            atol = 2**-8 * w.float().abs().max().item() + 1e-6
+            e[name] = max_err_within(torch, f"flash {name} {what}", got, w, atol, 2**-7)
+        if shape[:3] == TRAIN_SHAPE:
+            errs = e
+        log(f"flash backward {what} {shape[:3]}: max abs err lse {e['lse']:.3g}, dq {e['dq']:.3g}, dk {e['dk']:.3g}, dv {e['dv']:.3g} vs plain: ok")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, T, H = TRAIN_SHAPE
+    sets = []
+    for _ in range(3):  # three distinct layers' operands rotate, as the encoder's layers do
+        q, k, v, dout, _ = operands(B, T, H)
+        out, lse = flash_attn._forward(q, k, v, None, with_lse=True)
+        _, delta = flash_attn.flash_attention_bwd_dq(q, k, v, out, dout, lse)
+        sets.append((q, k, v, dout, out, lse, delta))
+    lib = []
+    for q, k, v, dout, *_ in sets:
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        lib.append((lq, lk, lv, dout.transpose(1, 2).contiguous(), sdpa(lq, lk, lv, scale=1.0)))
+    fns = {
+        "dq": lambda: [flash_attn.flash_attention_bwd_dq(q, k, v, o, d, l) for q, k, v, d, o, l, _ in sets],
+        "dkv": lambda: [flash_attn.flash_attention_bwd_dkv(q, k, v, d, l, dl) for q, k, v, d, _, l, dl in sets],
+        "plain": lambda: [flash_attn.flash_attention_backward_plain(q, k, v, o, l, d) for q, k, v, d, o, l, _ in sets],
+        "fwd_lse": lambda: [flash_attn._forward(q, k, v, None, with_lse=True) for q, k, v, *_ in sets],
+        "fwd": lambda: [flash_attn._forward(q, k, v, None, with_lse=False) for q, k, v, *_ in sets],
+        "fwd_plain": lambda: [flash_attn.flash_attention_fwd_plain(q, k, v) for q, k, v, *_ in sets],
+        "sdpa_fwd": lambda: [sdpa(lq.detach(), lk.detach(), lv.detach(), scale=1.0) for lq, lk, lv, _, _ in lib],
+    }
+    ms = {name: graph_ms(torch, fn, 3 if "plain" in name else 20) / 3 for name, fn in fns.items()}
+    eager = {name: time_ms(torch, fns[name], 20) / 3 for name in ("dq", "dkv")}
+    # One PyTorch call for the whole backward (dq, dk, dv together) under
+    # autograd (timed only: the port never calls it). Its device time is the
+    # profiler's sum over its kernels: CUDA events around eager
+    # autograd.grad calls also time the engine's host work between them.
+    def library():
+        for lq, lk, lv, d, o in lib:
+            torch.autograd.grad(o, (lq, lk, lv), d, retain_graph=True)
+
+    library_eager_ms = time_ms(torch, library, 20) / 3
+    prof = profiled(torch, library, 10)
+    if not prof:
+        raise AssertionError("flash backward: the profiler recorded no device time for SDPA's backward")
+    library_ms = prof["busy_ms"] / 3
+    tensor = B * T * H * 64 * 2  # bytes of one (B, T, H, 64) bf16 tensor
+    rows = B * H * T * 4  # bytes of one (B, H, T) fp32 row statistic
+    prod = 2 * B * H * T * T * 64  # FLOP of one T x T x 64 product
+    bounds = {
+        "dq": bound_ms(5 * tensor + rows + tensor + rows, 3 * prod),  # q k v out dout lse -> dq D; S, dP, dQ
+        "dkv": bound_ms(4 * tensor + 2 * rows + 2 * tensor, 4 * prod),  # q k v dout lse D -> dk dv; S, dP, dV, dK
+        "backward": bound_ms(8 * tensor + rows, 5 * prod),  # the whole backward's five products
+        "fwd_lse": bound_ms(4 * tensor + rows, 2 * prod),
+    }
+    log(
+        f"flash backward timing [{card}], Whisper large-v2 encoder layer under training B={B} T={T} H={H}, device time "
+        f"(CUDA graph replay): dQ {ms['dq']:.4f} ms ({3 * prod / ms['dq'] / 1e9:.1f} TFLOP/s, bound {bounds['dq'][0]:.4f} "
+        f"{bounds['dq'][1]}), dK/dV {ms['dkv']:.4f} ms ({4 * prod / ms['dkv'] / 1e9:.1f} TFLOP/s, bound "
+        f"{bounds['dkv'][0]:.4f} {bounds['dkv'][1]}), together {ms['dq'] + ms['dkv']:.4f} ms against the five "
+        f"products' bound {bounds['backward'][0]:.4f} ms; plain backward {ms['plain']:.4f} ms; library (SDPA backward "
+        f"under autograd: device time by torch.profiler) {library_ms:.4f} ms ("
+        + ", ".join(f"{k[:48]} {t / 3:.4f} ms" for k, t, _ in prof["kernels"][:4])
+        + f"; CUDA events around eager calls {library_eager_ms:.4f} ms); eager dQ {eager['dq']:.4f}, dK/dV "
+        f"{eager['dkv']:.4f} ms"
+    )
+    log(
+        f"flash forward with lse [{card}] at B={B} T={T} H={H}: {ms['fwd_lse']:.4f} ms against {ms['fwd']:.4f} ms "
+        f"without (plain {ms['fwd_plain']:.4f}, SDPA forward {ms['sdpa_fwd']:.4f}, bound {bounds['fwd_lse'][0]:.4f} "
+        f"{bounds['fwd_lse'][1]})"
+    )
+    flash["train_forward_lse"] = {
+        "ms": ms["fwd_lse"], "no_lse_ms": ms["fwd"], "plain_ms": ms["fwd_plain"], "library_ms": ms["sdpa_fwd"],
+        "bound_ms": bounds["fwd_lse"][0], "bound_by": bounds["fwd_lse"][1], "max_abs_err_lse": errs["lse"],
+        "unit": f"one call with lse, Whisper large-v2 encoder layer under training B={B} T={T} H={H} Dh=64",
+    }
+    unit = f"one call, Whisper large-v2 encoder layer under training B={B} T={T} H={H} Dh=64"
+    common = {
+        "route": "cuda", "source": "whisperx_tpu_torch/csrc/flash_attn_bwd.cu", "launches": None,
+        "plain_ms": ms["plain"], "library_ms": library_ms, "library_eager_ms": library_eager_ms, "unit": unit,
+        "plain_and_library": "the whole backward (dq, dk, dv): the plain version, and SDPA's backward under autograd "
+        "(library_ms: its kernels' device time by torch.profiler)",
+    }
+    return [
+        dict(
+            name="flash_attention_bwd_dq", **common,
+            design="mma.sync m16n8k16 bf16, 4 warps x 16 query rows, K/V tiles of 64 through padded smem; D in its prologue",
+            replaces="whisperx_tpu/ops/attention.py:75 (stock flash_attention.py:1287 _flash_attention_bwd_dq)",
+            max_abs_err=errs["dq"], ms=ms["dq"], bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1],
+            eager_ms=eager["dq"], tflops=3 * prod / ms["dq"] / 1e9,
+        ),
+        dict(
+            name="flash_attention_bwd_dkv", **common,
+            design="mma.sync m16n8k16 bf16, 4 warps x 16 keys, transposed S and dP so P and dS feed dV, dK from registers",
+            replaces="whisperx_tpu/ops/attention.py:75 (stock flash_attention.py:941 _flash_attention_bwd_dkv)",
+            max_abs_err=max(errs["dk"], errs["dv"]), ms=ms["dkv"], bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
+            eager_ms=eager["dkv"], tflops=4 * prod / ms["dkv"] / 1e9,
+        ),
+    ]
 
 
 def log_mel_phase(torch, card: str) -> dict:
@@ -1309,34 +1488,22 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
     """Device busy share and the costliest kernels over ``steps`` beam steps
     (torch.profiler; its own overhead lengthens the host side). Returns the
     device busy ms per step and each port kernel's device ms per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from whisperx_tpu_torch.decode.search import beam_decode
 
     o = dataclasses.replace(opts, max_new_tokens=steps)
     K = o.beam_size
     expanded = [{n: b.repeat_interleave(K, dim=0) for n, b in layer.items()} for layer in cache["self"]]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt_len, o)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
+    prof = profiled(torch, lambda: beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt_len, o))
+    if not prof:
         log(f"profile cross={opts.cross_attn}: the profiler recorded no device time; busy share not measured")
         return {}
-    step_ms = {
-        name: sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3 / steps
-        for name, key in STEP_KERNELS.items()
-    }
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    kernels, busy_ms, wall_ms = prof["kernels"], prof["busy_ms"], prof["wall_ms"]
+    step_ms = {name: sum(t for k, t, _ in kernels if key in k) / steps for name, key in STEP_KERNELS.items()}
     log(
         f"profile cross={opts.cross_attn} [{card}], {steps} beam steps under torch.profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.2f} ms ({busy_ms / steps:.3f} ms/step), idle share {1 - busy_ms / wall_ms:.3f}; "
         "top kernels: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms/step x{e.count // steps}" for e in top)
+        + "; ".join(f"{k[:60]} {t / steps:.3f} ms/step x{c // steps}" for k, t, c in kernels[:6])
         + "; port kernels: " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in step_ms.items())
     )
     return {"busy_ms_per_step": busy_ms / steps, **step_ms}
@@ -1542,6 +1709,62 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     return runs["kernel"]["launches"]
 
 
+def small_train_phase(torch) -> None:
+    """fp32 training of a 128-wide Whisper (heads of 64, "xla" attention,
+    TF32 off) on the card and on the CPU: three AdamW steps (lr 1e-3) from
+    the same tree on the same batch give the same losses (1e-5 relative)
+    and the same parameters (1e-4 absolute: each step moves a weight by up
+    to lr, the two devices sum in other orders, and Adam's m̂/√v̂ magnifies
+    that where a gradient is near 0; the CPU tests hold the port to JAX at
+    the same tolerance). Then a ``save_params``/``load_params`` round trip of
+    the card's trained model gives the same forward, bit for bit. (The 6 GB
+    full-width checkpoint of phase 8 is not written, to save the script's
+    time.)"""
+    import tempfile
+
+    from whisperx_tpu_torch import train
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax, whisper_to_jax
+    from whisperx_tpu_torch.utils.checkpoint import flatten_params, load_params, save_params
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.random_params(cfg, seed=0, scale=0.05)
+    rng = np.random.default_rng(5)
+    mel = torch.from_numpy((rng.standard_normal((2, cfg.n_mels, 3000)) * 0.5).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, 1000, (2, 10)))
+    mask = torch.ones((2, 10))
+    mask[1, 7:] = 0.0
+    losses, trees, models = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = whisper_from_jax(params, cfg, device=dev).trainable()
+        step = train.make_train_step(models[dev], train.make_optimizer(models[dev].parameters(), lr=1e-3))
+        losses[dev] = [float(step(mel, tokens, mask)) for _ in range(3)]
+        trees[dev] = whisper_to_jax(models[dev])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if not (np.isfinite(losses["cuda"]).all() and loss_err <= 1e-5):
+        raise AssertionError(f"small train: card losses {losses['cuda']} vs cpu {losses['cpu']}")
+    flat = {dev: dict(flatten_params(t)) for dev, t in trees.items()}
+    param_err = max(float(np.abs(flat["cuda"][k] - flat["cpu"][k]).max()) for k in flat["cpu"])
+    moved = max(float(np.abs(flat["cpu"][k] - v).max()) for k, v in flatten_params(params))
+    if param_err > 1e-4 or moved < 1e-3:
+        raise AssertionError(f"small train: parameters differ by {param_err} (atol 1e-4) after moving {moved}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small-trained.safetensors")
+        save_params(trees["cuda"], path)
+        again = whisper_from_jax(load_params(path), cfg, device="cuda")
+    with torch.no_grad():
+        want = models["cuda"](mel.cuda(), tokens[:, :-1].cuda())
+        got = again(mel.cuda(), tokens[:, :-1].cuda())
+    if not torch.equal(got, want):
+        raise AssertionError(f"small train: forward after the checkpoint round trip differs by {(got - want).abs().max().item()}")
+    log(
+        f"small train (128 wide, fp32, xla, 3 AdamW steps): card losses {[round(x, 6) for x in losses['cuda']]} == cpu "
+        f"within {loss_err:.2g} (rtol 1e-5), parameters within {param_err:.3g} (atol 1e-4, moved {moved:.3g}); "
+        f"save_params/load_params round trip: forward bit-equal: ok"
+    )
+
+
 # ---- phase 7: the command line at full width --------------------------------
 
 CLI_MINUTES = 6.0  # two speakers in ~45 s turns; the all-active VAD cuts 30 s chunks
@@ -1712,6 +1935,176 @@ def cli_phase(torch, card: str) -> dict:
     return launches
 
 
+# ---- phase 8: the training step at full width ------------------------------
+
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-5  # optax.adamw's fine-tuning rate in the JAX package's make_optimizer
+TRAIN_TOKENS = 129  # 128 teacher-forced positions
+
+
+def seed_params_(torch, model, seed: int) -> None:
+    """Fill every parameter in place from one seed on the card, by the rule
+    of ``models/whisper.py:random_params``: LayerNorm scales ones, biases
+    zeros, everything else normal x 0.02, in sorted name order."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale" or leaf.endswith("_scale"):
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+def train_phase(torch, card: str) -> dict:
+    """``train.make_train_step`` on Whisper large-v2 at its published widths
+    and depth (1280 wide, 20 heads of 64, 32 + 32 layers, vocab 51,865): fp32
+    master parameters from seed 0, bf16 compute, AdamW (optax.adamw's
+    defaults, lr 1e-5), five steps on one batch of 2 x 30 s random mel and 129
+    random tokens (mask of ones). Two arms in turns from the same seed: the
+    JAX default "xla" encoder attention, then "flash" (the forward kernel
+    with lse and both backward kernels: exactly 32 launches of each a step;
+    the xla arm launches none). Both arms' losses finite and falling; the
+    flash arm's first loss within 1e-2 relative of the xla arm's, and its
+    first gradients of one encoder layer's attention projections within 10%
+    relative L2 (bf16 through 32 layers; the CPU tests hold the same bound
+    per leaf at 4 layers). Returns each arm's numbers."""
+    import gc
+
+    from whisperx_tpu_torch import train
+    from whisperx_tpu_torch.models.configs import get_whisper_config
+    from whisperx_tpu_torch.models.whisper import Whisper
+    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm
+    from whisperx_tpu_torch.ops import mel as mel_ops
+
+    cfg = get_whisper_config("large-v2")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Whisper(cfg, dtype=torch.bfloat16, device="cuda").trainable()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch_max = TRAIN_SHAPE[0]
+    mel = torch.randn((batch_max, cfg.n_mels, 3000), device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.n_vocab, (batch_max, TRAIN_TOKENS), device="cuda", generator=gen)
+    mask = torch.ones((batch_max, TRAIN_TOKENS), device="cuda")
+    probe = cfg.n_audio_layer // 2  # the encoder layer whose attention gradients the arms compare
+    log(f"train: large-v2 ({n_params / 1e9:.3f} B fp32 parameters) on the card in {time.perf_counter() - t0:.1f} s")
+
+    def zero():
+        flash_attn.launches = flash_attn.launches_lse = flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
+        int8_mm.launches = cross_attn.launches = mel_ops.launches = 0
+
+    def counts():
+        return {
+            "flash_self_attention": flash_attn.launches, "flash_forward_lse": flash_attn.launches_lse,
+            "flash_attention_bwd_dq": flash_attn.launches_bwd_dq, "flash_attention_bwd_dkv": flash_attn.launches_bwd_dkv,
+            "int8_matmul": int8_mm.launches, "cross_attention_decode": cross_attn.launches, "log_mel": mel_ops.launches,
+        }
+
+    def run(impl: str, batch: int) -> dict:
+        seed_params_(torch, model, 0)
+        attention.set_attn_impl(model, impl)
+        opt = train.make_optimizer(model.parameters(), lr=TRAIN_LR)
+        timings: dict = {}
+        step = train.make_train_step(model, opt, timings=timings)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        losses, step_ms, grads = [], [], None
+        for i in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(mel[:batch], tokens[:batch], mask[:batch])))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                attn = model.encoder.layers[probe].attn
+                grads = {n: getattr(attn, n).kernel.grad.float().cpu() for n in ("query", "key", "value")}
+        out = {
+            "impl": impl, "batch": batch, "losses": losses, "grads": grads, "launches": counts(),
+            "step_ms": float(np.median(step_ms)), "split_ms": {k: float(np.median(v)) for k, v in timings.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        # One more step under torch.profiler (outside the counted run): where its device time goes.
+        out["profile"] = profiled(torch, lambda: step(mel[:batch], tokens[:batch], mask[:batch]))
+        del opt, step
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        return out
+
+    def cleanup():
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        xla = run("xla", batch_max)
+    except torch.cuda.OutOfMemoryError:
+        xla = None
+    cmp_batch = batch_max
+    if xla is None:
+        cleanup()
+        cmp_batch = 1
+        log(f"train: the xla arm does not fit at batch {batch_max} (its (B, H, T, T) logits): it runs batch 1")
+        xla = run("xla", 1)
+    flash = run("flash", batch_max)
+    flash_cmp = flash if cmp_batch == batch_max else run("flash", cmp_batch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L, steps = cfg.n_audio_layer, TRAIN_STEPS
+    want = {
+        "xla": dict.fromkeys(counts(), 0),
+        "flash": dict(
+            dict.fromkeys(counts(), 0), flash_self_attention=L * steps, flash_forward_lse=L * steps,
+            flash_attention_bwd_dq=L * steps, flash_attention_bwd_dkv=L * steps,
+        ),
+    }
+    for arm in (xla, flash):
+        losses = arm["losses"]
+        if arm["launches"] != want[arm["impl"]]:
+            raise AssertionError(f"train {arm['impl']}: launches {arm['launches']}, expected {want[arm['impl']]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"train {arm['impl']}: losses not finite and falling: {losses}")
+        split = arm["split_ms"]
+        log(
+            f"train {arm['impl']} arm [{card}], large-v2, batch {arm['batch']} x 30 s, {TRAIN_TOKENS} tokens, bf16 over fp32 "
+            f"masters, AdamW lr {TRAIN_LR}: {arm['step_ms']:.1f} ms a step (median of {steps}; forward "
+            f"{split['forward']:.1f}, backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f} ms), peak "
+            f"{arm['peak_gib']:.2f} GiB, losses {[round(x, 5) for x in losses]}, launches {arm['launches']}: ok"
+        )
+        prof = arm["profile"]
+        if prof:
+            kernels = prof["kernels"]
+            ours = {n: sum(t for k, t, _ in kernels if n in k) for n in ("flash_attn_kernel", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+            log(
+                f"train {arm['impl']} arm, one step under torch.profiler (a sync after each part): wall "
+                f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms (idle share "
+                f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}); top kernels: "
+                + "; ".join(f"{k[:56]} {t:.2f} ms x{c}" for k, t, c in kernels[:8])
+                + "; port kernels: " + ", ".join(f"{n} {t:.2f} ms" for n, t in ours.items())
+            )
+        else:
+            log(f"train {arm['impl']} arm: the profiler recorded no device time; busy share not measured")
+    loss_err = abs(flash_cmp["losses"][0] - xla["losses"][0]) / abs(xla["losses"][0])
+    if loss_err > 1e-2:
+        raise AssertionError(f"train: flash first loss {flash_cmp['losses'][0]} vs xla {xla['losses'][0]} (rtol 1e-2)")
+    grad_err = {}
+    for n, w in xla["grads"].items():
+        g = flash_cmp["grads"][n]
+        grad_err[n] = float((g - w).norm() / w.norm())
+        if not (torch.isfinite(g).all() and grad_err[n] < 0.1):
+            raise AssertionError(f"train: encoder layer {probe} attention {n} gradient, flash vs xla: relative L2 {grad_err[n]}")
+    log(
+        f"train flash vs xla at batch {cmp_batch}: first loss within {loss_err:.3g} (rtol 1e-2); encoder layer {probe} "
+        f"attention gradients within relative L2 "
+        + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items())
+        + " (< 0.1): ok"
+    )
+    return {"xla": xla, "flash": flash, "cmp_batch": cmp_batch}
+
+
 def main() -> int:
     import torch
 
@@ -1742,27 +2135,33 @@ def main() -> int:
         log(f"  {name}.cu {r['seconds']:.1f} s: " + "; ".join(usage))
 
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
+    kernels += flash_bwd_phase(torch, card, kernels[2])
     small_reference_phase(torch)
     small_align_phase(torch, card)
     small_pipeline_phase(torch)
     small_diarize_phase(torch)
     small_cli_phase(torch)
+    small_train_phase(torch)
     model = large_v2(torch)
     launches, profile = main_path_phase(torch, card, model)  # the decode path's kernel arm
     flash_align, align_model = align_path_phase(torch, card)
     pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
     del model, align_model
     cli_launches = cli_phase(torch, card)
+    trained = train_phase(torch, card)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], trained["flash"]["launches"].get(k["name"]))
         if k["name"] in STEP_KERNELS and k["name"] in profile:
             k["beam_step_device_ms"] = profile[k["name"]]  # per beam step, profiled kernel arm
     if profile:
         log(f"beam loop (kernel arm) device busy {profile['busy_ms_per_step']:.3f} ms/step under torch.profiler")
     kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
+    kernels[2]["launches_train"] = trained["flash"]["launches"]["flash_forward_lse"]  # with lse, phase 8's flash arm
     for k in kernels:
-        k["launches_pipeline"] = pipeline_launches[k["name"]]
-        k["launches_cli"] = cli_launches[k["name"]]
+        if k["name"] in pipeline_launches:
+            k["launches_pipeline"] = pipeline_launches[k["name"]]
+            k["launches_cli"] = cli_launches[k["name"]]
+        k["launches_train_xla"] = trained["xla"]["launches"].get(k["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

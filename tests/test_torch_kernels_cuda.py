@@ -169,6 +169,85 @@ def test_flash_attn_kernel_takes_fused_qkv_slices(gen, B, T, H):
         flash_attn.flash_attention(q.float(), k.float(), v.float())
 
 
+# The training path's shape (large-v2 encoder, batch 2) and edges: T not a
+# multiple of the 64-row tiles, a key one past a tile, one valid key, a
+# batch row with no valid key, T = 1.
+BWD_CASES = [(2, 1500, 20, None), (2, 100, 2, None), (3, 130, 4, (1, 130, 67)), (2, 64, 2, (0, 64)),
+             (2, 129, 3, (129, 128)), (2, 257, 3, (257, 129)), (1, 1, 2, None), (3, 1500, 5, (1500, 1479, 1))]
+
+
+def _bwd_operands(gen, B, T, H, lengths):
+    q, k = ((torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16() for _ in range(2))
+    v, dout = (torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16() for _ in range(2))
+    mask = None if lengths is None else torch.arange(T, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    return q, k, v, dout, mask
+
+
+def assert_grad_close(got, want, what):
+    """A backward kernel's bf16 output against its plain version: both sum
+    in fp32 and round bf16(P), bf16(dS) and the output at the same points;
+    other summation orders (and exp2 against exp) may flip a rounding, so
+    one bf16 ulp of the largest element, and 2**-7 relative."""
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, atol=2**-8 * want.abs().max().item() + 1e-6, rtol=2**-7, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,lengths", BWD_CASES)
+def test_flash_attn_kernel_lse_matches_plain(gen, B, T, H, lengths):
+    """The forward kernel's lse output (the training path) against the plain
+    forward's: fp32 m + ln(l) from sums in another order (1e-5), -inf where a
+    row has no valid key; its out equal to the launch without lse."""
+    q, k, v, _, mask = _bwd_operands(gen, B, T, H, lengths)
+    before = flash_attn.launches_lse
+    out, lse = flash_attn._forward(q, k, v, mask, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attn.launches_lse == before + 1
+    want_out, want_lse = flash_attn.flash_attention_fwd_plain(q, k, v, mask)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, flash_attn.flash_attention(q, k, v, mask))
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,lengths", BWD_CASES)
+def test_flash_attn_bwd_kernels_match_plain(gen, B, T, H, lengths):
+    q, k, v, dout, mask = _bwd_operands(gen, B, T, H, lengths)
+    out, lse = flash_attn.flash_attention_fwd_plain(q, k, v, mask)
+    before = (flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, dout, mask)
+    torch.cuda.synchronize()
+    assert (flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv) == (before[0] + 1, before[1] + 1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, out, lse, dout, mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert_grad_close(g, w, f"{name} {(B, T, H, lengths)}")
+
+
+@pytest.mark.cuda
+def test_flash_attn_autograd_launches_every_kernel(gen):
+    """``flash_attention`` under autograd on the card: one forward launch
+    with lse, one dQ and one dK/dV launch, and the plain gradients (fused
+    QKV slices as q, k and v, a pad mask)."""
+    B, T, H = 2, 300, 4
+    D = H * 64
+    qkv = (torch.randn((B, T, 3 * D), device="cuda", generator=gen) * 0.35).bfloat16().requires_grad_()
+    mask = torch.arange(T, device="cuda")[None, :] < torch.tensor([300, 211], device="cuda")[:, None]
+    dout = torch.randn((B, T, H, 64), device="cuda", generator=gen).bfloat16()
+    counts = lambda: (flash_attn.launches, flash_attn.launches_lse, flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv)
+    before = counts()
+    q, k, v = (qkv[..., i * D : (i + 1) * D].reshape(B, T, H, 64) for i in range(3))
+    flash_attn.flash_attention(q, k, v, mask).backward(dout)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+    qp, kp, vp = (t.detach() for t in (q, k, v))
+    out, lse = flash_attn.flash_attention_fwd_plain(qp, kp, vp, mask)
+    want = torch.cat([g.reshape(B, T, D) for g in flash_attn.flash_attention_backward_plain(qp, kp, vp, out, lse, dout, mask)], -1)
+    assert_grad_close(qkv.grad, want, "fused qkv grads")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,n_mels,int16", [(8, 480000, 80, False), (8, 480000, 128, False), (8, 480000, 80, True), (1, 16000, 80, False), (2, 1600, 128, True),
                                                  # 101 frames (not a multiple of the 16-frame tile); n_mels 128 from int16

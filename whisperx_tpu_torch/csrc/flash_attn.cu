@@ -10,7 +10,11 @@
 //   out[b, t, h, :] = sum_s bf16(p_ts) * v[b, s, h, :] / sum_s p_ts, rounded to bf16
 // Keys with pad_mask[b, s] == 0, and keys at s >= T, are excluded, which is
 // what the reference's additive -1e9 does. Padded query rows attend the valid
-// keys like any other row; a row without a valid key gets zeros. Tensors are
+// keys like any other row; a row without a valid key gets zeros. Under
+// training (the stock kernel's forward with residuals) it also writes each
+// row's log-sum-exp lse[b, h, t] = m_t + ln(sum_s p_ts) (-inf for a row
+// without a valid key), which the backward kernels of flash_attn_bwd.cu
+// read; the inference path passes no lse pointer. Tensors are
 // (B, T, H, 64) bf16 with the head and the head dim contiguous; the batch and
 // time strides are arguments, so the q/k/v slices of a fused QKV projection
 // need no copy.
@@ -304,7 +308,8 @@ __device__ __forceinline__ Item item_of(int w, int n_m, int H) {
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
-                  __nv_bfloat16* __restrict__ out, int B, int T, int H, long long o_sb, long long o_st) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B, int T, int H, long long o_sb,
+                  long long o_st) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int n_m = (T + BM - 1) / BM;
@@ -447,7 +452,9 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     mbar_arrive(&sm.empty[stage]);
     ++g;
 
-    // Normalise and store rows r0 and r0 + 8.
+    // Normalise and store rows r0 and r0 + 8 (and, when asked for, their
+    // log-sum-exp m + ln(l) for the backward kernels; -inf for a row
+    // without a valid key).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -458,6 +465,8 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       const int t = x.m0 + r0 + r * 8;
       if (t >= T) continue;
       const float inv = l_run[r] > 0.0f ? 1.0f / l_run[r] : 0.0f;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)x.b * H + x.h) * T + t] = l_run[r] > 0.0f ? m_run[r] + logf(l_run[r]) : -INFINITY;
       __nv_bfloat16* orow = out + x.b * o_sb + t * o_st + x.h * DH;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
@@ -508,11 +517,13 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int T, in
 
 // The caller (whisperx_tpu_torch/ops/flash_attn.py) checks shapes, types,
 // the unit head and head-dim strides and 16-byte alignment. Strides are in
-// elements; `mask` is a (B, T) bool array (1 = valid key) or null. Returns a
+// elements; `mask` is a (B, T) bool array (1 = valid key) or null; `lse` is
+// a contiguous (B, H, T) fp32 output for the training path, or null (the
+// inference path: nothing more is written). Returns a
 // cudaError_t: cudaErrorNotSupported if the driver has no
 // cuTensorMapEncodeTiled, cudaErrorInvalidValue if it refuses a view.
-extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
-                          int T, int H, long long q_sb, long long q_st, long long k_sb, long long k_st,
+extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
+                          int B, int T, int H, long long q_sb, long long q_st, long long k_sb, long long k_st,
                           long long v_sb, long long v_st, long long o_sb, long long o_st, void* stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -531,7 +542,8 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v, const voi
   const long long items = (long long)((T + BM - 1) / BM) * H * B;
   const int grid = static_cast<int>(items < sms ? items : sms);
   flash_attn_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(out), B, T, H, o_sb, o_st);
+      tq, tk, tv, static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), B, T, H,
+      o_sb, o_st);
   return static_cast<int>(cudaGetLastError());
 }
 

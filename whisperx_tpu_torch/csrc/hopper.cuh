@@ -1,4 +1,5 @@
-// Building blocks shared by the decode kernels (int8_mm.cu, cross_attn.cu):
+// Building blocks shared by the decode kernels (int8_mm.cu, cross_attn.cu)
+// and the flash backward kernels (flash_attn_bwd.cu, which uses the mma):
 // mbarriers, TMA loads, cluster barriers and stores into another CTA's
 // shared memory, the driver's tensor-map encoder, exact int8 -> bf16
 // conversion, the bf16 mma.sync m16n8k16, and phase stamps for traced builds.

@@ -138,6 +138,36 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
     return out
 
 
+_SAFETENSORS_CODES = {np.dtype(v).str: k for k, v in _SAFETENSORS_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors) -> None:
+    """Write a ``.safetensors`` file by hand, one tensor at a time (no
+    package needed): an 8-byte little-endian header length, the JSON header
+    (padded with spaces to 8 bytes), then the raw little-endian buffers in
+    order. ``tensors`` is a list of ``(name, shape, dtype, make)``: ``dtype``
+    a numpy dtype of ``read_safetensors``' table, ``make()`` the array
+    (called once, in the list's order, only while its bytes are written, so
+    that a large file never sits in memory whole)."""
+    header, offset = {}, 0
+    for name, shape, dtype, _ in tensors:
+        code = _SAFETENSORS_CODES.get(np.dtype(dtype).newbyteorder("<").str)
+        if code is None:
+            raise ValueError(f"{path}: tensor {name!r} has a type safetensors does not name: {np.dtype(dtype)}")
+        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        header[name] = {"dtype": code, "shape": [int(d) for d in shape], "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(blob)).astype("<u8").tobytes() + blob)
+        for name, shape, dtype, make in tensors:
+            arr = np.asarray(make(), np.dtype(dtype).newbyteorder("<"), order="C")  # keeps a 0-d shape
+            if arr.shape != tuple(shape):
+                raise ValueError(f"{path}: tensor {name!r} is {arr.shape}, its header says {tuple(shape)}")
+            f.write(arr.tobytes())
+
+
 def load_state_dict(path: str) -> dict[str, np.ndarray]:
     """Read a state dict from a checkpoint dir or file (safetensors/torch)."""
     if os.path.isdir(path):
@@ -603,6 +633,30 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     if missing:
         raise KeyError(f"parameters missing from the tree: {missing[:5]} ({len(missing)} in all)")
     return model
+
+
+def jax_path(name: str) -> list[str]:
+    """The port's parameter name → its JAX tree path (``layers.3`` →
+    ``layers_3``): the inverse of :func:`torch_name`."""
+    return re.sub(r"\blayers\.(\d+)\b", r"layers_\1", name).split(".")
+
+
+def whisper_to_jax(model: nn.Module) -> dict:
+    """The model's parameters as a numpy tree in the JAX package's layout:
+    the inverse of :func:`load_jax_params` (conv kernels back to Flax's
+    (W, I, O)), so that trained weights leave the port as the JAX package
+    holds them (``utils/checkpoint.py:save_params`` writes such a tree)."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        arr = p.detach().cpu().numpy()
+        path = jax_path(name)
+        if path[-1] == "kernel" and arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)  # torch conv (O, I, W) → Flax (W, I, O)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
 
 
 def whisper_from_jax(

@@ -4,7 +4,9 @@ Port of ``whisperx_tpu/models/whisper.py``. Parameter names follow the JAX
 package's tree (``kernel``, ``kernel_scale``, ``bias``, ``scale``,
 ``token_embedding``...), with ``layers.<i>`` for Flax's ``layers_<i>``, so
 ``models/convert.py:whisper_from_jax`` maps one onto the other leaf by leaf.
-All parameters are inference-only (``requires_grad=False``).
+Parameters are created inference-only (``requires_grad=False``);
+:meth:`Whisper.trainable` turns a float model into a trainable one
+(``train.py``).
 
 Numerics follow the JAX module: ``dtype`` is the compute type (fp32 or bf16),
 parameters keep the type they were stored in and are cast where the JAX code
@@ -506,6 +508,17 @@ class Whisper(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.decoder.positional_embedding.device
+
+    def trainable(self, flag: bool = True) -> "Whisper":
+        """Turn ``requires_grad`` on (or off) for every parameter, so that
+        :meth:`forward` under autograd gives their gradients. Only a float
+        model trains: a quantized one raises (its int8 leaves have no
+        gradient, as in the JAX package's training step)."""
+        if flag and self.quantized:
+            raise ValueError(f"a quantized Whisper (quantized={self.quantized!r}) cannot be trained; load float weights")
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
 
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced forward pass: (B, n_mels, 3000), (B, T) → (B, T, V)."""

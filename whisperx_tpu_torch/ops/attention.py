@@ -50,14 +50,36 @@ def set_attn_impl(module: torch.nn.Module, impl: str) -> torch.nn.Module:
     return module
 
 
+class _BmmF32(torch.autograd.Function):
+    """``bmm(a, b, out_dtype=float32)`` with a gradient (the overload has no
+    derivative of its own). The backward is what the CPU route's autograd
+    gives: the fp32 gradient times the other operand in fp32, rounded to
+    each operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.to(a.dtype)`` accumulated and returned in fp32: JAX's
     ``preferred_element_type=float32``. ``a`` is (..., M, K), ``b`` is
     (..., K, N) with the same leading dims, or (K, N).
 
     bf16 on CUDA goes to ``bmm(..., out_dtype=float32)`` (tensor cores,
-    fp32 accumulation); everything else is an fp32 ``matmul`` of the same
-    values.
+    fp32 accumulation; differentiable through :class:`_BmmF32`); everything
+    else is an fp32 ``matmul`` of the same values.
     """
     b = b.to(a.dtype)
     if not (a.is_cuda and a.dtype == torch.bfloat16):
@@ -67,7 +89,10 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b3 = b[None] if b.ndim == 2 else b.reshape(-1, *b.shape[-2:])
     if b.ndim == 2:
         a3 = a3.reshape(1, -1, a.shape[-1])
-    out = torch.bmm(a3, b3, out_dtype=torch.float32)
+    if torch.is_grad_enabled() and (a3.requires_grad or b3.requires_grad):
+        out = _BmmF32.apply(a3, b3)
+    else:
+        out = torch.bmm(a3, b3, out_dtype=torch.float32)
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
