@@ -776,8 +776,9 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
     and the two backward kernels of ``csrc/flash_attn_bwd.cu``, each held
     against its plain version at the training shape and at edges (the
     backward kernels on the kernel forward's out and lse, so that the check
-    isolates them), then timed with cold caches. Adds the lse mode's
-    numbers to ``flash`` and returns the two backward kernels' entries."""
+    isolates them; a second launch must give the same bits), then timed
+    with cold caches. Adds the lse mode's numbers to ``flash`` and returns
+    the two backward kernels' entries."""
     from whisperx_tpu_torch.ops import flash_attn
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -796,6 +797,7 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
         ("T=129 (one key past a tile)", (2, 129, 3, (129, 128))),
         ("T=1", (1, 1, 2, None)),
         ("masked rows, T=1500", (3, 1500, 5, (1500, 1479, 1))),
+        ("T=192 (64-row tiles, not 128-row items), masked keys", (2, 192, 3, (192, 65))),
     ]
     errs = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
     for what, shape in cases:
@@ -819,7 +821,14 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
             e[name] = max_err_within(torch, f"flash {name} {what}", got, w, atol, 2**-7)
         if shape[:3] == TRAIN_SHAPE:
             errs = e
-        log(f"flash backward {what} {shape[:3]}: max abs err lse {e['lse']:.3g}, dq {e['dq']:.3g}, dk {e['dk']:.3g}, dv {e['dv']:.3g} vs plain: ok")
+        # No atomics and one summation order: a second launch gives the same bits.
+        again = flash_attn.flash_attention_backward(q, k, v, out, lse, dout, mask)
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"flash backward {what}: a second launch on the same operands gave other bits")
+        log(
+            f"flash backward {what} {shape[:3]}: max abs err lse {e['lse']:.3g}, dq {e['dq']:.3g}, dk {e['dk']:.3g}, "
+            f"dv {e['dv']:.3g} vs plain, a second launch bit-equal: ok"
+        )
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, T, H = TRAIN_SHAPE
@@ -866,6 +875,7 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
         "backward": bound_ms(8 * tensor + rows, 5 * prod),  # the whole backward's five products
         "fwd_lse": bound_ms(4 * tensor + rows, 2 * prod),
     }
+    res = flash_attn.bwd_resources()
     log(
         f"flash backward timing [{card}], Whisper large-v2 encoder layer under training B={B} T={T} H={H}, device time "
         f"(CUDA graph replay): dQ {ms['dq']:.4f} ms ({3 * prod / ms['dq'] / 1e9:.1f} TFLOP/s, bound {bounds['dq'][0]:.4f} "
@@ -875,7 +885,10 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
         f"under autograd: device time by torch.profiler) {library_ms:.4f} ms ("
         + ", ".join(f"{k[:48]} {t / 3:.4f} ms" for k, t, _ in prof["kernels"][:4])
         + f"; CUDA events around eager calls {library_eager_ms:.4f} ms); eager dQ {eager['dq']:.4f}, dK/dV "
-        f"{eager['dkv']:.4f} ms"
+        f"{eager['dkv']:.4f} ms; resources (cudaFuncGetAttributes; registers as compiled, the consumers then take 232 "
+        f"and the producer 40 by setmaxnreg): "
+        + ", ".join(f"{n[20:]} {r['registers']} registers a thread, {r['spill_bytes']} spilled bytes, "
+                    f"{r['smem_bytes']} B shared memory a CTA" for n, r in res.items())
     )
     log(
         f"flash forward with lse [{card}] at B={B} T={T} H={H}: {ms['fwd_lse']:.4f} ms against {ms['fwd']:.4f} ms "
@@ -897,14 +910,18 @@ def flash_bwd_phase(torch, card: str, flash: dict) -> list:
     return [
         dict(
             name="flash_attention_bwd_dq", **common,
-            design="mma.sync m16n8k16 bf16, 4 warps x 16 query rows, K/V tiles of 64 through padded smem; D in its prologue",
+            design="wgmma m64n64k16 (A from registers) + TMA ring, warp-specialized, persistent: 1 producer warp, 2 consumer "
+            "warpgroups x 64 query rows, Q/dO resident as A fragments, K/V tiles of 64 (K read MN-major for dQ), D per item",
+            **res["flash_attention_bwd_dq"],
             replaces="whisperx_tpu/ops/attention.py:75 (stock flash_attention.py:1287 _flash_attention_bwd_dq)",
             max_abs_err=errs["dq"], ms=ms["dq"], bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1],
             eager_ms=eager["dq"], tflops=3 * prod / ms["dq"] / 1e9,
         ),
         dict(
             name="flash_attention_bwd_dkv", **common,
-            design="mma.sync m16n8k16 bf16, 4 warps x 16 keys, transposed S and dP so P and dS feed dV, dK from registers",
+            design="wgmma m64n64k16 (A from registers) + TMA ring, warp-specialized, persistent: 1 producer warp, 2 consumer "
+            "warpgroups x 64 keys, K/V resident as A fragments, S^T and dP^T so P^T and dS^T feed dV, dK; Q/dO read MN-major, no transposed copy",
+            **res["flash_attention_bwd_dkv"],
             replaces="whisperx_tpu/ops/attention.py:75 (stock flash_attention.py:941 _flash_attention_bwd_dkv)",
             max_abs_err=max(errs["dk"], errs["dv"]), ms=ms["dkv"], bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
             eager_ms=eager["dkv"], tflops=4 * prod / ms["dkv"] / 1e9,

@@ -1,7 +1,10 @@
-"""The register-level data movement of csrc/int8_mm.cu and csrc/cross_attn.cu,
-emulated lane by lane on the CPU: TMA's swizzled shared-memory layouts, the
-32-bit shared-memory reads, ``__byte_perm``, the exact int8 -> bf16 step,
-``ldmatrix`` and the fragment layouts of ``mma.sync.m16n8k16``. Each test
+"""The register-level data movement of csrc/int8_mm.cu, csrc/cross_attn.cu
+and csrc/flash_attn_bwd.cu, emulated lane by lane on the CPU: TMA's swizzled
+shared-memory layouts, the 32-bit shared-memory reads, ``__byte_perm``, the
+exact int8 -> bf16 step, ``ldmatrix``, the fragment layouts of
+``mma.sync.m16n8k16``, and wgmma's: the operands it reads from shared
+memory through a 128-byte-swizzle descriptor (K-major and MN-major), its
+m64nN accumulators and their repacking into a register A operand. Each test
 rebuilds what the kernel's lanes hand to the tensor cores and checks the
 products against a plain matmul, so a wrong index or permutation shows here
 before the kernels run on a card (where test_torch_kernels_cuda.py holds
@@ -230,3 +233,150 @@ def test_cross_attn_value_fragments_give_vt_wt(kv_int8):
                 out[2 * c + 1, dim] += d[2 * hh + 1]
     want = bf16_value(w_bits).astype(np.float64) @ v
     np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+
+
+# ---- wgmma (csrc/hopper.cuh, csrc/flash_attn_bwd.cu) ----
+
+
+def sw128(addr: int) -> int:
+    """The 128-byte swizzle on a byte address (tiles at 1,024-byte
+    boundaries): the 16-byte chunk bits 4..6 XOR the row bits 7..9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def lds_sw128(buf: bytearray, row: int, col: int) -> int:
+    """flash_attn_bwd.cu:lds_sw128: the word of elements (row, col), (row,
+    col + 1) of a tile of 128-byte bf16 rows as TMA wrote it."""
+    return u32(buf, row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2)
+
+
+def bf16_at(buf: bytearray, addr: int) -> float:
+    return float(bits_f32(int.from_bytes(buf[addr : addr + 2], "little") << 16))
+
+
+def smem_operand(buf: bytearray, start: int, n: int, mn_major: bool) -> np.ndarray:
+    """The 16 x n B operand (k16 step x n columns) that wgmma reads through
+    hopper.cuh:sw128_desc at byte `start` (stride between 8-row groups 1,024):
+    K-major, column j's 16 values run along a 128-byte row (row j); MN-major,
+    row k of the step is a 128-byte row holding 64 columns."""
+    B = np.zeros((16, n))
+    for k in range(16):
+        for j in range(n):
+            if mn_major:
+                addr = start + (k // 8) * 1024 + (k % 8) * 128 + 2 * j
+            else:
+                addr = start + (j // 8) * 1024 + (j % 8) * 128 + 2 * k
+            B[k, j] = bf16_at(buf, sw128(addr))
+    return B
+
+
+def wgmma_rs(acc: np.ndarray, a: list, buf: bytearray, start: int, mn_major: bool) -> None:
+    """acc (128 threads x n / 2) += A B for wgmma m64nNk16 with A from
+    registers (a[thread] = 4 words) and B from shared memory."""
+    n = acc.shape[1] * 2
+    A = np.zeros((64, 16))
+    for t in range(128):
+        w, g, c = t // 32, (t % 32) // 4, t % 4
+        for reg, (row, k) in enumerate([(g, 2 * c), (g + 8, 2 * c), (g, 2 * c + 8), (g + 8, 2 * c + 8)]):
+            A[16 * w + row, k : k + 2] = bf16_pair(a[t][reg])
+    D = A @ smem_operand(buf, start, n, mn_major)
+    acc += [lane_values(D, t) for t in range(128)]
+
+
+def lane_values(D: np.ndarray, t: int) -> list:
+    """Thread t's m64nN accumulators: d[4j..4j+1] = D[16w+g][8j+2c..],
+    d[4j+2..4j+3] = D[16w+g+8][8j+2c..]."""
+    w, g, c = t // 32, (t % 32) // 4, t % 4
+    out = []
+    for j in range(D.shape[1] // 8):
+        out += [D[16 * w + g, 8 * j + 2 * c], D[16 * w + g, 8 * j + 2 * c + 1],
+                D[16 * w + g + 8, 8 * j + 2 * c], D[16 * w + g + 8, 8 * j + 2 * c + 1]]
+    return out
+
+
+def matrix_of(acc: np.ndarray) -> np.ndarray:
+    D = np.zeros((64, acc.shape[1] * 2))
+    for t in range(128):
+        w, g, c = t // 32, (t % 32) // 4, t % 4
+        for j in range(D.shape[1] // 8):
+            D[16 * w + g, 8 * j + 2 * c : 8 * j + 2 * c + 2] = acc[t, 4 * j : 4 * j + 2]
+            D[16 * w + g + 8, 8 * j + 2 * c : 8 * j + 2 * c + 2] = acc[t, 4 * j + 2 : 4 * j + 4]
+    return D
+
+
+def pack_bf16(lo: float, hi: float) -> int:
+    return int(bf16_bits(np.float32(lo))) | int(bf16_bits(np.float32(hi))) << 16
+
+
+def pack_a(x: np.ndarray) -> list:
+    """flash_attn_bwd.cu:pack_a (flash_attn.cu:pack_p): a thread's
+    accumulators, rounded to bf16, as the A words of k16 steps kc = 0.."""
+    return [pack_bf16(x[2 * i], x[2 * i + 1]) for i in range(len(x) // 2)]
+
+
+def load_a(buf: bytearray, t: int) -> list:
+    """flash_attn_bwd.cu:load_a: rows r0 and r0 + 8 of a resident 64-row
+    tile as the A words of its four k16 steps."""
+    w, g, c = t // 32, (t % 32) // 4, t % 4
+    r0, c2 = 16 * w + g, 2 * c
+    return [lds_sw128(buf, r0 + 8 * (i & 1), 16 * kc + 8 * (i >> 1) + c2) for kc in range(4) for i in range(4)]
+
+
+def bf16_tile(rng, rows: int, scale: float = 1.0) -> tuple[np.ndarray, bytearray]:
+    """A (rows, 64) bf16 tile: its values and its bytes as a TMA box."""
+    bits = bf16_bits(rng.standard_normal((rows, 64)) * scale)
+    return bf16_value(bits).astype(np.float64), tma_box(bits.view(np.uint8).reshape(rows, 128), 128, 128)
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("resident", ["keys", "queries"])
+def test_flash_bwd_fragments_give_logits_and_accumulation(resident, width):
+    """One consumer warpgroup of either backward kernel: its 64 resident
+    rows (dK/dV: keys; dQ: query rows) read from their swizzled tile as A
+    fragments; the transposed product with a streamed tile of `width` rows
+    read K-major (S^T = K Q^T, or S = Q K^T); then the accumulators, scaled
+    and rounded to bf16, repacked as the A operand of the accumulating
+    product with a second streamed tile read MN-major through the transpose
+    flag (dV += bf16(P^T) dO, or dQ += bf16(dS) K) in k16 steps of 2,048
+    bytes."""
+    rng = np.random.default_rng(width + (resident == "keys"))
+    res, res_buf = bf16_tile(rng, 64, 0.35)
+    streamed, streamed_buf = bf16_tile(rng, width, 0.35)
+    other, other_buf = (streamed, streamed_buf) if resident == "queries" else bf16_tile(rng, width)
+    a = [load_a(res_buf, t) for t in range(128)]
+    acc = np.zeros((128, width // 2))
+    for kk in range(4):  # the head dim's k16 steps: 32 bytes along each row
+        wgmma_rs(acc, [x[4 * kk : 4 * kk + 4] for x in a], streamed_buf, 32 * kk, mn_major=False)
+    np.testing.assert_allclose(matrix_of(acc), res @ streamed.T, rtol=1e-6, atol=1e-6)
+
+    x = np.exp(acc.astype(np.float32) - 1.0)  # stands for P^T (or dS): any fp32 values
+    p = [pack_a(x[t]) for t in range(128)]
+    out = np.zeros((128, 32))
+    for kc in range(width // 16):  # the streamed rows' k16 steps
+        wgmma_rs(out, [w[4 * kc : 4 * kc + 4] for w in p], other_buf, 2048 * kc, mn_major=True)
+    want = bf16_value(bf16_bits(matrix_of(x.astype(np.float64)))).astype(np.float64) @ other
+    np.testing.assert_allclose(matrix_of(out), want, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_bwd_delta_from_fragments():
+    """flash_attn_bwd.cu's D = Σ dO·O in the dQ kernel: each thread's dO A
+    words and the O words at the same places give 16 dims of rows r0 and
+    r0 + 8; the sum over the four threads of a row (lane xor 1, 2) is the
+    whole row's."""
+    rng = np.random.default_rng(7)
+    do, do_buf = bf16_tile(rng, 64)
+    o, o_buf = bf16_tile(rng, 64)
+    part = np.zeros((128, 2))
+    for t in range(128):
+        c2 = 2 * (t % 4)
+        r0 = 16 * (t // 32) + (t % 32) // 4
+        da = load_a(do_buf, t)
+        for kc in range(4):
+            for i in range(4):
+                ow = lds_sw128(o_buf, r0 + 8 * (i & 1), 16 * kc + 8 * (i >> 1) + c2)
+                d2, o2 = bf16_pair(da[4 * kc + i]), bf16_pair(ow)
+                part[t, i & 1] += d2[0] * o2[0] + d2[1] * o2[1]
+    for t in range(128):
+        r0 = 16 * (t // 32) + (t % 32) // 4
+        got = part[t ^ 0] + part[t ^ 1] + part[t ^ 2] + part[t ^ 3]
+        np.testing.assert_allclose(got, [(do[r0] * o[r0]).sum(), (do[r0 + 8] * o[r0 + 8]).sum()], rtol=1e-9, atol=1e-9)

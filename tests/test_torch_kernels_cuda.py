@@ -170,10 +170,12 @@ def test_flash_attn_kernel_takes_fused_qkv_slices(gen, B, T, H):
 
 
 # The training path's shape (large-v2 encoder, batch 2) and edges: T not a
-# multiple of the 64-row tiles, a key one past a tile, one valid key, a
-# batch row with no valid key, T = 1.
+# multiple of the 64-row streamed tiles or of the 128-row work items (192: a
+# multiple of 64 but not of 128, with masked keys), a key one past a tile,
+# one valid key, a batch row with no valid key, T = 1, a wav2vec2 base layer.
 BWD_CASES = [(2, 1500, 20, None), (2, 100, 2, None), (3, 130, 4, (1, 130, 67)), (2, 64, 2, (0, 64)),
-             (2, 129, 3, (129, 128)), (2, 257, 3, (257, 129)), (1, 1, 2, None), (3, 1500, 5, (1500, 1479, 1))]
+             (2, 129, 3, (129, 128)), (2, 257, 3, (257, 129)), (1, 1, 2, None), (3, 1500, 5, (1500, 1479, 1)),
+             (2, 192, 3, (192, 65)), (1, 1499, 12, (1479,))]
 
 
 def _bwd_operands(gen, B, T, H, lengths):
@@ -224,6 +226,20 @@ def test_flash_attn_bwd_kernels_match_plain(gen, B, T, H, lengths):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == q.shape
         assert_grad_close(g, w, f"{name} {(B, T, H, lengths)}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,lengths", [(2, 1500, 20, None), (3, 1500, 5, (1500, 1479, 1))])
+def test_flash_attn_bwd_kernels_are_deterministic(gen, B, T, H, lengths):
+    """Two launches on the same operands give the same bits: every sum has
+    one owner and one order (no atomics, no split reductions)."""
+    q, k, v, dout, mask = _bwd_operands(gen, B, T, H, lengths)
+    out, lse = flash_attn.flash_attention_fwd_plain(q, k, v, mask)
+    first = flash_attn.flash_attention_backward(q, k, v, out, lse, dout, mask)
+    second = flash_attn.flash_attention_backward(q, k, v, out, lse, dout, mask)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

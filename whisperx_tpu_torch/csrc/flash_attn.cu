@@ -73,7 +73,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int DH = 64;
 constexpr int BM = 128;                        // query rows per CTA: two consumer warpgroups of 64
@@ -97,36 +101,6 @@ struct __align__(1024) Smem {
   uint64_t q_empty[2];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait for the phase of parity `parity` to complete. A wait that never ends
-// (a broken pipeline) traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 24)) __trap();
-  }
-}
-
 // Named barriers 1 and 2 pass the tensor cores between the two consumer
 // warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void turn_wait(int wg) {
@@ -134,86 +108,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(CONSUMER_THREADS) : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int t0, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(t0), "r"(b)
-      : "memory");
-}
-
-// wgmma descriptor of a tile of 128-byte rows under the 128-byte swizzle:
-// start address, leading and stride byte offsets (both the 1,024 bytes of an
-// 8-row swizzle atom: the stride between 8-row groups; the leading offset is
-// unused for these K-major operands and for a 64-wide MN-major one), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulators across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D (64 x 128, fp32) = (or +=) A (64 x 16, smem) * B (16 x 128, smem), both K-major.
-__device__ __forceinline__ void wgmma_m64n128_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, fp32) = (or +=) A (64 x 16, bf16 in registers) * B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_m64n64_rs(float* d, const uint32_t* a, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit, one instruction (results below 2^-126,
-// worthless beside a row sum of at least 1, flush to zero).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One key tile of the online softmax for this thread's two rows: adds the
@@ -291,7 +185,7 @@ __device__ __forceinline__ void issue_s(float (&s)[64], uint64_t dq, const __nv_
 __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32], const __nv_bfloat16* v_tile) {
   const uint64_t dv = sw128_desc(v_tile);
 #pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc) wgmma_m64n64_rs(o, p + 4 * kc, dv + kc * (16 * DH * 2 >> 4), 1);
+  for (int kc = 0; kc < BN / 16; ++kc) wgmma_m64n64_rs<1>(o, p + 4 * kc, dv + kc * (16 * DH * 2 >> 4), 1);
   wgmma_commit();
 }
 
@@ -325,7 +219,7 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       mbar_init(&sm.q_full[s], 1);
       mbar_init(&sm.q_empty[s], CONSUMER_THREADS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -341,7 +235,7 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         const int qb = it & 1;
         mbar_wait(&sm.q_empty[qb], ((it >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(&sm.q_full[qb], BM * DH * 2);
-        tma_load(sm.q[qb], &tq, &sm.q_full[qb], x.m0, x.h, x.b);
+        tma_load_4d(sm.q[qb], &tq, &sm.q_full[qb], x.m0, x.h, x.b);
       }
       const uint8_t* mb = mask ? mask + (long long)x.b * T : nullptr;
       for (int j = 0; j < n_tiles; ++j, ++g) {
@@ -363,8 +257,8 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
           sm.some_masked[stage] = !all;
           // The arrive's release semantics publish the bias and the flag.
           mbar_arrive_expect_tx(&sm.full[stage], 2 * TILE_BYTES);
-          tma_load(sm.k[stage], &tk, &sm.full[stage], j * BN, x.h, x.b);
-          tma_load(sm.v[stage], &tv, &sm.full[stage], j * BN, x.h, x.b);
+          tma_load_4d(sm.k[stage], &tk, &sm.full[stage], j * BN, x.h, x.b);
+          tma_load_4d(sm.v[stage], &tv, &sm.full[stage], j * BN, x.h, x.b);
         }
       }
     }
@@ -477,43 +371,9 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
 }
 
-// ---- host side ----
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, T, H, 64) bf16 view with strides (sb, st, 64, 1) elements, as 4-D
-// (64, H, T, B) with boxes of 64 x 1 x 128 x 1 under the 128-byte swizzle.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int T, int H, long long sb, long long st) {
-  const cuuint64_t dims[4] = {DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  // A size-1 dimension's stride is never stepped; give it a legal value.
-  const long long st_b = T > 1 ? st : (long long)H * DH;
-  const long long sb_b = B > 1 ? sb : (long long)T * st_b;
-  const cuuint64_t strides[3] = {DH * 2, (cuuint64_t)st_b * 2, (cuuint64_t)sb_b * 2};
-  const cuuint32_t box[4] = {DH, 1, BN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
+
+// ---- host side ----
 
 // The caller (whisperx_tpu_torch/ops/flash_attn.py) checks shapes, types,
 // the unit head and head-dim strides and 16-byte alignment. Strides are in
@@ -525,12 +385,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int T, in
 extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                           int B, int T, int H, long long q_sb, long long q_st, long long k_sb, long long k_st,
                           long long v_sb, long long v_st, long long o_sb, long long o_st, void* stream) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, B, T, H, q_sb, q_st) || !encode(fn, &tk, k, B, T, H, k_sb, k_st) ||
-      !encode(fn, &tv, v, B, T, H, v_sb, v_st))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // The runtime calls come first: they make the device's context current on
+  // this thread, which the tensor-map encoder needs.
   const size_t smem = sizeof(Smem) + 1024;  // + room to align the base to 1,024 bytes
   cudaError_t e = cudaFuncSetAttribute(flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -539,6 +395,12 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v, const voi
   e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!encode_bthd(fn, &tq, q, B, T, H, q_sb, q_st, BM) || !encode_bthd(fn, &tk, k, B, T, H, k_sb, k_st, BN) ||
+      !encode_bthd(fn, &tv, v, B, T, H, v_sb, v_st, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long items = (long long)((T + BM - 1) / BM) * H * B;
   const int grid = static_cast<int>(items < sms ? items : sms);
   flash_attn_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -1,5 +1,6 @@
 // The backward of the encoder's flash self-attention, written by hand for
-// Hopper (sm_90a): two kernels on bf16 mma.sync m16n8k16, fp32 accumulators.
+// Hopper (sm_90a): two warp-specialized kernels, TMA loads into a ring,
+// every product a wgmma with fp32 accumulators.
 //
 // Replaces the gradient of whisperx_tpu/ops/attention.py:fused_self_attention's
 // flash branch, which the stock Pallas TPU kernel
@@ -25,29 +26,61 @@
 // the 989 TFLOP/s bf16 peak) and the dQ kernel three (S, dP, dQ: 34.6
 // GFLOP), against 31 MB of operands (about 0.01 ms at 3.35 TB/s). Both
 // recompute S and dP, as the stock split does, so that no kernel needs
-// atomics or a reduction across CTAs.
+// atomics or a reduction across CTAs: the results are the same bits on
+// every run. Each logit costs one exp2 on the special-function unit against
+// 384 (dQ) or 512 (dK/dV) tensor-core FLOP, so the exponentials bind less
+// than in the forward (256 FLOP a logit).
 //
-// Design (a first, simple version: mma.sync, no TMA, no wgmma):
-//  - dQ kernel, launched first: one CTA of four warps per (64 query rows,
-//    head, batch element); each warp owns 16 rows and keeps their Q and dO
-//    as mma A fragments in registers. Its prologue computes D for its rows
-//    from out and dout and writes it to a (B, H, T) fp32 buffer, which the
-//    dK/dV kernel reads: no third launch. It walks every key tile of 64:
-//    K (row-major and transposed) and V into shared memory, S and dP on
-//    the tensor cores, P and dS in registers, dQ += bf16(dS) K.
-//  - dK/dV kernel: one CTA of four warps per (64 keys, head, batch
-//    element); each warp keeps its 16 keys' K and V as A fragments and
-//    computes the transposed products S^T = K Q^T and dP^T = V dO^T, so
-//    that P^T and dS^T come out of the accumulators already in the A
-//    fragment layout of dV += bf16(P^T) dO and dK += bf16(dS^T) Q. It walks
-//    every query tile of 64 (Q, dO, each also transposed, lse and D in
-//    shared memory).
-//  - Shared-memory rows are padded from 64 to 72 elements (144 bytes), so
-//    the 32-bit fragment reads of a warp fall in 32 distinct banks. Tiles
-//    are loaded with 16-byte reads; rows at or beyond T read as zeros.
-//  - An excluded key or a row without a valid key is handled by value (its
-//    P is 0), never by skipping a tile, so that no branch depends on data.
+// Design (both kernels; the forward's, csrc/flash_attn.cu, turned around):
+//  - Work item = (128 resident rows, head, batch element): query rows for
+//    the dQ kernel, keys for the dK/dV kernel; 480 items at the training
+//    shape. Persistent: one CTA per SM walks the items (w += gridDim.x).
+//  - A CTA is three warpgroups. Warpgroups 0 and 1 are consumers, each
+//    owning 64 of the resident rows; one warp of warpgroup 2 is the
+//    producer. setmaxnreg gives the consumers 232 registers a thread and
+//    leaves the producer 40.
+//  - The producer issues TMA loads through 4-D tensor maps over the strided
+//    (B, T, H, 64) views (128-byte swizzle), so the slices of a fused QKV
+//    projection need no copy, and rows at or beyond T arrive as zeros
+//    (TMA's out-of-bounds fill). The resident tiles (dQ: Q, dO, O; dK/dV:
+//    K, V) land in one buffer guarded by res_full / res_empty mbarriers;
+//    the streamed tiles of 64 rows (dQ: K and V; dK/dV: Q and dO) pass
+//    through a ring of STAGES buffers, each guarded by full / empty
+//    mbarriers. With each streamed tile the producer stages its row
+//    values: the key bias (0, or -inf for an excluded key) for the dQ
+//    kernel; lse * log2(e) (+inf for a row without a valid key or beyond
+//    T) and D for the dK/dV kernel.
+//  - Each consumer reads its 64 resident rows once per item into registers,
+//    as wgmma A fragments (dQ: Q and dO; dK/dV: K and V), and computes with
+//    the m64n64k16 wgmma, A from registers and B from the ring:
+//      dQ kernel, per key tile:     S = Q K^T, dP = dO V^T (K, V K-major);
+//                                   dQ += bf16(dS) K (K MN-major: the transpose flag)
+//      dK/dV kernel, per query tile: S^T = K Q^T, dP^T = V dO^T (Q, dO K-major);
+//                                   dV += bf16(P^T) dO, dK += bf16(dS^T) Q
+//                                   (dO, Q MN-major)
+//    P (or P^T) and dS come out of the accumulators in the A-fragment layout
+//    of the next product (rounded to bf16 and packed), so no tile is ever
+//    transposed or written back to shared memory.
+//  - The dQ kernel's consumers also compute D for their rows from the dO
+//    fragments and O (read once per item) and write it for the dK/dV
+//    kernel, which runs next on the stream: no third launch.
+//  - Overlap: a consumer issues S and dP of tile j together with the
+//    accumulating products of tile j - 1, and computes P and dS of tile j
+//    while those run; the two consumers' issue streams interleave freely
+//    (taking turns through named barriers, as the forward does, measured
+//    6-8% slower for dK/dV). Six ring stages: two were 1.9x slower, six 1%
+//    faster than four.
+//  - Masks by value, never by a branch on data (ptxas serializes every
+//    wgmma under one, C7518): an excluded key, a row without a valid key
+//    and a row or key beyond T all give P = exp2(-inf) = 0.
+//  - The tensor maps are encoded on the host for every call and passed as
+//    __grid_constant__ parameters, which CUDA-graph capture records by value.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, at the training
+// shape: dQ 0.087 ms (~400 TFLOP/s), dK/dV 0.100 ms (~460 TFLOP/s), the pair
+// within 2% of cuDNN's whole backward under SDPA. Not addressed: the wave
+// tail (480 items on 132 SMs: 3.6 rounds, the last one on 84 SMs).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,267 +90,470 @@
 
 namespace {
 
+using namespace hopper;
+
 constexpr int DH = 64;
-constexpr int TILE = 64;      // rows of a CTA, and rows of each inner tile
-constexpr int THREADS = 128;  // four warps of 16 rows
-constexpr int LD = DH + 8;    // padded shared-memory row, in elements
+constexpr int BR = 128;                          // resident rows per work item: two consumer warpgroups of 64
+constexpr int BS = 64;                           // rows of a streamed tile
+constexpr int STAGES = 6;                        // ring depth
+constexpr int CONSUMER_THREADS = 256;
+constexpr int THREADS = CONSUMER_THREADS + 128;  // + the producer warpgroup
+constexpr int RES_BYTES = BR * DH * 2;           // one resident tile: 16 KB
+constexpr int TILE_BYTES = BS * DH * 2;          // one streamed tile: 8 KB
+constexpr int KSTEP_MN = 16 * DH * 2 >> 4;       // a k16 step down an MN-major operand, in descriptor units
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Batch and time strides (elements) of the five (B, T, H, 64) inputs.
-struct Strides {
-  long long sb[5], st[5];
+// Tiles sit at 1,024-byte boundaries, as the 128-byte swizzle requires.
+struct __align__(1024) SmemDq {
+  __nv_bfloat16 q[BR * DH], dout[BR * DH], out[BR * DH];  // this item's query rows
+  __nv_bfloat16 k[STAGES][BS * DH], v[STAGES][BS * DH];
+  float bias[STAGES][BS];  // 0 for a valid key, -inf for an excluded one
+  uint64_t full[STAGES], empty[STAGES], res_full, res_empty;
 };
-enum { Q = 0, K = 1, V = 2, O = 3, DO = 4 };
 
-typedef __nv_bfloat16 Tile[TILE][LD];
+struct __align__(1024) SmemDkv {
+  __nv_bfloat16 k[BR * DH], v[BR * DH];  // this item's keys
+  __nv_bfloat16 q[STAGES][BS * DH], dout[STAGES][BS * DH];
+  float lse[STAGES][BS];    // lse * log2(e); +inf for a row without a valid key or at or beyond T
+  float delta[STAGES][BS];  // D; 0 at or beyond T
+  uint64_t full[STAGES], empty[STAGES], res_full, res_empty;
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows t0 .. t0 + 63 of one (b, h) slice of a (B, T, H, 64) tensor into
-// `dst` (and transposed into `dst_t`, when given); rows at or beyond T are
-// zeros. Thread i reads 16 bytes of row (i mod 64), so a warp's transposed
-// 16-bit stores fall in distinct 32-bit words of distinct banks.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* base, long long st, int t0, int T, Tile& dst,
-                                          Tile* dst_t) {
-#pragma unroll
-  for (int i = 0; i < TILE * DH / 8 / THREADS; ++i) {
-    const int id = threadIdx.x + i * THREADS;
-    const int r = id & (TILE - 1), d0 = (id / TILE) * 8;
-    const int t = t0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < T) v = *reinterpret_cast<const uint4*>(base + t * st + d0);
-    *reinterpret_cast<uint4*>(&dst[r][d0]) = v;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) (*dst_t)[d0 + j][r] = e[j];
-    }
-  }
-}
-
-// The A fragments (16 rows from r0, all 64 columns as 4 k-chunks) of a
-// row-major tile.
-__device__ __forceinline__ void load_a(const Tile& x, int r0, uint32_t (&a)[4][4]) {
-  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    a[kc][0] = ld32(&x[r0 + g][kc * 16 + 2 * c]);
-    a[kc][1] = ld32(&x[r0 + g + 8][kc * 16 + 2 * c]);
-    a[kc][2] = ld32(&x[r0 + g][kc * 16 + 2 * c + 8]);
-    a[kc][3] = ld32(&x[r0 + g + 8][kc * 16 + 2 * c + 8]);
-  }
-}
-
-// acc[n] (16 x 8 tile n of a 16 x 64 result) = A (16 x 64, fragments a) times
-// the transpose of the 64 x 64 row-major tile bt: acc[n][r][c] = sum_k
-// A[r][k] bt[8 n + c][k].
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4], const Tile& bt) {
-  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc)
-      hopper::mma_bf16_16816(acc[n], a[kc], ld32(&bt[8 * n + g][kc * 16 + 2 * c]),
-                             ld32(&bt[8 * n + g][kc * 16 + 2 * c + 8]));
-  }
-}
-
-// acc[n] += X (16 x 64, the fp32 accumulators x of a previous product,
-// rounded to bf16: their C layout is the A layout of k-chunk kc = tiles 2 kc
-// and 2 kc + 1) times the 64 x 64 tile whose transpose bt is stored
-// row-major: acc[n][r][c] += sum_k X[r][k] bt[8 n + c][k].
-__device__ __forceinline__ void mma_xbt_acc(float (&acc)[8][4], const float (&x)[8][4], const Tile& bt) {
-  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
-  uint32_t a[4][4];
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    a[kc][0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-    a[kc][1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-    a[kc][2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    a[kc][3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hopper::mma_bf16_16816(acc[n], a[kc], ld32(&bt[8 * n + g][kc * 16 + 2 * c]),
-                             ld32(&bt[8 * n + g][kc * 16 + 2 * c + 8]));
-  }
-}
-
-// Rows r0 + g and r0 + g + 8 of a 16 x 64 fp32 accumulator as bf16, into
-// rows t0 + r of a (B, T, H, 64) tensor at `base` with time stride st.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st, int t0, int T, int r0,
-                                           const float (&acc)[8][4]) {
-  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = t0 + r0 + g + 8 * half;
-    if (t >= T) continue;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(base + t * st + 8 * n + 2 * c) =
-          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
-  }
+// Work item w of the grid-stride loop: row tile w % n_r of head
+// (w / n_r) % H of batch element w / (n_r H).
+struct Item {
+  int r0, h, b;
+};
+__device__ __forceinline__ Item item_of(int w, int n_r, int H) {
+  const int rt = w % n_r, bh = w / n_r;
+  return {rt * BR, bh % H, bh / H};
 }
 
 __device__ __forceinline__ bool key_valid(const uint8_t* mask_b, int s, int T) {
   return s < T && (mask_b == nullptr || mask_b[s] != 0);
 }
 
-// lse of a row as the kernels subtract it: +inf for a row at or beyond T or
-// without a valid key, so that its P is exp(-inf) = 0.
-__device__ __forceinline__ float lse_of_row(const float* lse_bh, int t, int T) {
-  const float l = t < T ? lse_bh[t] : -INFINITY;
-  return l == -INFINITY ? INFINITY : l;
+// The 32-bit word holding elements (row, col) and (row, col + 1) of a tile
+// of 128-byte rows as TMA writes it under the 128-byte swizzle: the 16-byte
+// chunk col / 8 of a row sits at chunk (col / 8) ^ (row % 8).
+__device__ __forceinline__ uint32_t lds_sw128(const __nv_bfloat16* tile, int row, int col) {
+  const int off = row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+  return *reinterpret_cast<const uint32_t*>(reinterpret_cast<const uint8_t*>(tile) + off);
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ out,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+// The two bf16 values of a packed pair as floats (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// Rows r and r + 8 (r = this thread's first row in its warp's 16) of a
+// resident tile as the wgmma A fragments of its four k16 steps.
+__device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int r, uint32_t (&a)[16]) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc) {
+    a[4 * kc] = lds_sw128(tile, r, 16 * kc + c2);
+    a[4 * kc + 1] = lds_sw128(tile, r + 8, 16 * kc + c2);
+    a[4 * kc + 2] = lds_sw128(tile, r, 16 * kc + 8 + c2);
+    a[4 * kc + 3] = lds_sw128(tile, r + 8, 16 * kc + 8 + c2);
+  }
+}
+
+// The 64 x 64 fp32 accumulators x, rounded to bf16, as the A fragments of
+// the next product's four k16 steps (columns 16 kc .. 16 kc + 15 of x form
+// step kc).
+__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[16]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    a[4 * kc] = pack_bf16(x[8 * kc], x[8 * kc + 1]);
+    a[4 * kc + 1] = pack_bf16(x[8 * kc + 2], x[8 * kc + 3]);
+    a[4 * kc + 2] = pack_bf16(x[8 * kc + 4], x[8 * kc + 5]);
+    a[4 * kc + 3] = pack_bf16(x[8 * kc + 6], x[8 * kc + 7]);
+  }
+}
+
+// x (64 x 64) = A (64 x 64, fragments a) times the transpose of a streamed
+// 64-row tile (K-major B).
+__device__ __forceinline__ void mma_abt(float (&x)[32], const uint32_t (&a)[16], const __nv_bfloat16* tile) {
+  const uint64_t d = sw128_desc(tile);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) wgmma_m64n64_rs<0>(x, a + 4 * kk, d + 2 * kk, kk > 0);
+}
+
+// acc (64 x 64) += X (64 x 64, fragments a) times a streamed 64-row tile
+// (MN-major B).
+__device__ __forceinline__ void mma_acc(float (&acc)[32], const uint32_t (&a)[16], const __nv_bfloat16* tile) {
+  const uint64_t d = sw128_desc(tile);
+#pragma unroll
+  for (int kc = 0; kc < BS / 16; ++kc) wgmma_m64n64_rs<1>(acc, a + 4 * kc, d + kc * KSTEP_MN, 1);
+}
+
+// Rows r0 and r0 + 8 of a 64 x 64 fp32 accumulator as bf16 into rows
+// t0 + r of a contiguous (B, T, H, 64) tensor at `base` (its (b, h) slice).
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int H, int t0, int T, const float (&acc)[32]) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + 8 * r;
+    if (t >= T) continue;
+    __nv_bfloat16* row = base + (long long)t * H * DH;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + c2) = __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+  }
+}
+
+// dQ kernel, one key tile, in place in s: P = exp2(S log2(e) - lse log2(e)
+// + key bias) and dS = P (dP - D) for this thread's rows (lse2 = lse log2(e),
+// or +inf; d = D).
+__device__ __forceinline__ void dq_grad_logits(float (&s)[32], const float (&dp)[32], const float* bias, int c2,
+                                               const float (&lse2)[2], const float (&d)[2]) {
+#pragma unroll
+  for (int n = 0; n < BS / 8; ++n) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + c2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p0 = exp2_ftz(fmaf(s[4 * n + 2 * r], LOG2E, -lse2[r]) + bb.x);
+      const float p1 = exp2_ftz(fmaf(s[4 * n + 2 * r + 1], LOG2E, -lse2[r]) + bb.y);
+      s[4 * n + 2 * r] = p0 * (dp[4 * n + 2 * r] - d[r]);
+      s[4 * n + 2 * r + 1] = p1 * (dp[4 * n + 2 * r + 1] - d[r]);
+    }
+  }
+}
+
+// dK/dV kernel, one query tile: P^T = exp2(S^T log2(e) - lse log2(e) + key
+// bias) into s and dS^T = P^T (dP^T - D) into dp, for this thread's keys
+// (kb: their bias) against the tile's rows (lse2, d: their staged values).
+__device__ __forceinline__ void dkv_grad_logits(float (&s)[32], float (&dp)[32], const float* lse2, const float* d,
+                                                int c2, const float (&kb)[2]) {
+#pragma unroll
+  for (int n = 0; n < BS / 8; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * n + c2);
+    const float2 dd = *reinterpret_cast<const float2*>(d + 8 * n + c2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p0 = exp2_ftz(fmaf(s[4 * n + 2 * r], LOG2E, -l.x) + kb[r]);
+      const float p1 = exp2_ftz(fmaf(s[4 * n + 2 * r + 1], LOG2E, -l.y) + kb[r]);
+      s[4 * n + 2 * r] = p0;
+      s[4 * n + 2 * r + 1] = p1;
+      dp[4 * n + 2 * r] = p0 * (dp[4 * n + 2 * r] - dd.x);
+      dp[4 * n + 2 * r + 1] = p1 * (dp[4 * n + 2 * r + 1] - dd.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* res_full, uint64_t* res_empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_THREADS);
+    }
+    mbar_init(res_full, 1);
+    mbar_init(res_empty, CONSUMER_THREADS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+template <typename Smem>
+__device__ __forceinline__ Smem& smem_of(uint8_t* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                         const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                          const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
-                         float* __restrict__ delta, int T, int H, Strides sd) {
-  __shared__ __align__(16) Tile ks, kt, vs;
-  __shared__ float key_ok[TILE], d_s[TILE];
-  const int m0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
-  auto at = [&](const __nv_bfloat16* p, int which) { return p + b * sd.sb[which] + h * DH; };
-  const float* lse_bh = lse + ((long long)b * H + h) * T;
-  float* delta_bh = delta + ((long long)b * H + h) * T;
-  const uint8_t* mask_b = mask ? mask + (long long)b * T : nullptr;
+                         float* __restrict__ delta, int B, int T, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  SmemDq& sm = smem_of<SmemDq>(smem_raw);
+  const int n_r = (T + BR - 1) / BR;
+  const int n_items = n_r * H * B;
+  const int n_s = (T + BS - 1) / BS;
+  init_barriers(sm.full, sm.empty, &sm.res_full, &sm.res_empty);
 
-  // Prologue: this tile's Q and dO as A fragments, and D = sum_d dout * out
-  // per row (two threads a row, 32 dims each), written for the dK/dV kernel.
-  uint32_t qa[4][4], oa[4][4];
-  load_tile(at(q, Q), sd.st[Q], m0, T, ks, nullptr);
-  load_tile(at(dout, DO), sd.st[DO], m0, T, vs, nullptr);
-  load_tile(at(out, O), sd.st[O], m0, T, kt, nullptr);
-  __syncthreads();
-  load_a(ks, r0, qa);
-  load_a(vs, r0, oa);
-  {
-    const int r = threadIdx.x >> 1, d0 = (threadIdx.x & 1) * 32;
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < 32; ++d) sum = fmaf(__bfloat162float(vs[r][d0 + d]), __bfloat162float(kt[r][d0 + d]), sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if ((threadIdx.x & 1) == 0 && m0 + r < T) delta_bh[m0 + r] = sum;
-    if ((threadIdx.x & 1) == 0) d_s[r] = sum;
-  }
-  __syncthreads();
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    lse_r[half] = lse_of_row(lse_bh, m0 + r0 + g + 8 * half, T) * LOG2E;
-    d_r[half] = d_s[r0 + g + 8 * half];
-  }
-
-  float dqa[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.0f;
-  float s[8][4], dp[8][4];
-  for (int k0 = 0; k0 < T; k0 += TILE) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(at(k, K), sd.st[K], k0, T, ks, &kt);
-    load_tile(at(v, V), sd.st[V], k0, T, vs, nullptr);
-    if (threadIdx.x < TILE) key_ok[threadIdx.x] = key_valid(mask_b, k0 + threadIdx.x, T) ? 1.0f : 0.0f;
-    __syncthreads();
-    mma_abt(s, qa, ks);   // S  = Q K^T   (16 rows x 64 keys)
-    mma_abt(dp, oa, vs);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1, key = 8 * n + 2 * c + (e & 1);
-        const float p = key_ok[key] != 0.0f ? exp2f(fmaf(s[n][e], LOG2E, -lse_r[half])) : 0.0f;
-        s[n][e] = p * (dp[n][e] - d_r[half]);  // dS
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    // ---- producer warpgroup: one warp loads, three idle ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x / 32 != CONSUMER_THREADS / 32) return;
+    const int lane = threadIdx.x & 31;
+    int g = 0;  // streamed tiles loaded so far: ring slot g % STAGES, pass g / STAGES
+    for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
+      const Item x = item_of(w, n_r, H);
+      if (lane == 0) {
+        mbar_wait(&sm.res_empty, (it & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.res_full, 3 * RES_BYTES);
+        tma_load_4d(sm.q, &tq, &sm.res_full, x.r0, x.h, x.b);
+        tma_load_4d(sm.dout, &tdo, &sm.res_full, x.r0, x.h, x.b);
+        tma_load_4d(sm.out, &to, &sm.res_full, x.r0, x.h, x.b);
+      }
+      const uint8_t* mb = mask ? mask + (long long)x.b * T : nullptr;
+      for (int j = 0; j < n_s; ++j, ++g) {
+        const int stage = g % STAGES;
+        mbar_wait(&sm.empty[stage], ((g / STAGES) & 1) ^ 1);
+        const int s = j * BS + 2 * lane;
+        *reinterpret_cast<float2*>(&sm.bias[stage][2 * lane]) =
+            make_float2(key_valid(mb, s, T) ? 0.0f : -INFINITY, key_valid(mb, s + 1, T) ? 0.0f : -INFINITY);
+        __syncwarp();
+        if (lane == 0) {
+          // The arrive's release semantics publish the bias.
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * TILE_BYTES);
+          tma_load_4d(sm.k[stage], &tk, &sm.full[stage], j * BS, x.h, x.b);
+          tma_load_4d(sm.v[stage], &tv, &sm.full[stage], j * BS, x.h, x.b);
+        }
       }
     }
-    mma_xbt_acc(dqa, s, kt);  // dQ += bf16(dS) K
+    return;
   }
-  store_rows(dq + b * (long long)T * H * DH + h * DH, (long long)H * DH, m0, T, r0, dqa);
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c2 = (threadIdx.x & 3) * 2;
+  // This thread's rows of the item's tile: r0 and r0 + 8.
+  const int r0 = (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+
+  uint32_t qa[16], da[16], dsa[16];
+  float s[32], dp[32], dqa[32];
+  float lse2[2], d_r[2];
+
+  int g = 0;  // streamed tiles consumed so far, as the producer counts them
+  for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
+    const Item x = item_of(w, n_r, H);
+    mbar_wait(&sm.res_full, it & 1);
+    load_a(sm.q, r0, qa);
+    load_a(sm.dout, r0, da);
+    // D of rows r0 and r0 + 8: this thread's 16 dims of each (the columns
+    // of its dO fragments), then the sum over the four threads of a row.
+    d_r[0] = d_r[1] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < DH / 16; ++kc) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t ow = lds_sw128(sm.out, r0 + 8 * (i & 1), 16 * kc + 8 * (i >> 1) + c2);
+        const uint32_t dw = da[4 * kc + i];
+        d_r[i & 1] = fmaf(bf16_hi(dw), bf16_hi(ow), fmaf(bf16_lo(dw), bf16_lo(ow), d_r[i & 1]));
+      }
+    }
+    mbar_arrive(&sm.res_empty);  // Q, dO and O are in registers: the next item's may load
+    const float* lse_bh = lse + ((long long)x.b * H + x.h) * T;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      d_r[r] += __shfl_xor_sync(0xffffffffu, d_r[r], 1);
+      d_r[r] += __shfl_xor_sync(0xffffffffu, d_r[r], 2);
+      const int t = x.r0 + r0 + 8 * r;
+      const float l = t < T ? lse_bh[t] : -INFINITY;
+      lse2[r] = l == -INFINITY ? INFINITY : l * LOG2E;
+      if (c2 == 0 && t < T) delta[((long long)x.b * H + x.h) * T + t] = d_r[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = 0.0f;
+
+    int stage = g % STAGES;
+    mbar_wait(&sm.full[stage], (g / STAGES) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt(s, qa, sm.k[stage]);   // S  = Q K^T
+    mma_abt(dp, da, sm.v[stage]);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dq_grad_logits(s, dp, sm.bias[stage], c2, lse2, d_r);
+    pack_a(s, dsa);
+
+    for (int j = 1; j < n_s; ++j) {
+      const int prev = stage;  // the stage whose K the pending dQ product reads
+      ++g;
+      stage = g % STAGES;
+      mbar_wait(&sm.full[stage], (g / STAGES) & 1);
+        fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dqa);
+      wgmma_fence();
+      mma_abt(s, qa, sm.k[stage]);
+      mma_abt(dp, da, sm.v[stage]);
+      wgmma_commit();
+      mma_acc(dqa, dsa, sm.k[prev]);  // dQ += bf16(dS) K of the previous tile
+      wgmma_commit();
+        wgmma_wait<1>();  // S and dP are in; the dQ product may still run
+      fence_regs(s);
+      fence_regs(dp);
+      dq_grad_logits(s, dp, sm.bias[stage], c2, lse2, d_r);
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_arrive(&sm.empty[prev]);
+      pack_a(s, dsa);
+    }
+    fence_regs(dqa);
+    wgmma_fence();
+    mma_acc(dqa, dsa, sm.k[stage]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    mbar_arrive(&sm.empty[stage]);
+    ++g;
+    store_rows(dq + (long long)x.b * T * H * DH + x.h * DH, H, x.r0 + r0, T, dqa);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int T, int H, Strides sd) {
-  __shared__ __align__(16) Tile qs, qt, os, ot;
-  __shared__ float lse_s[TILE], d_s[TILE];
-  const int n0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
-  auto at = [&](const __nv_bfloat16* p, int which) { return p + b * sd.sb[which] + h * DH; };
-  const float* lse_bh = lse + ((long long)b * H + h) * T;
-  const float* delta_bh = delta + ((long long)b * H + h) * T;
-  const uint8_t* mask_b = mask ? mask + (long long)b * T : nullptr;
+                          __nv_bfloat16* __restrict__ dv, int B, int T, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  SmemDkv& sm = smem_of<SmemDkv>(smem_raw);
+  const int n_r = (T + BR - 1) / BR;
+  const int n_items = n_r * H * B;
+  const int n_s = (T + BS - 1) / BS;
+  init_barriers(sm.full, sm.empty, &sm.res_full, &sm.res_empty);
 
-  // This warp's 16 keys: K and V as A fragments, and whether each is valid.
-  uint32_t ka[4][4], va[4][4];
-  load_tile(at(k, K), sd.st[K], n0, T, qs, nullptr);
-  load_tile(at(v, V), sd.st[V], n0, T, os, nullptr);
-  __syncthreads();
-  load_a(qs, r0, ka);
-  load_a(os, r0, va);
-  const bool ok0 = key_valid(mask_b, n0 + r0 + g, T), ok1 = key_valid(mask_b, n0 + r0 + g + 8, T);
-
-  float dka[8][4], dva[8][4];
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    // ---- producer warpgroup: one warp loads, three idle ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x / 32 != CONSUMER_THREADS / 32) return;
+    const int lane = threadIdx.x & 31;
+    int g = 0;
+    for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
+      const Item x = item_of(w, n_r, H);
+      if (lane == 0) {
+        mbar_wait(&sm.res_empty, (it & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.res_full, 2 * RES_BYTES);
+        tma_load_4d(sm.k, &tk, &sm.res_full, x.r0, x.h, x.b);
+        tma_load_4d(sm.v, &tv, &sm.res_full, x.r0, x.h, x.b);
+      }
+      const long long bh = ((long long)x.b * H + x.h) * T;
+      for (int j = 0; j < n_s; ++j, ++g) {
+        const int stage = g % STAGES;
+        mbar_wait(&sm.empty[stage], ((g / STAGES) & 1) ^ 1);
+        float l2[2], d2[2];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.0f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.0f;
-  }
-  float s[8][4], dp[8][4];
-  for (int m0 = 0; m0 < T; m0 += TILE) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(at(q, Q), sd.st[Q], m0, T, qs, &qt);
-    load_tile(at(dout, DO), sd.st[DO], m0, T, os, &ot);
-    if (threadIdx.x < TILE) {
-      lse_s[threadIdx.x] = lse_of_row(lse_bh, m0 + threadIdx.x, T) * LOG2E;
-      d_s[threadIdx.x] = m0 + threadIdx.x < T ? delta_bh[m0 + threadIdx.x] : 0.0f;
-    }
-    __syncthreads();
-    mma_abt(s, ka, qs);   // S^T  = K Q^T   (16 keys x 64 query rows)
-    mma_abt(dp, va, os);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 8 * n + 2 * c + (e & 1);  // the query row of this element
-        const bool ok = (e >> 1) ? ok1 : ok0;
-        const float p = ok ? exp2f(fmaf(s[n][e], LOG2E, -lse_s[row])) : 0.0f;
-        s[n][e] = p;                       // P^T
-        dp[n][e] = p * (dp[n][e] - d_s[row]);  // dS^T
+        for (int i = 0; i < 2; ++i) {
+          const int t = j * BS + 2 * lane + i;
+          const float l = t < T ? lse[bh + t] : -INFINITY;
+          l2[i] = l == -INFINITY ? INFINITY : l * LOG2E;
+          d2[i] = t < T ? delta[bh + t] : 0.0f;
+        }
+        *reinterpret_cast<float2*>(&sm.lse[stage][2 * lane]) = make_float2(l2[0], l2[1]);
+        *reinterpret_cast<float2*>(&sm.delta[stage][2 * lane]) = make_float2(d2[0], d2[1]);
+        __syncwarp();
+        if (lane == 0) {
+          // The arrive's release semantics publish lse and D.
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * TILE_BYTES);
+          tma_load_4d(sm.q[stage], &tq, &sm.full[stage], j * BS, x.h, x.b);
+          tma_load_4d(sm.dout[stage], &tdo, &sm.full[stage], j * BS, x.h, x.b);
+        }
       }
     }
-    mma_xbt_acc(dva, s, ot);   // dV += bf16(P^T) dO
-    mma_xbt_acc(dka, dp, qt);  // dK += bf16(dS^T) Q
+    return;
   }
-  const long long st = (long long)H * DH, sb = (long long)T * st;
-  store_rows(dk + b * sb + h * DH, st, n0, T, r0, dka);
-  store_rows(dv + b * sb + h * DH, st, n0, T, r0, dva);
+
+  // ---- consumer warpgroups: 64 keys each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c2 = (threadIdx.x & 3) * 2;
+  // This thread's keys of the item's tile: r0 and r0 + 8.
+  const int r0 = (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+
+  uint32_t ka[16], va[16], pa[16], dsa[16];
+  float s[32], dp[32], dka[32], dva[32];
+  float kb[2];  // bias of keys r0 and r0 + 8: 0, or -inf for an excluded key
+
+  int g = 0;
+  for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
+    const Item x = item_of(w, n_r, H);
+    mbar_wait(&sm.res_full, it & 1);
+    load_a(sm.k, r0, ka);
+    load_a(sm.v, r0, va);
+    mbar_arrive(&sm.res_empty);  // K and V are in registers: the next item's may load
+    const uint8_t* mb = mask ? mask + (long long)x.b * T : nullptr;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) kb[r] = key_valid(mb, x.r0 + r0 + 8 * r, T) ? 0.0f : -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.0f;
+
+    int stage = g % STAGES;
+    mbar_wait(&sm.full[stage], (g / STAGES) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt(s, ka, sm.q[stage]);      // S^T  = K Q^T
+    mma_abt(dp, va, sm.dout[stage]);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dkv_grad_logits(s, dp, sm.lse[stage], sm.delta[stage], c2, kb);
+    pack_a(s, pa);
+    pack_a(dp, dsa);
+
+    for (int j = 1; j < n_s; ++j) {
+      const int prev = stage;  // the stage whose Q and dO the pending products read
+      ++g;
+      stage = g % STAGES;
+      mbar_wait(&sm.full[stage], (g / STAGES) & 1);
+        fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dka);
+      fence_regs(dva);
+      wgmma_fence();
+      mma_abt(s, ka, sm.q[stage]);
+      mma_abt(dp, va, sm.dout[stage]);
+      wgmma_commit();
+      mma_acc(dva, pa, sm.dout[prev]);  // dV += bf16(P^T) dO of the previous tile
+      mma_acc(dka, dsa, sm.q[prev]);    // dK += bf16(dS^T) Q
+      wgmma_commit();
+        wgmma_wait<1>();  // S^T and dP^T are in; dV and dK may still run
+      fence_regs(s);
+      fence_regs(dp);
+      dkv_grad_logits(s, dp, sm.lse[stage], sm.delta[stage], c2, kb);
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+      mbar_arrive(&sm.empty[prev]);
+      pack_a(s, pa);
+      pack_a(dp, dsa);
+    }
+    fence_regs(dka);
+    fence_regs(dva);
+    wgmma_fence();
+    mma_acc(dva, pa, sm.dout[stage]);
+    mma_acc(dka, dsa, sm.q[stage]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+    mbar_arrive(&sm.empty[stage]);
+    ++g;
+    const long long off = (long long)x.b * T * H * DH + x.h * DH;
+    store_rows(dk + off, H, x.r0 + r0, T, dka);
+    store_rows(dv + off, H, x.r0 + r0, T, dva);
+  }
 }
 
-Strides strides_of(const long long* s) {
-  Strides sd;
-  for (int i = 0; i < 5; ++i) {
-    sd.sb[i] = s[2 * i];
-    sd.st[i] = s[2 * i + 1];
-  }
-  return sd;
+// One CTA per SM (at most one per work item); dynamic shared memory above
+// 48 KB needs the attribute. Called before the tensor maps are encoded: its
+// runtime calls make the device's context current on the calling thread
+// (the encoder needs one, and autograd runs the backward on a thread of
+// its own, where no runtime call may have come first).
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, int T, int H, int B, int* grid) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long items = (long long)((T + BR - 1) / BR) * H * B;
+  *grid = static_cast<int>(items < sms ? items : sms);
+  return e;
 }
+
+constexpr size_t SMEM_DQ = sizeof(SmemDq) + 1024;  // + room to align the base to 1,024 bytes
+constexpr size_t SMEM_DKV = sizeof(SmemDkv) + 1024;
 
 }  // namespace
+
+// ---- host side ----
 
 // The caller (whisperx_tpu_torch/ops/flash_attn.py) checks shapes, types,
 // the unit head and head-dim strides and 16-byte alignment. `strides` holds
@@ -325,29 +561,60 @@ Strides strides_of(const long long* s) {
 // `lse` and `delta` are contiguous (B, H, T) fp32, `mask` a (B, T) bool array
 // (1 = valid key) or null; dq, dk and dv are contiguous (B, T, H, 64) bf16.
 // dQ first: it writes delta (D), which the dK/dV kernel reads. Each returns
-// a cudaError_t.
+// a cudaError_t: cudaErrorNotSupported if the driver has no
+// cuTensorMapEncodeTiled, cudaErrorInvalidValue if it refuses a view.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
                                  const void* lse, const void* mask, void* dq, void* delta, int B, int T, int H,
                                  const long long* strides, void* stream) {
-  const dim3 grid((T + TILE - 1) / TILE, H, B);
-  flash_attn_bwd_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), T, H, strides_of(strides));
+  int grid = 0;
+  const cudaError_t e = persistent_grid(flash_attn_bwd_dq_kernel, SMEM_DQ, T, H, B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, to, tdo;
+  const long long* sd = strides;
+  if (!encode_bthd(fn, &tq, q, B, T, H, sd[0], sd[1], BR) || !encode_bthd(fn, &tk, k, B, T, H, sd[2], sd[3], BS) ||
+      !encode_bthd(fn, &tv, v, B, T, H, sd[4], sd[5], BS) || !encode_bthd(fn, &to, out, B, T, H, sd[6], sd[7], BR) ||
+      !encode_bthd(fn, &tdo, dout, B, T, H, sd[8], sd[9], BR))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_attn_bwd_dq_kernel<<<grid, THREADS, SMEM_DQ, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, tdo, static_cast<const float*>(lse), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), B, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                   const void* delta, const void* mask, void* dk, void* dv, int B, int T, int H,
                                   const long long* strides, void* stream) {
-  const dim3 grid((T + TILE - 1) / TILE, H, B);
-  flash_attn_bwd_dkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, H, strides_of(strides));
+  int grid = 0;
+  const cudaError_t e = persistent_grid(flash_attn_bwd_dkv_kernel, SMEM_DKV, T, H, B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo;
+  const long long* sd = strides;
+  if (!encode_bthd(fn, &tq, q, B, T, H, sd[0], sd[1], BS) || !encode_bthd(fn, &tk, k, B, T, H, sd[2], sd[3], BR) ||
+      !encode_bthd(fn, &tv, v, B, T, H, sd[4], sd[5], BR) || !encode_bthd(fn, &tdo, dout, B, T, H, sd[6], sd[7], BS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_attn_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread (as compiled; the consumers raise theirs to 232 with
+// setmaxnreg and the producer lowers its to 40), local-memory (spill) bytes
+// a thread and dynamic shared memory a CTA of kernel `which` (0: dQ, 1:
+// dK/dV). Returns a cudaError_t.
+extern "C" int flash_attn_bwd_resources(int which, int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = which == 0 ? cudaFuncGetAttributes(&a, flash_attn_bwd_dq_kernel)
+                                   : cudaFuncGetAttributes(&a, flash_attn_bwd_dkv_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = static_cast<int>(which == 0 ? SMEM_DQ : SMEM_DKV);
+  return 0;
 }
 
 extern "C" const char* error_string(int code) {

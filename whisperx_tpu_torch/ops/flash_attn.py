@@ -146,7 +146,22 @@ def _lib_bwd() -> ctypes.CDLL:
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+    lib.flash_attn_bwd_resources.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.flash_attn_bwd_resources.restype = ctypes.c_int
     return lib
+
+
+def bwd_resources() -> dict:
+    """What each backward kernel holds on the card (CUDA only): registers a
+    thread as compiled, spilled bytes a thread and dynamic shared memory a
+    CTA, from ``cudaFuncGetAttributes`` and the kernels' layouts."""
+    lib = _lib_bwd()
+    out = {}
+    for which, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        _build.check(lib, lib.flash_attn_bwd_resources(which, *(ctypes.byref(v) for v in vals)), name)
+        out[name] = dict(zip(("registers", "spill_bytes", "smem_bytes"), (v.value for v in vals)))
+    return out
 
 
 def _describe(*tensors) -> str:
