@@ -54,7 +54,20 @@ Phases:
      (published widths and depth, fp32 masters from seed 0, bf16 compute),
      five AdamW steps on 2 x 30 s of random mel and 129 random tokens, with
      the "xla" and then the flash encoder attention (the forward with lse
-     and both backward kernels: 32 launches of each a step).
+     and both backward kernels: 32 launches of each a step);
+  9. (run after phase 7, whose files it reads) drive the int4 path through
+     the entry points: ``load_model(...,
+     compute_type="int4")`` on phase 7's large-v2 directory (every Dense
+     kernel packed two to a byte) and ``load_align_model(...,
+     compute_type="int8")`` on its wav2vec2 base directory; 5 minutes of
+     phase 6's tone bursts (8 chunks, one decode batch), beam 5, 112 tokens
+     (EOT banned), then alignment of the chunks and of one 1 s batch (the
+     int8 wav2vec2's projections through int8_matmul); arm (a) with the int8
+     KV cache and the JAX package's defaults, arm (b) with the int4 KV
+     cache, the cross-attention kernel (int8 cross K/V) and flash attention.
+Phase 2 also holds int8_matmul at the int8 wav2vec2 base's shapes; phase 3
+also checks int4-weight and int4-KV decode tokens and the int8 wav2vec2's
+alignment, card against CPU.
 Every kernel's launch count is zeroed just before each run of a path and
 read just after.
 
@@ -70,6 +83,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -504,6 +518,11 @@ def int8_mm_phase(torch, card: str) -> dict:
     # block at the widest K (ten chunks a split), without a bias.
     cases = [(40, layer, True), (32, layer, True), (256, [(D, 4 * D)], True), (1, [(D, D)], True)]
     cases += [(M, [(4 * D, D)], False) for M in (8, 39, 41, 64, 65, 128, 255)]
+    # The int8 wav2vec2 base's projections in phase 9's short alignment
+    # batch (4 rows of 49 frames) and in a 2-row one: feat_projection,
+    # attention, feed-forward in and out (48 chunks of K).
+    w2v = [(512, 768), (768, 768), (768, 3072), (3072, 768)]
+    cases += [(196, w2v, True), (98, w2v, True)]
     for M, shapes, with_bias in cases:
         for K, N in dict.fromkeys(shapes):
             x, w, s, b = operands(M, K, N)
@@ -1060,16 +1079,58 @@ def small_reference_phase(torch) -> None:
             log(f"small model (128 wide, int8) beam={beam} cross={cross}: card tokens == cpu tokens, sum_logprobs within {lp_err:.2g}: ok")
 
 
+def small_int4_phase(torch) -> None:
+    """int4 weights and the int4 KV cache on a 128-wide fp32 Whisper: the
+    card's decode tokens equal the CPU's, at beam 1 and 2, under both cross
+    routes (the "pallas" route launches cross_attention_decode on int8
+    cross K/V for an int4 request; int4 projections never take int8_matmul)."""
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.ops import cross_attn, int8_mm
+
+    p = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    if not torch.equal(tw.unpack_int4(p.cuda()).cpu(), tw.unpack_int4(p)):
+        raise AssertionError("unpack_int4 of the 256 byte values: the card's nibbles differ from the CPU's")
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    fp = tw.random_params(cfg, seed=0, scale=0.2)
+    q4 = tw.fuse_qkv_params(tw.quantize_params(fp, bits=4))
+    mel = (3 * np.random.default_rng(5).standard_normal((2, cfg.n_mels, 3000))).astype(np.float32)
+    tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
+    for what, tree, bits, kv in (("int4 weights", q4, 4, "int8"), ("int4 kv", fp, None, "int4"), ("int4 weights + kv", q4, 4, "int4")):
+        engines = {dev: WhisperEngine(whisper_from_jax(tree, cfg, quant_bits=bits, device=dev), tok) for dev in ("cuda", "cpu")}
+        for beam in (1, 2):
+            for cross in ("xla", "pallas"):
+                opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype=kv)
+                opts = dataclasses.replace(opts, cross_attn=cross)
+                int8_mm.launches = cross_attn.launches = 0
+                got = engines["cuda"].generate(mel, options=opts)
+                launched = (int8_mm.launches, cross_attn.launches)
+                want = engines["cpu"].generate(mel, options=opts)
+                if not np.array_equal(got.tokens, want.tokens):
+                    raise AssertionError(f"small {what} beam={beam} cross={cross}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
+                lp_err = float(np.abs(got.sum_logprobs - want.sum_logprobs).max())
+                if lp_err > 2e-2:
+                    raise AssertionError(f"small {what} beam={beam} cross={cross}: sum_logprobs differ by {lp_err}")
+                if launched[0] != 0 or (launched[1] > 0) != (cross == "pallas"):
+                    raise AssertionError(f"small {what} beam={beam} cross={cross}: int8_mm, cross_attn launches {launched}")
+                log(f"small model (128 wide, {what}, kv {kv}) beam={beam} cross={cross}: card tokens == cpu tokens, "
+                    f"sum_logprobs within {lp_err:.2g}, launches int8_mm/cross_attn {launched}: ok")
+
+
 def small_align_phase(torch, card: str) -> None:
     """Alignment on a 128-wide wav2vec2 (WAV2VEC2_TEST widened to the flash
-    kernel's head dim 64): fp32 "xla" on the card against the CPU, then the
-    flash route at bf16 against the card's plain route."""
+    kernel's head dim 64): fp32 "xla" on the card against the CPU, the same
+    for its int8 model, then the flash route at bf16 against the card's
+    plain route."""
     from whisperx_tpu_torch.align.alignment import AlignModel, _emissions, align
     from whisperx_tpu_torch.audio import N_SAMPLES
     from whisperx_tpu_torch.models import wav2vec2 as tw2
     from whisperx_tpu_torch.models.configs import WAV2VEC2_TEST
     from whisperx_tpu_torch.models.convert import wav2vec2_from_jax
-    from whisperx_tpu_torch.ops import attention, flash_attn
+    from whisperx_tpu_torch.ops import attention, flash_attn, int8_mm
 
     cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
     params = tw2.random_params(cfg, seed=0)
@@ -1103,6 +1164,30 @@ def small_align_phase(torch, card: str) -> None:
     log(
         f"small align (128-wide wav2vec2, fp32, xla) {n_seg} x 30 s: card == cpu segments, {n_words} words and "
         f"timestamps identical, scores within {score_err:.3g} (atol 2e-3): ok"
+    )
+
+    # The int8 wav2vec2 (quantize_wav2vec2), fp32: the 3 x 30 s rows
+    # dequantize and multiply; then 4 segments of 0.9 s (one batch of 4 x 49
+    # frames) through int8_matmul on the card.
+    short = [{"start": 30.0 * i + 2.0, "end": 30.0 * i + 2.9, "text": " the quick fox"} for i in range(3)]
+    short.append({"start": 10.0, "end": 10.9, "text": " over the dog"})
+    results = {}
+    for dev in ("cuda", "cpu"):
+        qm = AlignModel(tw2.quantize_wav2vec2(model_on(dev, torch.float32, "xla").model), dictionary, "en")
+        int8_mm.launches = 0
+        long_res = align([dict(s) for s in transcript], qm, meta, audio, dev)
+        long_launched = int8_mm.launches
+        results[dev] = (long_res, align([dict(s) for s in short], qm, meta, audio, dev), long_launched, int8_mm.launches - long_launched)
+    want_launches = 1 + 6 * cfg.num_layers
+    if results["cuda"][2:] != (0, want_launches) or results["cpu"][2:] != (0, 0):
+        raise AssertionError(f"small align int8: int8_mm launches (30 s rows, 0.9 s rows): card {results['cuda'][2:]}, cpu {results['cpu'][2:]}")
+    for i, what in ((0, "3 x 30 s"), (1, "4 x 0.9 s")):
+        if timestamps(results["cuda"][i]) != timestamps(results["cpu"][i]):
+            raise AssertionError(f"small align int8 fp32 {what}: the card's segments, words or timestamps differ from the CPU's")
+    n_words = [len(results["cpu"][i]["word_segments"]) for i in (0, 1)]
+    log(
+        f"small align (128-wide int8 wav2vec2, fp32, xla): card == cpu segments, words and timestamps for "
+        f"3 x 30 s ({n_words[0]} words) and 4 x 0.9 s ({n_words[1]} words, int8_matmul launched {want_launches} times): ok"
     )
 
     # bf16: the flash route's emissions against the card's plain ("xla") route.
@@ -1323,8 +1408,6 @@ def small_cli_phase(torch) -> None:
     cuda and once with --device cpu; each run writes the five formats of
     "all" and then "aud". The six files must be byte-equal; the JSON may
     differ only in alignment scores, within 2e-3."""
-    import tempfile
-
     from whisperx_tpu_torch import cli
 
     whisper_cfg, w2v_cfg = small_cli_configs()
@@ -1479,7 +1562,7 @@ def main_path_phase(torch, card: str, model) -> dict:
             mark()
             prompt = engine.build_prompt(batch)
             logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], o), kv_int8=True, cross_impl=o.cross_attn
+                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl=o.cross_attn
             )
             mark()
             expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
@@ -1630,8 +1713,6 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     Two runs: the JAX package's defaults, then the kernel arm
     (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash, set for the run only).
     Returns the kernel arm's launches."""
-    import tempfile
-
     from whisperx_tpu_torch import native
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import io as audio_io
@@ -1737,8 +1818,6 @@ def small_train_phase(torch) -> None:
     the card's trained model gives the same forward, bit for bit. (The 6 GB
     full-width checkpoint of phase 8 is not written, to save the script's
     time.)"""
-    import tempfile
-
     from whisperx_tpu_torch import train
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import TEST_CONFIG
@@ -1787,7 +1866,7 @@ def small_train_phase(torch) -> None:
 CLI_MINUTES = 6.0  # two speakers in ~45 s turns; the all-active VAD cuts 30 s chunks
 
 
-def cli_phase(torch, card: str) -> dict:
+def cli_phase(torch, card: str, tmp: str) -> dict:
     """``whisperx_tpu_torch.cli.cli`` in-process, as a user runs
     ``python -m whisperx_tpu_torch <wav> --diarize``, on checkpoints written
     here from seeds in their published layouts (nothing reused from phases
@@ -1798,9 +1877,9 @@ def cli_phase(torch, card: str) -> dict:
     the path runs deterministically: neural VAD finds speech everywhere,
     30 s chunks, every (window, class) pair embedded and clustered. int8,
     batch 8, beam 5, EOT banned (the 224-token default horizon), the JAX
-    package's defaults otherwise (no kernel env knob). Returns the launches."""
-    import tempfile
-
+    package's defaults otherwise (no kernel env knob). The files stay in
+    ``tmp`` for phase 9. Returns the launches, the two HF directories, the
+    int8 model's weight bytes and load_model's time."""
     from whisperx_tpu_torch import cli, native
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
@@ -1841,67 +1920,66 @@ def cli_phase(torch, card: str) -> dict:
         seen["turns"] = turns
         return cli_assign(turns, result, *a, **kw)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        whisper_dir = write_hf_whisper(os.path.join(tmp, "hf-whisper-large"), cfg, seed=0, dtype="F16")
-        w2v_dir = write_hf_wav2vec2(os.path.join(tmp, "hf-wav2vec2-base"), WAV2VEC2_BASE, seed=0)
-        wespeaker = write_wespeaker_bin(os.path.join(tmp, "wespeaker-resnet34.bin"), seed=0)
-        pyannet = write_pyannet_bin(os.path.join(tmp, "segmentation.bin"), seed=0, classifier_bias=3.0)
-        audio = conversation_audio(CLI_MINUTES)
-        wav = os.path.join(tmp, "conversation.wav")
-        audio_io.write_wav(wav, audio)
-        audio_s = len(audio) / 16000
-        sizes = {os.path.basename(p): os.path.getsize(os.path.join(p, "model.safetensors") if os.path.isdir(p) else p)
-                 for p in (whisper_dir, w2v_dir, wespeaker, pyannet)}
-        log(f"cli inputs written from seeds in {time.perf_counter() - t0:.1f} s: "
-            + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items()) + f"; {audio_s:.1f} s WAV")
-        native.available()  # the g++ build, outside the timed run
+    t0 = time.perf_counter()
+    whisper_dir = write_hf_whisper(os.path.join(tmp, "hf-whisper-large"), cfg, seed=0, dtype="F16")
+    w2v_dir = write_hf_wav2vec2(os.path.join(tmp, "hf-wav2vec2-base"), WAV2VEC2_BASE, seed=0)
+    wespeaker = write_wespeaker_bin(os.path.join(tmp, "wespeaker-resnet34.bin"), seed=0)
+    pyannet = write_pyannet_bin(os.path.join(tmp, "segmentation.bin"), seed=0, classifier_bias=3.0)
+    audio = conversation_audio(CLI_MINUTES)
+    wav = os.path.join(tmp, "conversation.wav")
+    audio_io.write_wav(wav, audio)
+    audio_s = len(audio) / 16000
+    sizes = {os.path.basename(p): os.path.getsize(os.path.join(p, "model.safetensors") if os.path.isdir(p) else p)
+             for p in (whisper_dir, w2v_dir, wespeaker, pyannet)}
+    log(f"cli inputs written from seeds in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items()) + f"; {audio_s:.1f} s WAV")
+    native.available()  # the g++ build, outside the timed run
 
-        out = os.path.join(tmp, "out")
-        argv = [wav, "--checkpoint", whisper_dir, "--compute_type", "int8", "--batch_size", str(batch),
-                "--beam_size", "5", "--language", "en", "--align_model", w2v_dir, "--vad_checkpoint", pyannet,
-                "--diarize", "--diarize_checkpoint", wespeaker, "--min_speakers", "2", "--max_speakers", "2",
-                "--suppress_tokens=-1,50257", "--output_dir", out, "--output_format", "all", "--verbose", "False"]
-        cli_assign = cli.assign_word_speakers
-        patches = [
-            (cli, "assign_word_speakers", assign),
-            (cli, "load_model", timed("load_model", cli.load_model)),
-            (cli, "load_align_model", timed("load_align_model", cli.load_align_model)),
-            (cli, "DiarizationPipeline", timed("DiarizationPipeline", cli.DiarizationPipeline)),
-            (cli, "_transcribe_stage", timed("transcribe", cli._transcribe_stage)),
-            (cli, "_align_stage", timed("align", cli._align_stage)),
-            (cli, "_diarize_stage", timed("diarize", cli._diarize_stage)),
-            (cli, "_write_stage", timed("write", cli._write_stage)),
-            (segmentation.NeuralSegmentation, "__call__", timed("segmentation forward", segmentation.NeuralSegmentation.__call__)),
-            (embed.NeuralSpeakerEmbedding, "__call__", timed("fbank + ResNet34", embed.NeuralSpeakerEmbedding.__call__)),
-            (segmentation, "cluster_speakers", timed("clustering", segmentation.cluster_speakers)),
-            (segmentation, "binarize", timed("binarize", segmentation.binarize)),
-            (WhisperEngine, "generate", counted("generate", WhisperEngine.generate)),
-            (native.IngestPool, "get", counted("pool_decodes", native.IngestPool.get)),
-        ]
-        originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-        for obj, name, fn in patches:
+    out = os.path.join(tmp, "out")
+    argv = [wav, "--checkpoint", whisper_dir, "--compute_type", "int8", "--batch_size", str(batch),
+            "--beam_size", "5", "--language", "en", "--align_model", w2v_dir, "--vad_checkpoint", pyannet,
+            "--diarize", "--diarize_checkpoint", wespeaker, "--min_speakers", "2", "--max_speakers", "2",
+            "--suppress_tokens=-1,50257", "--output_dir", out, "--output_format", "all", "--verbose", "False"]
+    cli_assign = cli.assign_word_speakers
+    patches = [
+        (cli, "assign_word_speakers", assign),
+        (cli, "load_model", timed("load_model", cli.load_model)),
+        (cli, "load_align_model", timed("load_align_model", cli.load_align_model)),
+        (cli, "DiarizationPipeline", timed("DiarizationPipeline", cli.DiarizationPipeline)),
+        (cli, "_transcribe_stage", timed("transcribe", cli._transcribe_stage)),
+        (cli, "_align_stage", timed("align", cli._align_stage)),
+        (cli, "_diarize_stage", timed("diarize", cli._diarize_stage)),
+        (cli, "_write_stage", timed("write", cli._write_stage)),
+        (segmentation.NeuralSegmentation, "__call__", timed("segmentation forward", segmentation.NeuralSegmentation.__call__)),
+        (embed.NeuralSpeakerEmbedding, "__call__", timed("fbank + ResNet34", embed.NeuralSpeakerEmbedding.__call__)),
+        (segmentation, "cluster_speakers", timed("clustering", segmentation.cluster_speakers)),
+        (segmentation, "binarize", timed("binarize", segmentation.binarize)),
+        (WhisperEngine, "generate", counted("generate", WhisperEngine.generate)),
+        (native.IngestPool, "get", counted("pool_decodes", native.IngestPool.get)),
+    ]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    audio_io.LAST_DECODER = None
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli.cli(argv)
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        for obj, name, fn in originals:
             setattr(obj, name, fn)
-        audio_io.LAST_DECODER = None
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for c in counters.values():
-                c.launches = 0
-            t0 = time.perf_counter()
-            cli.cli(argv)
-            wall = time.perf_counter() - t0
-            launches = {name: c.launches for name, c in counters.items()}
-        finally:
-            for obj, name, fn in originals:
-                setattr(obj, name, fn)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        written = sorted(os.listdir(out))
-        with open(os.path.join(out, "conversation.json")) as f:
-            result = json.load(f)
-        # "all" writes five formats, as in the JAX CLI; the sixth, "aud", from the same result.
-        get_writer("aud", out)(result, wav, {"max_line_width": None, "max_line_count": None, "highlight_words": False})
-        written_all = sorted(os.listdir(out))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    written = sorted(os.listdir(out))
+    with open(os.path.join(out, "conversation.json")) as f:
+        result = json.load(f)
+    # "all" writes five formats, as in the JAX CLI; the sixth, "aud", from the same result.
+    get_writer("aud", out)(result, wav, {"max_line_width": None, "max_line_count": None, "highlight_words": False})
+    written_all = sorted(os.listdir(out))
     stages = seen["pipeline"].telemetry.report()
 
     n_batches = -(-seen["chunks"] // batch)
@@ -1949,7 +2027,240 @@ def cli_phase(torch, card: str) -> dict:
         f"{sorted(set(speakers))}, six files; launches {launches}; "
         f"python -m whisperx_tpu_torch --help rc 0: ok"
     )
-    return launches
+    return {"launches": launches, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir,
+            "weights": weight_bytes(seen["pipeline"].model), "load_model_ms": ms["load_model"]}
+
+
+# ---- phase 9: int4 weights and KV cache, the int8 wav2vec2 ----------------
+
+INT4_MINUTES = 5.0  # 8 VAD chunks (SpeechBandVAD, chunk_size 30): one full decode batch of 8
+INT4_CHUNKS = 8
+
+
+def weight_bytes(model) -> dict:
+    """Bytes of a model's Dense kernels, and of all its parameters."""
+    from whisperx_tpu_torch.models.whisper import Dense
+
+    dense = sum(m.kernel.numel() * m.kernel.element_size() for m in model.modules() if isinstance(m, Dense))
+    return {"dense": dense, "all": sum(p.numel() * p.element_size() for p in model.parameters())}
+
+
+def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> dict:
+    """The int4 path through the entry points a user calls, at full width:
+    ``load_model(checkpoint=<phase 7's large-v2 HF directory>,
+    compute_type="int4", language="en")`` (beam 5, 112 tokens, EOT banned:
+    phases 4 and 6's configuration) and ``load_align_model(<phase 7's
+    wav2vec2 base directory>, compute_type="int8")``; 5 minutes of phase
+    6's tone bursts (8 VAD chunks: one full decode batch) → transcribe →
+    align_begin(...).finish() on the chunks, then on 4 segments of 0.9 s
+    (one 1 s alignment batch of 4 x 49 frames: every int8 projection of
+    wav2vec2 base goes through int8_matmul). Two arms in turns: (a) int4
+    weights with the default KV ("auto" → int8) and the JAX package's
+    defaults; (b) int4 weights, kv_cache_dtype="int4",
+    WHISPERX_CROSS_ATTN=pallas (int8 cross K/V for the kernel) and
+    WHISPERX_ATTN=flash. Then each arm's beam loop once more, stage by
+    stage, on 8 x 30 s of noise. Returns arm (b)'s launches."""
+    from whisperx_tpu_torch.align.alignment import align_begin, load_align_model
+    from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.search import beam_decode
+    from whisperx_tpu_torch.models import convert
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.pipeline.asr import load_model
+    from whisperx_tpu_torch.utils import telemetry
+
+    batch, beam, max_new, eot = 8, 5, 112, 50257
+    loads: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            loads[name] = loads.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+
+        return wrapper
+
+    patches = [(convert, "read_whisper"), (tw, "quantize_params"), (tw, "fuse_qkv_params"), (convert, "whisper_from_jax")]
+    originals = [(obj, name, getattr(obj, name)) for obj, name in patches]
+    for obj, name, fn in originals:
+        setattr(obj, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = load_model(
+            "large-v2", checkpoint=whisper_dir, compute_type="int4", language="en",
+            asr_options={"beam_size": beam, "max_new_tokens": max_new, "suppress_tokens": (-1, eot)},
+        )
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    model, cfg = pipe.model, pipe.model.config
+    if pipe.tokenizer.eot != eot or pipe.kv_cache_dtype != "int8" or model.quant_bits != 4 or not model.fused_qkv:
+        raise AssertionError(f"int4 load_model: eot {pipe.tokenizer.eot}, kv {pipe.kv_cache_dtype}, bits {model.quant_bits}")
+    denses = [m for m in model.modules() if isinstance(m, tw.Dense)]
+    for m in denses:
+        stored = m.kernel.numel() * m.kernel.element_size()
+        if m.kernel.dtype != tw.PACKED_INT4 or stored * 2 != m.in_features * m.features:
+            raise AssertionError(f"int4 Dense {m.in_features}x{m.features}: {stored} bytes of {m.kernel.dtype}")
+    w4 = weight_bytes(model)
+    log(
+        f"int4 load_model [{card}]: {load_ms:.1f} ms (read_whisper {loads['read_whisper']:.1f}, quantize_params(bits=4) "
+        f"{loads['quantize_params']:.1f}, fuse_qkv_params {loads['fuse_qkv_params']:.1f}, whisper_from_jax with the "
+        f"packing {loads['whisper_from_jax']:.1f} ms); phase 7's int8 load_model {int8['load_model_ms']:.1f} ms; "
+        f"{len(denses)} Dense kernels, each K*N/2 bytes: {w4['dense'] / 2**30:.3f} GiB (int8: {int8['weights']['dense'] / 2**30:.3f} GiB); "
+        f"all weights {w4['all'] / 2**30:.3f} GiB (int8: {int8['weights']['all'] / 2**30:.3f} GiB); load peak {load_peak:.2f} GiB: ok"
+    )
+    t0 = time.perf_counter()
+    am, meta = load_align_model("en", model_name=w2v_dir, compute_type="int8")
+    torch.cuda.synchronize()
+    align_load_ms = (time.perf_counter() - t0) * 1e3
+    w2v = am.model
+    if not (w2v.quantized and w2v.feat_projection.kernel.dtype == torch.int8 and w2v.lm_head.kernel.dtype == torch.float32):
+        raise AssertionError("load_align_model(compute_type='int8'): not the int8 wav2vec2")
+    log(f"int8 load_align_model [{card}]: {align_load_ms:.1f} ms, {weight_bytes(w2v)['dense'] / 2**20:.1f} MiB of Dense kernels: ok")
+
+    audio = pipeline_audio(INT4_MINUTES)
+    short = [{"start": 25.0 * i + 1.0, "end": 25.0 * i + 1.9, "text": " the quick brown fox"} for i in range(4)]
+    n_w2v, L = w2v.config.num_layers, cfg.n_text_layer
+    w2v_int8 = 1 + 6 * n_w2v  # feat_projection + 6 projections a layer, in the 1 s batch only
+    arms = {"a": ("int8", {}), "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
+    want = {
+        "a": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
+        "b": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new),
+              "flash_self_attention": cfg.n_audio_layer + 2 * n_w2v, "log_mel": 0},  # 2 alignment batches
+    }
+    for w in want.values():
+        w.update(flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
+    results: list = []
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    step_fn = model.decode_step
+
+    def checked_step(tokens, cache, index):
+        logits, cache = step_fn(tokens, cache, index)
+        finite.logical_and_(torch.isfinite(logits).all())  # on the device: no sync
+        return logits, cache
+
+    def recorded(self, *a, **kw):
+        out = generate(self, *a, **kw)
+        results.append(out)
+        return out
+
+    generate = WhisperEngine.generate
+    WhisperEngine.generate = recorded
+    model.decode_step = checked_step
+    runs: dict = {}
+    try:
+        for arm in ("a", "b", "b", "a"):  # in turns: two runs each
+            kv, env = arms[arm]
+            pipe.kv_cache_dtype = kv
+            os.environ.update(env)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                pipe.telemetry.stages.clear()
+                telemetry.GLOBAL.stages.clear()
+                int8_mm.launches = cross_attn.launches = mel.launches = 0
+                flash_attn.launches = flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
+                results.clear()
+                finite.fill_(True)
+                t0 = time.perf_counter()
+                result = pipe.transcribe(audio, batch_size=batch)
+                t1 = time.perf_counter()
+                segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
+                aligned = align_begin(segs, am, meta, audio).finish()
+                chunk_int8 = int8_mm.launches
+                t2 = time.perf_counter()
+                aligned_short = align_begin([dict(s) for s in short], am, meta, audio).finish()
+                t3 = time.perf_counter()
+                launches = {"int8_matmul": int8_mm.launches, "cross_attention_decode": cross_attn.launches,
+                            "log_mel": mel.launches, "flash_self_attention": flash_attn.launches,
+                            "flash_attention_bwd_dq": flash_attn.launches_bwd_dq,
+                            "flash_attention_bwd_dkv": flash_attn.launches_bwd_dkv}
+            finally:
+                for knob in env:
+                    os.environ.pop(knob, None)
+            chunks = result["segments"]
+            if len(chunks) != INT4_CHUNKS or len(results) != 1:
+                raise AssertionError(f"int4 arm {arm}: {len(chunks)} segments, {len(results)} decode batches; expected {INT4_CHUNKS}, 1")
+            res = results[0]
+            if not bool(finite) or not all(np.isfinite(v).all() for v in (res.sum_logprobs, res.avg_logprobs, res.no_speech_probs)):
+                raise AssertionError(f"int4 arm {arm}: non-finite logits or log-probs")
+            if not (res.lengths == max_new + 1).all():
+                raise AssertionError(f"int4 arm {arm}: EOT is banned, yet lengths are {res.lengths}")
+            for what, out, n in (("chunks", aligned, INT4_CHUNKS), ("short", aligned_short, len(short))):
+                if len(out["segments"]) != n or not all(
+                    sg["words"] and all("start" in w and "end" in w for w in sg["words"]) for sg in out["segments"]
+                ):
+                    raise AssertionError(f"int4 arm {arm}: {what} not every segment aligned")
+            if chunk_int8 != 0 or launches != want[arm]:
+                raise AssertionError(f"int4 arm {arm}: launches {launches} ({chunk_int8} in the chunks' batch), expected {want[arm]}")
+            stages = {**pipe.telemetry.report(), **telemetry.GLOBAL.report()}
+            dec_ms = stages["asr_decode"]["seconds"] * 1e3
+            runs.setdefault(arm, []).append({"vad": [(c["start"], c["end"]) for c in chunks], "launches": launches,
+                                             "decode_ms": dec_ms, "align_ms": (t3 - t1) * 1e3})
+            log(
+                f"int4 arm ({arm}) kv={kv}{' ' + ' '.join(f'{k}={v}' for k, v in env.items()) if env else ''} [{card}]: "
+                f"{len(audio) / 16000:.1f} s -> {len(chunks)} chunks, one decode batch of {batch}; transcribe "
+                f"{(t1 - t0) * 1e3:.1f} ms (vad {stages['vad']['seconds'] * 1e3:.1f}, asr_decode {dec_ms:.1f} ms = "
+                f"{dec_ms / (1 + max_new):.2f} ms a step with the encoder and prompt); align {(t2 - t1) * 1e3:.1f} ms "
+                f"(8 chunks) + {(t3 - t2) * 1e3:.1f} ms (4 x 0.9 s); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"logits finite; launches {launches}: ok"
+            )
+    finally:
+        WhisperEngine.generate = generate
+        del model.decode_step
+    if runs["a"][0]["vad"] != runs["b"][0]["vad"]:
+        raise AssertionError("int4: the two arms' VAD chunks differ")
+
+    # Each arm's beam loop once more, stage by stage (phase 4's split, same shapes).
+    engine = WhisperEngine(model, pipe.tokenizer)
+    raw = pcm16((np.random.default_rng(0).standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32))
+    split = {}
+    for arm, kv, cross, attn in (("a", "int8", "xla", "xla"), ("b", "int4", "pallas", "flash")):
+        attention.set_attn_impl(model, attn)
+        opts = engine.build_options(beam_size=beam, max_new_tokens=max_new, kv_cache_dtype=kv)
+        opts = dataclasses.replace(opts, banned_tokens=opts.banned_tokens + (eot,), cross_attn=cross)
+        with torch.inference_mode():
+            stamps = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            mel_b = log_mel_spectrogram(raw, n_mels=cfg.n_mels).to(torch.bfloat16)
+            mark()
+            states = engine._encode(mel_b)
+            mark()
+            prompt = engine.build_prompt(batch)
+            logits, cache, _ = engine._prompt_cache(
+                states, prompt, engine._cache_len(prompt.shape[1], opts), kv_bits=engine._kv_bits(opts), cross_impl=cross
+            )
+            mark()
+            expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
+            beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], opts)
+            mark()
+        mel_ms, enc_ms, prompt_ms, loop_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        split[arm] = loop_ms / max_new
+        log(
+            f"int4 stages arm ({arm}) kv={kv} cross={cross} encoder attention={attn} [{card}]: mel {mel_ms:.1f} ms, "
+            f"encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms ({split[arm]:.2f} ms/step)"
+        )
+    attention.set_attn_impl(model, "auto")
+    mean = {arm: {k: float(np.mean([r[k] for r in rs])) for k in ("decode_ms", "align_ms")} for arm, rs in runs.items()}
+    log(
+        f"int4 summary [{card}]: load_model {load_ms:.1f} ms, Dense weights {w4['dense'] / 2**30:.3f} GiB (int8 "
+        f"{int8['weights']['dense'] / 2**30:.3f}); asr_decode a step (a) {mean['a']['decode_ms'] / (1 + max_new):.2f} ms, "
+        f"(b) {mean['b']['decode_ms'] / (1 + max_new):.2f} ms; beam loop (a) {split['a']:.2f} ms/step, (b) "
+        f"{split['b']:.2f} ms/step; align (a) {mean['a']['align_ms']:.1f} ms, (b) {mean['b']['align_ms']:.1f} ms: ok"
+    )
+    return runs["b"][-1]["launches"]
 
 
 # ---- phase 8: the training step at full width ------------------------------
@@ -2154,6 +2465,7 @@ def main() -> int:
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     kernels += flash_bwd_phase(torch, card, kernels[2])
     small_reference_phase(torch)
+    small_int4_phase(torch)
     small_align_phase(torch, card)
     small_pipeline_phase(torch)
     small_diarize_phase(torch)
@@ -2164,7 +2476,10 @@ def main() -> int:
     flash_align, align_model = align_path_phase(torch, card)
     pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
     del model, align_model
-    cli_launches = cli_phase(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(torch, card, tmp)
+        int4_launches = int4_phase(torch, card, cli["whisper_dir"], cli["w2v_dir"], cli)
+    cli_launches = cli["launches"]
     trained = train_phase(torch, card)
     for k in kernels:
         k["launches"] = launches.get(k["name"], trained["flash"]["launches"].get(k["name"]))
@@ -2179,6 +2494,7 @@ def main() -> int:
             k["launches_pipeline"] = pipeline_launches[k["name"]]
             k["launches_cli"] = cli_launches[k["name"]]
         k["launches_train_xla"] = trained["xla"]["launches"].get(k["name"], 0)
+        k["launches_int4"] = int4_launches[k["name"]]  # phase 9's arm (b)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,7 @@
 tiny random Whisper and wav2vec2 checkpoints written with ``transformers``
 (as ``.safetensors`` and as ``pytorch_model.bin``): the state dicts, the
 converted trees, Whisper logits, wav2vec2 emissions, ``load_model`` /
-``load_align_model`` and the options that raise."""
+``load_align_model`` (fp, int8 and int4) and the options that raise."""
 
 import json
 import os
@@ -70,6 +70,12 @@ def ckpts(tmp_path_factory):
         for kind, make in (("whisper", _whisper_dir), ("wav2vec2", _wav2vec2_dir))
         for fmt in ("safetensors", "bin")
     }
+
+
+def _int4_as_int8(x):
+    """A JAX int4 leaf as the int8 array of its values (ml_dtypes by name)."""
+    x = np.asarray(x)
+    return x.astype(np.int8) if x.dtype.name == "int4" else x
 
 
 def _assert_trees_equal(got, want, path=""):
@@ -153,11 +159,23 @@ def test_load_model_int8_routes_and_raises(ckpts, monkeypatch):
     assert p.model.decoder.layers[0].attn.qkv.kernel.dtype == torch.int8
     opts, _ = p._search_options(p.tokenizer)
     assert opts.kv_cache_dtype == "int8"
+    # int4: the JAX package's load_model on the same directory holds the
+    # same weights (its int4 leaves as values), and both pair them with the
+    # int8 KV cache; the port's kernels are packed two to a byte.
+    p4 = tasr.load_model("tiny", checkpoint=path, compute_type="int4", device="cpu", language="en")
+    j4 = jasr.load_model("tiny", checkpoint=path, compute_type="int4", language="en")
+    assert p4.kv_cache_dtype == j4.kv_cache_dtype == "int8"
+    assert p4.model.quant_bits == j4.model.quant_bits == 4 and p4.model.fused_qkv and p4.model.dtype == torch.bfloat16
+    qkv = p4.model.decoder.layers[0].attn.qkv.kernel
+    assert qkv.dtype == torch.uint8 and qkv.shape == (32, 192)
+    _assert_trees_equal(tc.whisper_to_jax(p4.model), jax.tree_util.tree_map(_int4_as_int8, j4.params))
     monkeypatch.setenv("WHISPERX_FUSED_QKV", "0")
     p = tasr.load_model("tiny", checkpoint=path, compute_type="float32", device="cpu")
     assert not p.model.fused_qkv and p.kv_cache_dtype == "model" and p.model.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tasr.load_model("tiny", checkpoint=path, compute_type="int4", device="cpu")
+    p = tasr.load_model("tiny", checkpoint=path, compute_type="int4", device="cpu", language="en", kv_cache_dtype="int4")
+    assert p.kv_cache_dtype == "int4" and not p.model.fused_qkv
+    opts, _ = p._search_options(p.tokenizer)
+    assert opts.kv_cache_dtype == "int4"
     with pytest.raises(FileNotFoundError):
         tasr.load_model("no-such-model", download_root=str(path), device="cpu")
 
@@ -202,6 +220,16 @@ def test_load_align_model_equal(ckpts):
     assert ta.align([dict(s) for s in transcript], tm, tmeta, flat, "cpu") == ja.align(
         [dict(s) for s in transcript], jm, jmeta, flat
     )
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ta.load_align_model("en", device="cpu", model_name=path, compute_type="int8")
+    # int8: the same emissions and alignment as the JAX package's int8 model.
+    tq, _ = ta.load_align_model("en", device="cpu", model_name=path, compute_type="int8")
+    jq, _ = ja.load_align_model("en", model_name=path, compute_type="int8")
+    assert tq.model.quantized and tq.model.layers[0].attention.q_proj.kernel.dtype == torch.int8
+    assert tq.model.lm_head.kernel.dtype == torch.float32
+    want = np.asarray(jq.model.apply({"params": jq.params}, jnp.asarray(audio)))
+    with torch.inference_mode():
+        got = tq.model(torch.from_numpy(audio)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert ta.align([dict(s) for s in transcript], tq, tmeta, flat, "cpu") == ja.align(
+        [dict(s) for s in transcript], jq, jmeta, flat
+    )
     assert ta._find_blank_id({"a": 3, "[pad]": 7}) == 7 and ta._find_blank_id({"a": 3}) == 0

@@ -62,11 +62,15 @@ def test_cpu_path_does_not_count_launches():
 
 
 # The decode shapes (M = 40), the prompt (M = 32), and edges: one row, rows
-# around a block of 64, the widest K at every M block, K past one pass.
+# around a block of 64, the widest K at every M block, K past one pass; the
+# int8 wav2vec2 base's short alignment batches (2 or 4 rows of 49 frames:
+# feat_projection 512 → 768, attention 768 → 768, feed-forward 768 → 3072 →
+# 768, the last with 48 chunks of K).
 @pytest.mark.parametrize(
     "M,K,N",
     [(40, 1280, 1280), (40, 1280, 3840), (40, 1280, 5120), (40, 5120, 1280), (32, 1280, 5120), (256, 1280, 5120),
-     (256, 5120, 1280), (1, 128, 128), (65, 5120, 1280), (8, 5120, 1280), (255, 64, 256), (256, 8192, 128)],
+     (256, 5120, 1280), (1, 128, 128), (65, 5120, 1280), (8, 5120, 1280), (255, 64, 256), (256, 8192, 128),
+     (98, 512, 768), (98, 768, 768), (98, 768, 3072), (98, 3072, 768), (196, 3072, 768), (196, 512, 768)],
 )
 def test_launch_plan_covers_the_output_and_k_once(M, K, N):
     p = int8_mm.launch_plan(M, K, N)

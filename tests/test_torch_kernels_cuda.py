@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from whisperx_tpu_torch.audio import log_mel_spectrogram
-from whisperx_tpu_torch.models.whisper import flat_cross_kv
+from whisperx_tpu_torch.models.whisper import flat_cross_kv, pack_int4, unpack_int4
 from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
 
 torch.set_num_threads(2)
@@ -66,6 +66,33 @@ def test_int8_mm_kernel_matches_plain_without_bias(gen, M):
     got = int8_mm.int8_matmul(x, w, scale)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), int8_mm.int8_matmul_plain(x, w, scale).float(), atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+# The int8 wav2vec2 base's projections in a short alignment batch: 2 or 4
+# rows of 49 frames (a 1 s bucket).
+@pytest.mark.parametrize("M", [98, 196])
+@pytest.mark.parametrize("K,N", [(512, 768), (768, 768), (768, 3072), (3072, 768)])
+def test_int8_mm_kernel_matches_plain_at_wav2vec2_shapes(gen, M, K, N):
+    x = torch.randn((M, K), device="cuda", generator=gen).bfloat16()
+    w = torch.randint(-127, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8)
+    scale = torch.rand((N,), device="cuda", generator=gen) * 0.01
+    bias = torch.randn((N,), device="cuda", generator=gen)
+    before = int8_mm.launches
+    got = int8_mm.int8_matmul(x, w, scale, bias, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == before + 1
+    want = int8_mm.int8_matmul_plain(x, w, scale, bias, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+def test_int4_unpack_on_the_card_equals_the_cpu(gen):
+    """The arithmetic shifts of int8 on CUDA sign-extend as on the CPU, for
+    all 256 byte values."""
+    p = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    got = unpack_int4(p.cuda()).cpu()
+    assert torch.equal(got, unpack_int4(p)) and torch.equal(pack_int4(got.cuda()).cpu(), p)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ text means equal tokens. The weights are drawn at scale 0.3 (not init's
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,6 +20,7 @@ from whisperx_tpu.align import alignment as ja
 from whisperx_tpu.decode.engine import WhisperEngine as JEngine
 from whisperx_tpu.decode.tokenizer import ByteBackend as JByteBackend
 from whisperx_tpu.models.configs import TEST_CONFIG
+from whisperx_tpu.models import whisper as jw
 from whisperx_tpu.models.whisper import Whisper as JWhisper
 from whisperx_tpu.pipeline import asr as jasr
 from whisperx_tpu_torch.align import alignment as ta
@@ -62,17 +64,21 @@ def _islands(n, gap_s=3.0):
     return np.concatenate(parts)
 
 
-def _pair(*, cfg=TEST_CONFIG, language="en", beam_size=1, quantized=False, kv="model", max_new=8):
-    """(JAX pipeline, port pipeline) on one seeded weight tree."""
-    params = tw.random_params(cfg, seed=0, scale=0.3)
+def _pair(*, cfg=TEST_CONFIG, language="en", beam_size=1, quantized=False, bits=8, kv="model", max_new=8):
+    """(JAX pipeline, port pipeline) on one seeded weight tree; ``quantized``
+    with int8 or int4 (``bits``) weights and fused QKV, each side's tree from
+    its own ``quantize_params``."""
+    params = jparams = tw.random_params(cfg, seed=0, scale=0.3)
     if quantized:
-        params = tw.fuse_qkv_params(tw.quantize_params(params))
+        params = tw.fuse_qkv_params(tw.quantize_params(params, bits=bits))
+        jparams = jw.fuse_qkv_params(jw.quantize_params(jax.tree_util.tree_map(jnp.asarray, jparams), bits=bits))
     jp = jasr.load_test_pipeline(language=language, beam_size=beam_size, config=cfg)
-    jmodel = JWhisper(cfg, quantized=quantized, fused_qkv=quantized)
+    jmodel = JWhisper(cfg, quantized=quantized, quant_bits=bits, fused_qkv=quantized)
     jp.engine = JEngine(jmodel, jp.engine.tokenizer)
-    jp.model, jp.params = jmodel, jax.tree_util.tree_map(np.asarray, params)
+    jp.model, jp.params = jmodel, jax.tree_util.tree_map(np.asarray, jparams)
     tp = tasr.load_test_pipeline(language=language, beam_size=beam_size, config=cfg, device="cpu")
-    tp.engine = tengine.WhisperEngine(whisper_from_jax(params, cfg, device="cpu"), tp.engine.tokenizer)
+    model = whisper_from_jax(params, cfg, quant_bits=bits if quantized else None, device="cpu")
+    tp.engine = tengine.WhisperEngine(model, tp.engine.tokenizer)
     tp.model = tp.engine.model
     for p, backend in ((jp, JIds), (tp, TIds)):
         p.engine.tokenizer.backend = backend(cfg.n_vocab)
@@ -118,6 +124,19 @@ def test_int8_weights_and_kv_equal(monkeypatch):
     pair = _pair(cfg=SMALL, beam_size=2, quantized=True, kv="int8", max_new=4)
     got, want = _both(pair, _islands(3), batch_size=2, chunk_size=5)
     assert got == want and len(got["segments"]) == 3
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_int4_weights_equal(monkeypatch, kv):
+    """int4 weights + fused QKV on a 128-wide model with the int8 KV cache
+    ("auto" for int4 weights) or the int4 one: no int4 projection takes the
+    int8 kernel on either side."""
+    monkeypatch.setenv("WHISPERX_INT8_MM", "pallas")
+    pair = _pair(cfg=SMALL, beam_size=2, quantized=True, bits=4, kv=kv, max_new=4)
+    assert pair[1].model.decoder.layers[0].mlp.fc1.kernel.dtype == tw.PACKED_INT4
+    got, want = _both(pair, _islands(3), batch_size=2, chunk_size=5)
+    assert got == want and len(got["segments"]) == 3
+    assert _distinct_texts(got) >= 2
 
 
 def test_empty_audio(fp32_pair):

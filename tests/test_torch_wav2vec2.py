@@ -119,6 +119,15 @@ def test_converter_rejects_int8_and_incomplete_trees():
     broken = {k: v for k, v in params.items() if k != "lm_head"}
     with pytest.raises(KeyError):
         wav2vec2_from_jax(broken, cfg, device="cpu")
+    # A kernel_scale makes the int8 model, whose lm_head stays fp: a scale
+    # on it, or fp kernels beside the scales, do not fit.
     quant = dict(params, lm_head=dict(params["lm_head"], kernel_scale=np.ones(cfg.vocab_size, np.float32)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="feat_projection"):
         wav2vec2_from_jax(quant, cfg, device="cpu")
+    int8 = tw2.quantize_wav2vec2_params(params)
+    with pytest.raises(KeyError, match="lm_head"):
+        wav2vec2_from_jax(dict(int8, lm_head=quant["lm_head"]), cfg, device="cpu")
+    fp_kernels = dict(int8, feat_projection=dict(int8["feat_projection"], kernel=params["feat_projection"]["kernel"]))
+    with pytest.raises(ValueError, match="feat_projection"):
+        wav2vec2_from_jax(fp_kernels, cfg, device="cpu")
+    assert wav2vec2_from_jax(int8, cfg, device="cpu").quantized

@@ -16,9 +16,10 @@ uploads go through pinned memory) and keeps at most ``WHISPERX_ALIGN_INFLIGHT``
 packs pending; ``AlignJob.finish()`` fetches them and aggregates on the host.
 
 ``load_align_model`` reads a local HF wav2vec2-CTC checkpoint
-(``models/convert.py:load_wav2vec2``). Not ported: the ``mesh`` of
-``AlignModel``/``shard_align_model`` (multi-device) and the int8 wav2vec2
-(``compute_type="int8"`` raises); both are ROADMAP.md queue 1, item 9.
+(``models/convert.py:load_wav2vec2``); ``compute_type="int8"`` quantizes it
+weight-only (``models/wav2vec2.py:quantize_wav2vec2``). Not ported: the
+``mesh`` of ``AlignModel``/``shard_align_model`` (multi-device), ROADMAP.md
+queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -78,21 +79,20 @@ def load_align_model(
     ``model_name`` may be a local HF checkpoint directory (offline), an HF hub
     id (resolved through the local cache), or a torchaudio bundle name
     (mapped to its HF twin). The compute dtype is bf16 on the card and fp32
-    on the CPU; ``compute_type="int8"`` (the JAX package's int8 wav2vec2)
-    raises. ``device=None`` means the card. Returns (AlignModel,
-    {"language", "dictionary", "type"}).
+    on the CPU; ``compute_type="int8"`` weight-only quantizes the wav2vec2
+    transformer (the emissions head stays fp, see ``quantize_wav2vec2``).
+    ``device=None`` means the card. Returns (AlignModel, {"language",
+    "dictionary", "type"}).
     """
-    if compute_type == "int8":
-        raise NotImplementedError(
-            "compute_type='int8' (quantize_wav2vec2) is not ported: it comes "
-            "with the multi-device and int4 slice (ROADMAP.md queue 1, item 9)"
-        )
     from ..models.convert import load_wav2vec2
+    from ..models.wav2vec2 import quantize_wav2vec2
 
     if model_name is None:
         model_name = default_align_model(language_code)
     model_name = TORCH_BUNDLE_TO_HF.get(model_name, model_name)
     model, dictionary = load_wav2vec2(model_name, cache_dir=model_dir, device=resolve_device(device))
+    if compute_type == "int8":
+        model = quantize_wav2vec2(model)
     align_model = AlignModel(
         model=model,
         dictionary={c.lower(): i for c, i in dictionary.items()},

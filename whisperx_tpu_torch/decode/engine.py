@@ -1,8 +1,8 @@
 """Decode engine: binds the port's Whisper model to the search loops.
 
 Port of ``whisperx_tpu/decode/engine.py``: mel features → encoder →
-cross-KV precompute (optionally int8, optionally in the kernel's flat
-layout) → prompt ingestion (with the no-speech probability at SOT) →
+cross-KV precompute (optionally int8 or int4, optionally in the kernel's
+flat layout) → prompt ingestion (with the no-speech probability at SOT) →
 greedy or beam token loop. The JAX package jit-compiles each of these as one
 program; here they run eagerly on the model's device. The weights live in
 the model, so no call takes a parameter tree.
@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.whisper import Whisper, flat_cross_kv, quantize_kv
+from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
 from .search import SearchOptions, beam_decode, greedy_decode
 from .tokenizer import WhisperTokenizer
 
@@ -63,7 +63,8 @@ class DecodeResult:
         return self.sum_logprobs / np.maximum(self.lengths, 1)
 
 
-_KV_DTYPES = ("model", "int8")
+# kv_cache_dtype → the width of the quantized self cache and cross K/V (0: the model's dtype).
+_KV_BITS = {"model": 0, "int8": 8, "int4": 4}
 
 
 class WhisperEngine:
@@ -95,19 +96,17 @@ class WhisperEngine:
         return "xla" if pref == "auto" else pref
 
     @staticmethod
-    def _kv_int8(opts: SearchOptions) -> bool:
-        if opts.kv_cache_dtype not in _KV_DTYPES:
-            raise NotImplementedError(
-                f"kv_cache_dtype={opts.kv_cache_dtype!r} is not ported: expected one of {_KV_DTYPES}"
-            )
-        return opts.kv_cache_dtype == "int8"
+    def _kv_bits(opts: SearchOptions) -> int:
+        if opts.kv_cache_dtype not in _KV_BITS:
+            raise ValueError(f"kv_cache_dtype={opts.kv_cache_dtype!r}: expected one of {tuple(_KV_BITS)}")
+        return _KV_BITS[opts.kv_cache_dtype]
 
     def _prompt_cache(
         self,
         audio_states: torch.Tensor,
         prompt_tokens: torch.Tensor,
         cache_len: int = 0,
-        kv_int8: bool = False,
+        kv_bits: int = 0,
         cross_impl: str = "xla",
     ):
         """Run the prompt through the decoder.
@@ -116,13 +115,15 @@ class WhisperEngine:
         no_speech_prob is softmax(logits at the SOT position)[<|nospeech|>].
         """
         B = audio_states.shape[0]
-        cache_dtype = torch.int8 if kv_int8 else None
+        cache_dtype = {8: torch.int8, 4: PACKED_INT4}.get(kv_bits)
         cache = self.model.empty_cache(B, cache_dtype=cache_dtype, cache_len=cache_len)
         cross = self.model.compute_cross_kv(audio_states)
         if cross_impl == "pallas":
-            cross = [flat_cross_kv(k, v, kv_int8) for (k, v) in cross]
-        elif kv_int8:
-            cross = [(*quantize_kv(k), *quantize_kv(v)) for (k, v) in cross]
+            # The kernel reads int8 K/V: an int4 request gets int8 cross K/V
+            # while its self cache stays int4, as in the JAX package.
+            cross = [flat_cross_kv(k, v, kv_bits in (4, 8)) for (k, v) in cross]
+        elif kv_bits:
+            cross = [(*store_kv(k, kv_bits), *store_kv(v, kv_bits)) for (k, v) in cross]
         cache["cross"] = cross
         logits, cache = self.model.decode_step(prompt_tokens, cache, 0)
         layout = self.tokenizer.layout
@@ -156,7 +157,7 @@ class WhisperEngine:
             audio_states,
             prompt_tokens,
             self._cache_len(prompt_tokens.shape[1], opts),
-            kv_int8=self._kv_int8(opts),
+            kv_bits=self._kv_bits(opts),
             cross_impl=self._cross_impl(opts),
         )
         tokens, sum_lp, lengths = greedy_decode(
@@ -174,7 +175,7 @@ class WhisperEngine:
             audio_states,
             prompt_tokens,
             self._cache_len(prompt_tokens.shape[1], opts),
-            kv_int8=self._kv_int8(opts),
+            kv_bits=self._kv_bits(opts),
             cross_impl=self._cross_impl(opts),
         )
         # Replicate only the prompt-filled self cache per beam: (B, ...) →

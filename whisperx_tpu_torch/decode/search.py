@@ -42,8 +42,8 @@ class SearchOptions:
     eot: int = 50257
     # Tokens that may never be produced (timestamps in no-timestamp mode etc.)
     banned_tokens: tuple[int, ...] = ()
-    # "model" keeps KV in the model compute dtype; "int8" quantizes the self
-    # cache and cross K/V per (token, head).
+    # "model" keeps KV in the model compute dtype; "int8" and "int4" quantize
+    # the self cache and cross K/V per (token, head) (int4 packed along Dh).
     kv_cache_dtype: str = "model"
     # Decode cross attention: "auto"/"xla" → the einsum path; "pallas" → the
     # fused kernel (ops/cross_attn.py). WHISPERX_CROSS_ATTN overrides.

@@ -17,15 +17,17 @@ The tree is the nested dict ``whisperx_tpu`` keeps, given as numpy arrays.
 PyanNet and ResNet34 trees map explicitly (:func:`pyannet_from_jax`,
 :func:`resnet34_from_jax`); Whisper and wav2vec2 trees by name, below.
 For Whisper (``{"encoder": {...}, "decoder": {...}}`` with ``layers_<i>``
-subtrees) it may be fp, int8-quantized
+subtrees) it may be fp, int8- or int4-quantized
 (:func:`..models.whisper.quantize_params`) and/or fused-QKV
 (:func:`..models.whisper.fuse_qkv_params`); for wav2vec2 it is the Flax
-``Wav2Vec2ForCTC`` tree. The port's modules then compute the same function
+``Wav2Vec2ForCTC`` tree, fp or int8
+(:func:`..models.wav2vec2.quantize_wav2vec2_params`). The port's modules then compute the same function
 as the JAX modules with those parameters.
 
 Layout changes, leaf by leaf:
 - Conv kernels: Flax stores (W, I, O); the port stores torch's (O, I, W).
-- Dense kernels keep (K, N) = (in, out): the layout the int8 kernel reads.
+- Dense kernels keep (K, N) = (in, out): the layout the int8 kernel reads;
+  int4 ones are packed two to a byte along K, (K / 2, N).
 - Everything else (embeddings, scales, biases, LayerNorms) is copied as is.
 """
 
@@ -46,7 +48,7 @@ from ..diarize.embed import ResNet34Embedding
 from .configs import Wav2Vec2Config, WhisperConfig
 from .vad_net import PyanNetVAD
 from .wav2vec2 import Wav2Vec2ForCTC
-from .whisper import Whisper
+from .whisper import PACKED_INT4, Whisper, pack_int4, unpack_int4
 
 # ---------------------------------------------------------------------------
 # checkpoint file plumbing
@@ -602,6 +604,12 @@ def _has_key(tree, key: str) -> bool:
     return isinstance(tree, dict) and any(k == key or _has_key(c, key) for k, c in tree.items())
 
 
+def _is_int4(leaf) -> bool:
+    """An int4 leaf of a JAX tree (``np.asarray`` of a ``jnp.int4`` array
+    gives ml_dtypes' int4), read by its dtype's name."""
+    return getattr(getattr(leaf, "dtype", None), "name", "") == "int4"
+
+
 def torch_name(path: tuple) -> str:
     """JAX tree path → the port's parameter name (``layers_3`` → ``layers.3``)."""
     return re.sub(r"\blayers_(\d+)\b", r"layers.\1", ".".join(path))
@@ -610,7 +618,9 @@ def torch_name(path: tuple) -> str:
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     """Copy every leaf of ``params`` into ``model``; raises on a missing,
-    extra or mis-shaped leaf."""
+    extra or mis-shaped leaf. int4 kernels (int4 leaves, or int8 ones of
+    values in [-8, 7]) are packed into the model's :data:`PACKED_INT4`
+    kernels, on the model's device."""
     named = dict(model.named_parameters())
     seen = set()
     for path, leaf in _flatten(params):
@@ -618,10 +628,16 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
         if name not in named:
             raise KeyError(f"parameter {'/'.join(path)} has no counterpart {name!r} in the port")
         arr = np.asarray(leaf)
+        if _is_int4(arr):
+            arr = arr.astype(np.int8)
         if path[-1] == "kernel" and arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)  # Flax conv (W, I, O) → torch (O, I, W)
         dst = named[name]
         src = torch.from_numpy(np.array(arr))  # a writable contiguous copy
+        if dst.dtype == PACKED_INT4 and src.dtype == torch.int8 and src.ndim == 2 and src.shape[0] % 2 == 0:
+            if arr.size and (arr.min() < -8 or arr.max() > 7):
+                raise ValueError(f"{name}: int4 kernel values outside [-8, 7] (an int8 tree under quant_bits=4?)")
+            src = pack_int4(src.to(dst.device), dim=0)
         if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
             raise ValueError(
                 f"{name}: tree leaf {tuple(src.shape)} {src.dtype} does not fit "
@@ -644,11 +660,14 @@ def jax_path(name: str) -> list[str]:
 def whisper_to_jax(model: nn.Module) -> dict:
     """The model's parameters as a numpy tree in the JAX package's layout:
     the inverse of :func:`load_jax_params` (conv kernels back to Flax's
-    (W, I, O)), so that trained weights leave the port as the JAX package
-    holds them (``utils/checkpoint.py:save_params`` writes such a tree)."""
+    (W, I, O); packed int4 kernels unpacked to int8 arrays of their values,
+    which ``whisper_from_jax(..., quant_bits=4)`` reads back), so that
+    trained weights leave the port as the JAX package holds them
+    (``utils/checkpoint.py:save_params`` writes such a tree)."""
     tree: dict = {}
     for name, p in model.named_parameters():
-        arr = p.detach().cpu().numpy()
+        p = p.detach()
+        arr = (unpack_int4(p, dim=0) if p.dtype == PACKED_INT4 else p).cpu().numpy()
         path = jax_path(name)
         if path[-1] == "kernel" and arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)  # torch conv (O, I, W) → Flax (W, I, O)
@@ -665,18 +684,27 @@ def whisper_from_jax(
     *,
     dtype: torch.dtype = torch.float32,
     attn_impl: str = "auto",
+    quant_bits: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Whisper:
     """A port ``Whisper`` holding ``params`` (numpy tree, JAX layout).
 
-    Quantization (per stack) and QKV fusion are read off the tree.
-    ``device=None`` means the card.
+    Quantization (per stack) and QKV fusion are read off the tree, and so is
+    the width with ``quant_bits=None``: 4 if a leaf is int4 (a JAX int4 tree
+    through ``np.asarray``), else 8. ``quant_bits=4`` reads int8-valued int4
+    kernels (``quantize_params(..., bits=4)``). ``device=None`` means the
+    card.
     """
     q_enc = _has_key(params["encoder"], "kernel_scale")
     q_dec = _has_key(params["decoder"], "kernel_scale")
     quantized = (q_enc and q_dec) or ("encoder" if q_enc else "decoder" if q_dec else False)
     fused = _has_key(params, "qkv")
-    model = Whisper(config, dtype=dtype, quantized=quantized, fused_qkv=fused, attn_impl=attn_impl, device=device)
+    if quant_bits is None:
+        quant_bits = 4 if any(_is_int4(leaf) for _, leaf in _flatten(params)) else 8
+    model = Whisper(
+        config, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused, attn_impl=attn_impl,
+        device=device,
+    )
     return load_jax_params(model, params)
 
 
@@ -689,11 +717,11 @@ def wav2vec2_from_jax(
     device: DeviceLike = None,
 ) -> Wav2Vec2ForCTC:
     """A port ``Wav2Vec2ForCTC`` holding ``params`` (numpy tree, the Flax
-    layout of ``whisperx_tpu/models/wav2vec2.py``; fp only: the int8
-    variant is not ported). ``device=None`` means the card."""
-    if _has_key(params, "kernel_scale"):
-        raise NotImplementedError("int8 wav2vec2 trees (quantize_wav2vec2) are not ported")
-    model = Wav2Vec2ForCTC(config, dtype=dtype, attn_impl=attn_impl, device=device)
+    layout of ``whisperx_tpu/models/wav2vec2.py``): the int8 model when the
+    tree holds ``kernel_scale`` leaves (``quantize_wav2vec2``'s tree), the
+    fp one otherwise. ``device=None`` means the card."""
+    quantized = _has_key(params, "kernel_scale")
+    model = Wav2Vec2ForCTC(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
     return load_jax_params(model, params)
 
 

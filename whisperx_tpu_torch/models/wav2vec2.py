@@ -9,7 +9,9 @@ so ``models/convert.py:wav2vec2_from_jax`` maps one onto the other leaf by
 leaf. All parameters are inference-only.
 
 Numerics follow the Flax module: ``dtype`` is the compute type, parameters
-stay fp32 and are cast where Flax casts them, the norms run in fp32, the CTC
+stay fp32 (or int8 with per-channel scales in the transformer's projections
+of the ``quantized`` model, :func:`quantize_wav2vec2`) and are cast where
+Flax casts them, the norms run in fp32, the CTC
 logits come out in fp32. Batches carry ``sample_lengths``: padded samples are
 zeroed, the GroupNorm of base models runs over all frames (padded ones too,
 as Flax's does), and padded frames are excluded as attention keys.
@@ -18,8 +20,11 @@ Differences in mechanism, not in value:
 - Convolutions run as ``unfold`` + ``matmul`` (``models/whisper.py:Conv``).
 - The feature extractor ports the ``"conv"`` semantics of ``StridedConv1D``.
   Its ``"matmul"``/``"s2d"`` arms and ``WHISPERX_CONV_IMPL`` were TPU A/B
-  probes of the same function and are not ported; nor is the int8 variant
-  (``quantize_wav2vec2``).
+  probes of the same function and are not ported.
+- The int8 model's projections are ``models/whisper.py:Dense``: those of at
+  most 256 rows with both widths multiples of 128 (short alignment batches)
+  go through ``ops/int8_mm.py``, as they go through the Pallas kernel in the
+  JAX package.
 """
 
 from __future__ import annotations
@@ -101,13 +106,13 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class W2VAttention(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, attn_impl: str = "auto", device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str = "auto", device):
         super().__init__()
         d = config.hidden_size
         self.num_heads = config.num_heads
         # ops/attention.py:fused_self_attention's impl ("auto" | "xla" | "flash").
         self.attn_impl = attn_impl
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, device=device)
         self.q_proj = Dense(d, d, **kw)
         self.k_proj = Dense(d, d, **kw)
         self.v_proj = Dense(d, d, **kw)
@@ -126,23 +131,24 @@ class W2VAttention(nn.Module):
 
 
 class W2VFeedForward(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, device):
         super().__init__()
-        self.intermediate = Dense(config.hidden_size, config.intermediate_size, dtype=dtype, device=device)
-        self.output = Dense(config.intermediate_size, config.hidden_size, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, device=device)
+        self.intermediate = Dense(config.hidden_size, config.intermediate_size, **kw)
+        self.output = Dense(config.intermediate_size, config.hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.output(F.gelu(self.intermediate(x)))
 
 
 class W2VEncoderLayer(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, attn_impl: str, device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str, device):
         super().__init__()
         self.config, self.dtype = config, dtype
         eps = config.layer_norm_eps
-        self.attention = W2VAttention(config, dtype=dtype, attn_impl=attn_impl, device=device)
+        self.attention = W2VAttention(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
         self.layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
-        self.feed_forward = W2VFeedForward(config, dtype=dtype, device=device)
+        self.feed_forward = W2VFeedForward(config, dtype=dtype, quantized=quantized, device=device)
         self.final_layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -159,8 +165,10 @@ class Wav2Vec2ForCTC(nn.Module):
     """Full CTC model: conv features → projection → transformer → vocab logits.
 
     ``attn_impl`` selects the encoder attention ("auto" | "xla" | "flash";
-    ``ops.attention.set_attn_impl`` changes it later). ``device=None`` means
-    the card.
+    ``ops.attention.set_attn_impl`` changes it later). ``quantized``: int8
+    weight-only projections in the transformer and ``feat_projection``
+    (the convolutions and the ``lm_head`` emissions projection stay fp).
+    ``device=None`` means the card.
     """
 
     def __init__(
@@ -168,21 +176,23 @@ class Wav2Vec2ForCTC(nn.Module):
         config: Wav2Vec2Config,
         *,
         dtype: torch.dtype = torch.float32,
+        quantized: bool = False,
         attn_impl: str = "auto",
         device: DeviceLike = None,
     ):
         super().__init__()
         device = resolve_device(device)
         cfg = config
-        self.config, self.dtype = cfg, dtype
+        self.config, self.dtype, self.quantized = cfg, dtype, quantized
         eps = cfg.layer_norm_eps
         self.feature_extractor = ConvFeatureExtractor(cfg, dtype=dtype, device=device)
         self.feat_layer_norm = LayerNorm(cfg.conv_layers[-1][0], device, eps=eps)
-        self.feat_projection = Dense(cfg.conv_layers[-1][0], cfg.hidden_size, dtype=dtype, device=device)
+        self.feat_projection = Dense(cfg.conv_layers[-1][0], cfg.hidden_size, dtype=dtype, quantized=quantized, device=device)
         self.pos_conv_embed = ConvPositionalEmbedding(cfg, dtype=dtype, device=device)
         self.encoder_layer_norm = LayerNorm(cfg.hidden_size, device, eps=eps)
         self.layers = nn.ModuleList(
-            W2VEncoderLayer(cfg, dtype=dtype, attn_impl=attn_impl, device=device) for _ in range(cfg.num_layers)
+            W2VEncoderLayer(cfg, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
+            for _ in range(cfg.num_layers)
         )
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=dtype, device=device)
 
@@ -289,3 +299,26 @@ def random_params(config: Wav2Vec2Config, seed: int = 0) -> dict:
         return out
 
     return walk(param_shapes(config))
+
+
+def quantize_wav2vec2_params(params: dict) -> dict:
+    """Host-side tree transform of ``whisperx_tpu/models/wav2vec2.py:
+    quantize_wav2vec2``: every rank-2 kernel becomes symmetric
+    per-output-channel int8 (``models/whisper.py:quantize_params``, no
+    embedding table); the conv kernels (rank 3) and ``lm_head`` stay fp."""
+    from .whisper import quantize_params
+
+    qparams = quantize_params(params, embedding_keys=())
+    qparams["lm_head"] = params["lm_head"]  # the emissions head stays fp
+    return qparams
+
+
+def quantize_wav2vec2(model: Wav2Vec2ForCTC) -> Wav2Vec2ForCTC:
+    """fp model → the int8 weight-only model on the same device, with the
+    same compute dtype and attention impl (its tree through
+    :func:`quantize_wav2vec2_params`)."""
+    from .convert import wav2vec2_from_jax, whisper_to_jax  # convert imports this module
+
+    params = quantize_wav2vec2_params(whisper_to_jax(model))
+    impl = model.layers[0].attention.attn_impl
+    return wav2vec2_from_jax(params, model.config, dtype=model.dtype, attn_impl=impl, device=model.device)

@@ -24,8 +24,13 @@ Differences in mechanism, not in value:
   kernel on CUDA tensors; decode-step cross attention over ``FlatCrossKV``
   goes through ``ops/cross_attn.py``; the encoder's self-attention through
   ``ops/attention.py:fused_self_attention`` with the module's ``attn_impl``
-  ("flash" launches ``ops/flash_attn.py``'s kernel). The int4 weight and
-  cache modes of the JAX package are not ported.
+  ("flash" launches ``ops/flash_attn.py``'s kernel).
+- int4 values (``Dense(quant_bits=4)`` kernels, the int4 KV cache and cross
+  K/V) are stored packed two to a byte (:data:`PACKED_INT4`, see
+  :func:`pack_int4`): torch has no int4 type. They are unpacked where the JAX
+  code casts its int4 arrays, and the products then run on the same values.
+  int4 projections never go through ``ops/int8_mm.py``: the JAX package
+  computes them with an XLA ``dot``.
 """
 
 from __future__ import annotations
@@ -49,16 +54,46 @@ NEG_MASK = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
 Cache = dict
 
 
-def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-(token, head) symmetric int8 quantization of K/V tensors.
+# Storage type of int4 values: two signed nibbles a byte. A uint8 buffer is
+# always packed int4, so a cache or a kernel says its own width.
+PACKED_INT4 = torch.uint8
 
-    Returns (int8 values, fp32 scales with a trailing singleton dim), as
-    ``whisperx_tpu/models/whisper.py:quantize_kv`` with ``bits=8``.
+
+def pack_int4(q: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """int8 values in [-8, 7] → :data:`PACKED_INT4`, two to a byte along
+    ``dim`` (of even length): element 2i in the low nibble, 2i + 1 in the
+    high one."""
+    u = q.movedim(dim, -1).contiguous().view(torch.uint8)
+    p = (u[..., 0::2] & 0xF) | (u[..., 1::2] << 4)
+    return p.movedim(-1, dim).contiguous()
+
+
+def unpack_int4(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: int8 values, ``dim`` twice as long.
+    Arithmetic shifts of the int8 byte sign-extend both nibbles."""
+    s = p.view(torch.int8)
+    d = dim % p.dim()
+    return torch.stack([(s << 4) >> 4, s >> 4], dim=d + 1).flatten(d, d + 1)
+
+
+def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8/int4 quantization of K/V tensors.
+
+    Returns (int8 values, in [-7, 7] for ``bits=4``; fp32 scales with a
+    trailing singleton dim), as ``whisperx_tpu/models/whisper.py:quantize_kv``.
     """
+    qmax = 7.0 if bits == 4 else 127.0
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
-    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-8)), -127.0, 127.0)
+    scale = xf.abs().amax(dim=-1, keepdim=True) / qmax
+    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-8)), -qmax, qmax)
     return q.to(torch.int8), scale
+
+
+def store_kv(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_kv` with the values as a cache holds them: int8, or
+    int4 packed along Dh."""
+    q, scale = quantize_kv(x, bits)
+    return (pack_int4(q) if bits == 4 else q), scale
 
 
 class FlatCrossKV(NamedTuple):
@@ -105,10 +140,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Projection with an optional int8 weight-only mode.
+    """Projection with an optional int8 or int4 weight-only mode.
 
     ``kernel`` is (in_features, features), the layout the int8 kernel reads;
-    quantized modules add a per-output-channel fp32 ``kernel_scale``.
+    with ``quant_bits=4`` it is (in_features / 2, features) of
+    :data:`PACKED_INT4`, packed along in_features. Quantized modules add a
+    per-output-channel fp32 ``kernel_scale``.
     """
 
     def __init__(
@@ -119,22 +156,28 @@ class Dense(nn.Module):
         use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
         quantized: bool = False,
+        quant_bits: int = 8,
         device: DeviceLike,
     ):
         super().__init__()
+        if quant_bits not in (8, 4):
+            raise ValueError(f"quant_bits={quant_bits}: expected 8 or 4")
         self.in_features = in_features
         self.features = features
         self.dtype = dtype
         self.quantized = quantized
-        kdt = torch.int8 if quantized else torch.float32
-        self.kernel = _param((in_features, features), kdt, device)
+        self.quant_bits = quant_bits
+        if quantized and quant_bits == 4:
+            self.kernel = _param((in_features // 2, features), PACKED_INT4, device)
+        else:
+            self.kernel = _param((in_features, features), torch.int8 if quantized else torch.float32, device)
         if quantized:
             self.kernel_scale = _param((features,), torch.float32, device)
         self.bias = _param((features,), torch.float32, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quantized:
-            if use_int8_kernel(x, self.features):
+            if self.quant_bits == 8 and use_int8_kernel(x, self.features):
                 lead = x.shape[:-1]
                 y = int8_matmul(
                     x.reshape(-1, self.in_features),
@@ -144,7 +187,8 @@ class Dense(nn.Module):
                     out_dtype=self.dtype,
                 )
                 return y.reshape(*lead, self.features)
-            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+            w = unpack_int4(self.kernel, dim=0) if self.quant_bits == 4 else self.kernel
+            y = torch.matmul(x.to(self.dtype), w.to(self.dtype))
             y = y * self.kernel_scale.to(self.dtype)
         else:
             y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
@@ -207,6 +251,7 @@ class MultiHeadAttention(nn.Module):
         *,
         dtype: torch.dtype,
         quantized: bool,
+        quant_bits: int = 8,
         fused_qkv: bool = False,
         attn_impl: str = "auto",
         device: DeviceLike,
@@ -219,7 +264,7 @@ class MultiHeadAttention(nn.Module):
         self.fused_qkv = fused_qkv
         # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it.
         self.attn_impl = attn_impl
-        kw = dict(dtype=dtype, quantized=quantized, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
         if fused_qkv:
             self.qkv = Dense(d_model, 3 * d_model, **kw)
         else:
@@ -266,13 +311,13 @@ class MultiHeadAttention(nn.Module):
             out = out.to(self.dtype).reshape(x.shape[0], Tq, self.d_model)
             return self.out(out), None
 
-        # int8 K/V carry per-(token, head) scales that commute with both
+        # int8/int4 K/V carry per-(token, head) scales that commute with both
         # contractions, so they scale the logits and the weights instead of
         # dequantizing the cache.
         ks = vs = None
         if precomputed_kv is not None:
             q = self._split(self.query(x)) * scale
-            if len(precomputed_kv) == 4:  # int8 cross KV: (k, k_scale, v, v_scale)
+            if len(precomputed_kv) == 4:  # int8/int4 cross KV: (k, k_scale, v, v_scale)
                 k, ks, v, vs = precomputed_kv
             else:
                 k, v = precomputed_kv
@@ -289,9 +334,10 @@ class MultiHeadAttention(nn.Module):
         new_cache = None
         if cache is not None:
             at = slice(cache_index, cache_index + x.shape[1])
-            if cache["k"].dtype == torch.int8:
-                qk, kss = quantize_kv(k)
-                qv, vss = quantize_kv(v)
+            if cache["k"].dtype in (torch.int8, PACKED_INT4):
+                bits = 4 if cache["k"].dtype == PACKED_INT4 else 8
+                qk, kss = store_kv(k, bits)
+                qv, vss = store_kv(v, bits)
                 cache["k"][:, at] = qk
                 cache["v"][:, at] = qv
                 cache["k_scale"][:, at] = kss
@@ -302,6 +348,8 @@ class MultiHeadAttention(nn.Module):
                 cache["v"][:, at] = v.to(cache["v"].dtype)
             new_cache = cache
             k, v = cache["k"], cache["v"]
+        if k.dtype == PACKED_INT4:  # int4 cache or cross K/V: unpacked once per use
+            k, v = unpack_int4(k), unpack_int4(v)
 
         # Beam grouping: cross K/V are shared by the beams of one batch
         # element; fold the beams into the query-time axis.
@@ -325,26 +373,25 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, d_model: int, *, dtype, quantized, device):
+    def __init__(self, d_model: int, *, dtype, quantized, quant_bits=8, device):
         super().__init__()
-        self.fc1 = Dense(d_model, 4 * d_model, dtype=dtype, quantized=quantized, device=device)
-        self.fc2 = Dense(4 * d_model, d_model, dtype=dtype, quantized=quantized, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
+        self.fc1 = Dense(d_model, 4 * d_model, **kw)
+        self.fc2 = Dense(4 * d_model, d_model, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, attn_impl, device):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl, device):
         super().__init__()
         self.dtype = dtype
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
         self.attn_ln = LayerNorm(d_model, device)
-        self.attn = MultiHeadAttention(
-            d_model, n_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, attn_impl=attn_impl,
-            device=device,
-        )
+        self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, attn_impl=attn_impl, **kw)
         self.mlp_ln = LayerNorm(d_model, device)
-        self.mlp = MLP(d_model, dtype=dtype, quantized=quantized, device=device)
+        self.mlp = MLP(d_model, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, _ = self.attn(self.attn_ln(x).to(self.dtype))
@@ -353,7 +400,7 @@ class EncoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, attn_impl="auto", device):
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl="auto", device):
         super().__init__()
         cfg = config
         self.dtype = dtype
@@ -362,7 +409,7 @@ class AudioEncoder(nn.Module):
         self.conv2 = Conv(D, D, 3, 2, padding=1, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             EncoderBlock(
-                D, cfg.n_audio_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv,
+                D, cfg.n_audio_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
                 attn_impl=attn_impl, device=device,
             )
             for _ in range(cfg.n_audio_layer)
@@ -382,10 +429,10 @@ class AudioEncoder(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, fused_qkv, device):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, device):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, quantized=quantized, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
         self.attn_ln = LayerNorm(d_model, device)
         self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, **kw)
         self.cross_attn_ln = LayerNorm(d_model, device)
@@ -407,15 +454,15 @@ class DecoderBlock(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, config: WhisperConfig, *, dtype, quantized, fused_qkv, device):
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, device):
         super().__init__()
         cfg = config
         self.dtype = dtype
         self.quantized = quantized
         D = cfg.n_text_state
         if quantized:
-            # Per-row int8 embedding table; the row scales commute with the
-            # tied logits product.
+            # Per-row int8 embedding table (int4 models too); the row scales
+            # commute with the tied logits product.
             self.token_embedding = _param((cfg.n_vocab, D), torch.int8, device)
             self.token_embedding_scale = _param((cfg.n_vocab,), torch.float32, device)
         else:
@@ -423,7 +470,8 @@ class TextDecoder(nn.Module):
         self.positional_embedding = _param((cfg.n_text_ctx, D), torch.float32, device)
         self.layers = nn.ModuleList(
             DecoderBlock(
-                D, cfg.n_text_head, dtype=dtype, quantized=quantized, fused_qkv=fused_qkv, device=device
+                D, cfg.n_text_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
+                device=device,
             )
             for _ in range(cfg.n_text_layer)
         )
@@ -475,7 +523,8 @@ class TextDecoder(nn.Module):
 class Whisper(nn.Module):
     """Encoder + decoder under one parameter tree.
 
-    ``quantized``: False | True (both stacks) | "decoder" | "encoder".
+    ``quantized``: False | True (both stacks) | "decoder" | "encoder";
+    ``quant_bits``: 8 or 4, the quantized projections' width.
     ``fused_qkv``: one (D, 3D) projection for every self-attention block;
     pair with :func:`fuse_qkv_params`. ``attn_impl``: the encoder's
     self-attention path ("auto" | "xla" | "flash"; ``ops.attention.
@@ -488,6 +537,7 @@ class Whisper(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         quantized: Union[bool, str] = False,
+        quant_bits: int = 8,
         fused_qkv: bool = False,
         attn_impl: str = "auto",
         device: DeviceLike = None,
@@ -497,13 +547,13 @@ class Whisper(nn.Module):
         self.config = config
         self.dtype = dtype
         self.quantized = quantized
+        self.quant_bits = quant_bits
         self.fused_qkv = fused_qkv
         q_enc = quantized is True or quantized == "encoder"
         q_dec = quantized is True or quantized == "decoder"
-        self.encoder = AudioEncoder(
-            config, dtype=dtype, quantized=q_enc, fused_qkv=fused_qkv, attn_impl=attn_impl, device=device
-        )
-        self.decoder = TextDecoder(config, dtype=dtype, quantized=q_dec, fused_qkv=fused_qkv, device=device)
+        kw = dict(dtype=dtype, quant_bits=quant_bits, fused_qkv=fused_qkv, device=device)
+        self.encoder = AudioEncoder(config, quantized=q_enc, attn_impl=attn_impl, **kw)
+        self.decoder = TextDecoder(config, quantized=q_dec, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -541,21 +591,23 @@ class Whisper(nn.Module):
         self, batch: int, cache_dtype: Optional[torch.dtype] = None, cache_len: int = 0
     ) -> Cache:
         """Zeroed self-attention cache: a per-layer list of (B, T, H, Dh)
-        buffer dicts (int8 adds per-token scale planes (B, T, H, 1)).
+        buffer dicts. ``cache_dtype`` int8 or :data:`PACKED_INT4` ((B, T, H,
+        Dh / 2), packed along Dh) adds per-token scale planes (B, T, H, 1).
         ``cache_len`` trims T below n_text_ctx; "cross" is filled by the
         engine."""
         cfg = self.config
         dt = cache_dtype or self.dtype
         head_dim = cfg.n_text_state // cfg.n_text_head
         shape = (batch, cache_len or cfg.n_text_ctx, cfg.n_text_head, head_dim)
+        vshape = shape[:-1] + (head_dim // 2,) if dt == PACKED_INT4 else shape
         dev = self.device
 
         def one_layer():
             layer = {
-                "k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "k": torch.zeros(vshape, dtype=dt, device=dev),
+                "v": torch.zeros(vshape, dtype=dt, device=dev),
             }
-            if dt == torch.int8:
+            if dt in (torch.int8, PACKED_INT4):
                 sshape = shape[:-1] + (1,)
                 layer["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
                 layer["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
@@ -650,19 +702,24 @@ def random_params(config: WhisperConfig, seed: int = 0, scale: float = 0.02) -> 
     return walk(param_shapes(config))
 
 
-def quantize_params(params: dict, *, embedding_keys: tuple[str, ...] = ("token_embedding",), scope: str = "all") -> dict:
-    """Host-side tree transform: fp kernels → (int8 kernel, kernel_scale).
+def quantize_params(
+    params: dict, *, embedding_keys: tuple[str, ...] = ("token_embedding",), scope: str = "all", bits: int = 8
+) -> dict:
+    """Host-side tree transform: fp kernels → (int kernel, kernel_scale).
 
-    Port of ``whisperx_tpu/models/whisper.py:quantize_params`` (int8 only).
-    Every rank-2 "kernel" leaf becomes symmetric per-output-channel int8;
-    conv kernels (rank 3) stay fp; token embeddings become per-row int8.
-    ``scope``: "all" or one top-level subtree name ("decoder"/"encoder").
+    Port of ``whisperx_tpu/models/whisper.py:quantize_params``. Every rank-2
+    "kernel" leaf becomes symmetric per-output-channel int8, or int4 with
+    ``bits=4`` (int8 arrays of values in [-7, 7], where the JAX tree holds
+    int4 ones: ``load_jax_params`` packs them); conv kernels (rank 3) stay
+    fp; token embeddings become per-row int8 at either width. ``scope``:
+    "all" or one top-level subtree name ("decoder"/"encoder").
     """
     if scope != "all":
         return {
-            name: quantize_params(child, embedding_keys=embedding_keys) if name == scope else child
+            name: quantize_params(child, embedding_keys=embedding_keys, bits=bits) if name == scope else child
             for name, child in params.items()
         }
+    qmax = 7 if bits == 4 else 127
 
     def walk(node):
         out = {}
@@ -673,8 +730,8 @@ def quantize_params(params: dict, *, embedding_keys: tuple[str, ...] = ("token_e
             arr = np.asarray(child)
             if name == "kernel" and arr.ndim == 2:
                 arr = arr.astype(np.float32)
-                s = np.maximum(np.max(np.abs(arr), axis=0) / 127, 1e-12)
-                out[name] = np.clip(np.round(arr / s), -127, 127).astype(np.int8)
+                s = np.maximum(np.max(np.abs(arr), axis=0) / qmax, 1e-12)
+                out[name] = np.clip(np.round(arr / s), -qmax, qmax).astype(np.int8)
                 out["kernel_scale"] = s.astype(np.float32)
             elif name in embedding_keys and arr.ndim == 2:
                 arr = arr.astype(np.float32)
@@ -691,10 +748,10 @@ def quantize_params(params: dict, *, embedding_keys: tuple[str, ...] = ("token_e
 def fuse_qkv_params(params: dict) -> dict:
     """Host-side tree transform: self-attention {query,key,value} → one qkv.
 
-    Port of ``whisperx_tpu/models/whisper.py:fuse_qkv_params``: kernels (and
-    kernel scales) concatenate along the output dim in q|k|v order; the key
-    projection has no bias, so its bias slot is zeros. Cross-attention
-    subtrees stay unfused.
+    Port of ``whisperx_tpu/models/whisper.py:fuse_qkv_params``: kernels (int8,
+    int8-valued int4 or fp) and kernel scales concatenate along the output
+    dim in q|k|v order; the key projection has no bias, so its bias slot is
+    zeros. Cross-attention subtrees stay unfused.
     """
 
     def fuse(attn: dict) -> dict:

@@ -13,9 +13,8 @@ PCM and turned into log-mel features on the device, and one batch is kept in
 flight while the host detokenizes the one before.
 
 Differences: the weights live in the model, so the pipeline takes no
-parameter tree; ``mesh`` (multi-device) is not ported and a ``device``
-argument takes its place; ``compute_type="int4"`` raises (both are
-ROADMAP.md queue 1, item 9).
+parameter tree; ``mesh`` (multi-device) is not ported (ROADMAP.md queue 1,
+item 9) and a ``device`` argument takes its place.
 """
 
 from __future__ import annotations
@@ -397,6 +396,7 @@ _COMPUTE_DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.bfloat16,  # fp16 requests map to bf16, as in the JAX package
     "int8": torch.bfloat16,
+    "int4": torch.bfloat16,
     "float32": torch.float32,
     "default": torch.bfloat16,
 }
@@ -426,7 +426,10 @@ def load_model(
     at a local HF checkpoint directory. ``compute_type`` maps to the compute
     dtype (bf16 by default, "float16" maps to bf16, "float32" is fp32);
     "int8" quantizes every projection weight-only (per output channel) on
-    top of bf16. ``device=None`` means the card (``cuda:<device_index>``);
+    top of bf16, and "int4" does so at 4 bits (kernels packed two to a
+    byte; the token embedding stays int8). ``kv_cache_dtype``: "auto" (int8
+    for int8 and int4 weights, the model's dtype otherwise), "model",
+    "int8" or "int4". ``device=None`` means the card (``cuda:<device_index>``);
     pass ``device="cpu"`` for the plain PyTorch versions. ``model`` and
     ``threads`` are accepted for reference API parity and unused, as in the
     JAX package.
@@ -434,11 +437,6 @@ def load_model(
     from ..models.convert import read_whisper, resolve_checkpoint_dir, whisper_from_jax
     from ..models.whisper import fuse_qkv_params, quantize_params
 
-    if compute_type == "int4":
-        raise NotImplementedError(
-            "compute_type='int4' is not ported: int4 weights come with the "
-            "multi-device and int4 slice (ROADMAP.md queue 1, item 9)"
-        )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", device_index)
@@ -466,15 +464,16 @@ def load_model(
         )
 
     params, config = read_whisper(path, dtype=dtype)
-    if compute_type == "int8":
-        # Weight-only int8 (per-output-channel scales): the analogue of the
-        # reference's CT2 compute_type="int8" (whisperx/asr.py:262,288).
-        params = quantize_params(params)
+    bits = 4 if compute_type == "int4" else 8
+    if compute_type in ("int8", "int4"):
+        # Weight-only int8/int4 (per-output-channel scales): the analogue of
+        # the reference's CT2 compute_type="int8" (whisperx/asr.py:262,288).
+        params = quantize_params(params, bits=bits)
     # Fuse q/k/v into one projection for the per-token decode path (the JAX
     # package's on-chip A/B winner); opt out with WHISPERX_FUSED_QKV=0.
     if os.environ.get("WHISPERX_FUSED_QKV", "1") != "0":
         params = fuse_qkv_params(params)
-    whisper_model = whisper_from_jax(params, config, dtype=dtype, device=dev)
+    whisper_model = whisper_from_jax(params, config, dtype=dtype, quant_bits=bits, device=dev)
     del params
     tokenizer_backend = WhisperTokenizer.from_pretrained(path, language=language, task=task)
     engine = WhisperEngine(whisper_model, tokenizer_backend)
@@ -505,7 +504,7 @@ def load_model(
     if kv_cache_dtype == "auto":
         # Quantized weights pair with the int8 KV cache (the JAX package's
         # flagship default); full-precision weights keep the model-dtype cache.
-        kv_cache_dtype = "int8" if compute_type == "int8" else "model"
+        kv_cache_dtype = "int8" if compute_type in ("int8", "int4") else "model"
     return WhisperPipeline(
         engine=engine,
         vad=vad_model,
