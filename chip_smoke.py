@@ -64,10 +64,23 @@ Phases:
      (EOT banned), then alignment of the chunks and of one 1 s batch (the
      int8 wav2vec2's projections through int8_matmul); arm (a) with the int8
      KV cache and the JAX package's defaults, arm (b) with the int4 KV
-     cache, the cross-attention kernel (int8 cross K/V) and flash attention.
-Phase 2 also holds int8_matmul at the int8 wav2vec2 base's shapes; phase 3
-also checks int4-weight and int4-KV decode tokens and the int8 wav2vec2's
-alignment, card against CPU.
+     cache, the cross-attention kernel (int8 cross K/V) and flash attention;
+ 10. (run after phase 9, on phase 7's files) drive parallel/ on the one card:
+     (a) a world of one over NCCL in this process: ``load_model(...,
+     compute_type="int8", mesh=make_mesh())`` transcribes phase 6's WAV,
+     ``shard_align_model`` aligns it and ``DiarizationPipeline(mesh=)``
+     diarizes it, equal to the same calls without a mesh; (b) two ranks
+     sharing the card over gloo, mesh (1, 2), each a process of this script
+     (``--parallel-rank``): large-v2 int8 with 10 heads a rank and unfused
+     QKV, the 8-chunk batch at beam 5 and 112 tokens (EOT banned) with every
+     kernel, then ``shard_align_model`` alignment (6 heads a rank) in the
+     default and the flash arm; both ranks equal, the first step's log-probs
+     near the whole model's on this card; (c) 128-wide fp32 Whisper and
+     wav2vec2 under that mesh equal to the CPU's single process.
+Phase 2 also holds int8_matmul at the int8 wav2vec2 base's shapes and at
+large-v2's tensor-parallel shard shapes, and cross-attention and flash at a
+rank's heads (10 and 6); phase 3 also checks int4-weight and int4-KV decode
+tokens and the int8 wav2vec2's alignment, card against CPU.
 Every kernel's launch count is zeroed just before each run of a path and
 read just after.
 
@@ -97,6 +110,10 @@ _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
 ALIGN_TEXT = " " + " ".join(_WORDS * 4)[:400]
 PIPELINE_MINUTES = 6.0  # 9 VAD chunks: two decode batches of 8, the last one padded
+M_STEP = 40  # rows of a decode projection in the beam step: batch 8 x beam 5
+# Large-v2's decoder projections split over a model axis of 2 (K, N, bias):
+# q/k/v and cross-q, fc1 by columns; out, cross-out and fc2 by rows.
+TP_SHARDS = ((1280, 640, True), (1280, 2560, True), (640, 1280, False), (2560, 1280, False))
 
 
 def pipeline_audio(minutes: float, seed: int = 0) -> np.ndarray:
@@ -535,6 +552,21 @@ def int8_mm_phase(torch, card: str) -> dict:
             log(f"int8_mm M={M} K={K} N={N} bf16 out{'' if with_bias else ', no bias'}: max abs err {err:.3g} vs plain "
                 f"(atol {atol}, rtol {rtol}): ok")
 
+    # Large-v2's decoder projections at the tensor-parallel shard shapes of a
+    # model axis of 2 (phase 10 (b)), M 40: the column splits with their bias
+    # and bf16 out; the row splits' fp32 partial products without a bias.
+    for K, N, with_bias in TP_SHARDS + tuple((K, N, False) for K, N, b in TP_SHARDS if b):
+        out_dtype = torch.bfloat16 if with_bias else torch.float32
+        x, w, s, b = operands(M_STEP, K, N)
+        b = b if with_bias else None
+        got = int8_mm.int8_matmul(x, w, s, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        shard_rtol = rtol if with_bias else 1e-5
+        want = int8_mm.int8_matmul_plain(x, w, s, b, out_dtype=out_dtype)
+        err = max_err_within(torch, f"int8_mm shard M={M_STEP} K={K} N={N}", got, want, atol, shard_rtol)
+        log(f"int8_mm tensor-parallel shard M={M_STEP} K={K} N={N} {'bf16 out, bias' if with_bias else 'fp32 out, no bias'}: "
+            f"max abs err {err:.3g} vs plain (atol {atol}, rtol {shard_rtol}): ok")
+
     # Timing unit: one decoder layer's six projections at M = 40 (batch 8 x
     # beam 5). Weights of 8 distinct layers (183 MB) rotate, so every call
     # finds its weight cold in HBM, as the decode step does.
@@ -628,6 +660,18 @@ def cross_attn_phase(torch, card: str) -> dict:
             torch.cuda.synchronize()
             max_err_within(torch, f"cross_attn edge S={s_len} G={g}", got, cross_attn.cross_attention_plain(q, *f), atol, rtol)
     log(f"cross_attn edges (bf16 K/V, B=2 H=4, S in 1/63/64/65/3000 x G in 1/16/17/40): within atol {atol}, rtol {rtol}: ok")
+    # The beam step at a rank's heads under a model axis of 2 (phase 10 (b): 10).
+    for h in (10, 6):
+        q = (torch.randn((B, G, h * Dh), device="cuda", generator=gen) * 0.4 * Dh**-0.5).bfloat16()
+        f = flat_cross_kv(
+            torch.randn((B, S, h, Dh), device="cuda", generator=gen) * 0.8,
+            torch.randn((B, S, h, Dh), device="cuda", generator=gen), True,
+        )
+        got = cross_attn.cross_attention_decode(q, *f)
+        torch.cuda.synchronize()
+        err = max_err_within(torch, f"cross_attn {h} heads a rank", got, cross_attn.cross_attention_plain(q, *f), atol, rtol)
+        log(f"cross_attn beam step, {h} heads a rank B={B} G={G} S={S} H={h}: max abs err {err:.3g} vs plain "
+            f"(atol {atol}, rtol {rtol}): ok")
 
     # Three distinct layers' K/V (98 MB) rotate: cold in HBM, as in decode.
     sets = [operands(G, True) for _ in range(3)]
@@ -710,6 +754,11 @@ def flash_phase(torch, card: str) -> dict:
         ("one valid key", (3, 130, 4, (1, 130, 67))),
         ("T=129 (one key past a tile)", (2, 129, 3, (129, 128))),
         ("180 work items on the persistent CTAs, masked rows", (3, 1500, 5, (1500, 1479, 1))),
+        # A rank's heads under a model axis of 2 (phase 10 (b)).
+        ("Whisper large-v2 encoder, 10 heads a rank", (8, 1500, 10, None)),
+        ("Whisper encoder rows, 6 heads a rank", (8, 1500, 6, None)),
+        ("wav2vec2 base alignment rows, 10 heads a rank", (8, align_T, 10, align_lengths)),
+        ("wav2vec2 base alignment rows, 6 heads a rank", (8, align_T, 6, align_lengths)),
     ]
     path_err = 0.0
     for what, shape in cases:
@@ -1217,6 +1266,40 @@ def small_align_phase(torch, card: str) -> None:
     )
 
 
+def small_models():
+    """Phase 3's small pipeline models: a 128-wide Whisper config (2 heads),
+    a 128-wide wav2vec2 one, and the aligner's character dictionary."""
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_TEST
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    w2v_cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
+    dictionary = {c: i for i, c in enumerate(["[pad]", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)])}
+    return cfg, w2v_cfg, dictionary
+
+
+def small_audio() -> np.ndarray:
+    """16 s with three tone bursts: three VAD chunks at chunk_size 5."""
+    sr = 16000
+    rng = np.random.default_rng(5)
+    audio = np.zeros(16 * sr, np.float32)
+    t = np.arange(2 * sr) / sr
+    for i, start in enumerate((1, 6, 11)):
+        audio[start * sr : (start + 2) * sr] = 0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    return audio + (0.005 * rng.standard_normal(len(audio))).astype(np.float32)
+
+
+def ids_tokenizer(n_vocab: int, language: str = "en"):
+    """A tokenizer whose text renders every token id (``<id>``): equal text
+    is equal tokens."""
+    from whisperx_tpu_torch.decode.tokenizer import ByteBackend, WhisperTokenizer
+
+    class Ids(ByteBackend):
+        def decode(self, ids):
+            return "".join(f"<{i}>" for i in ids)
+
+    return WhisperTokenizer(Ids(n_vocab), n_vocab, language=language)
+
+
 def small_pipeline_phase(torch) -> None:
     """The production pipeline on small models, card against CPU: a
     128-wide Whisper (int8 weights, fused QKV, int8 KV cache, fp32 compute;
@@ -1226,35 +1309,21 @@ def small_pipeline_phase(torch) -> None:
     renders every token id, so equal text is equal tokens."""
     from whisperx_tpu_torch.align.alignment import AlignModel, align
     from whisperx_tpu_torch.decode.engine import WhisperEngine
-    from whisperx_tpu_torch.decode.tokenizer import ByteBackend, WhisperTokenizer
     from whisperx_tpu_torch.models import wav2vec2 as tw2
     from whisperx_tpu_torch.models import whisper as tw
-    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_TEST
     from whisperx_tpu_torch.models.convert import wav2vec2_from_jax, whisper_from_jax
     from whisperx_tpu_torch.ops import cross_attn, int8_mm
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
 
-    class Ids(ByteBackend):
-        def decode(self, ids):
-            return "".join(f"<{i}>" for i in ids)
-
-    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    cfg, w2v_cfg, dictionary = small_models()
     params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
-    w2v_cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
     w2v_params = tw2.random_params(w2v_cfg, seed=0)
-    dictionary = {c: i for i, c in enumerate(["[pad]", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)])}
     meta = {"language": "en", "dictionary": dictionary, "type": "torch"}
-    sr = 16000
-    rng = np.random.default_rng(5)
-    audio = np.zeros(16 * sr, np.float32)
-    t = np.arange(2 * sr) / sr
-    for i, start in enumerate((1, 6, 11)):  # three bursts → three chunks at chunk_size 5
-        audio[start * sr : (start + 2) * sr] = 0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
-    audio += (0.005 * rng.standard_normal(len(audio))).astype(np.float32)
+    audio = small_audio()
 
     def pipeline(dev, language="en"):
-        tok = WhisperTokenizer(Ids(cfg.n_vocab), cfg.n_vocab, language=language or "en")
+        tok = ids_tokenizer(cfg.n_vocab, language or "en")
         return WhisperPipeline(
             engine=WhisperEngine(whisper_from_jax(params, cfg, device=dev), tok),
             vad=VadPipeline(EnergyVAD()),
@@ -2027,7 +2096,7 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
         f"{sorted(set(speakers))}, six files; launches {launches}; "
         f"python -m whisperx_tpu_torch --help rc 0: ok"
     )
-    return {"launches": launches, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir,
+    return {"launches": launches, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir, "wespeaker": wespeaker, "pyannet": pyannet,
             "weights": weight_bytes(seen["pipeline"].model), "load_model_ms": ms["load_model"]}
 
 
@@ -2263,6 +2332,398 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     return runs["b"][-1]["launches"]
 
 
+# ---- phase 10: the parallel path -------------------------------------------
+# One card: a world of one over NCCL in this process, then two ranks sharing
+# the card over gloo (NCCL refuses two ranks on one device). Two ranks on one
+# card say nothing of multi-card speed: every collective is staged through
+# the host, and both ranks' kernels share one card.
+
+PARALLEL_ENV = {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}  # (b)'s decode: every kernel of the path
+# (b): the first step's log-probs of the split model against the whole one,
+# both bf16 on this card. The row splits sum fp32 partial products in
+# another order (and round to bf16 once, after the sum, where the whole
+# model's dequantized encoder products round three times), so a few bf16
+# ulps move over 32 encoder and 32 decoder layers.
+TP_LOGPROB_ATOL = 0.25
+
+
+def parallel_audio(torch):
+    """(b)'s batch: 8 x 30 s of int16 noise from seed 0 (phase 4's)."""
+    from whisperx_tpu_torch.audio import N_SAMPLES, pcm16
+
+    return pcm16((np.random.default_rng(0).standard_normal((8, N_SAMPLES)) * 0.1).astype(np.float32))
+
+
+def captured_decode(torch, pipe, wavs) -> dict:
+    """One ``generate`` of the 8-chunk batch through ``pipe``'s engine and
+    front end (beam 5, 112 tokens, EOT suppressed by the pipeline's options),
+    with every kernel of the path (``PARALLEL_ENV``); the beam loop is
+    wrapped to keep the first step's log-probs and time the loop. Returns
+    tokens, log-probs, times and launches."""
+    from whisperx_tpu_torch.decode import engine as engine_mod
+    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
+
+    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
+    opts, engine = pipe._search_options(pipe.tokenizer)
+    seen = {}
+    loop = engine_mod.beam_decode
+
+    def beam(step_fn, init_logits, cache, prompt_len, o, group=None):
+        seen["logprobs"] = torch.log_softmax(init_logits.float(), dim=-1).cpu().numpy()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = loop(step_fn, init_logits, cache, prompt_len, o, group=group)
+        torch.cuda.synchronize()
+        seen["loop_ms"] = (time.perf_counter() - t) * 1e3
+        return out
+
+    os.environ.update(PARALLEL_ENV)
+    engine_mod.beam_decode = beam
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(pipe._mel(wavs), options=opts)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        engine_mod.beam_decode = loop
+        for knob in PARALLEL_ENV:
+            os.environ.pop(knob, None)
+    if res.tokens.shape != (8, opts.max_new_tokens) or (res.tokens == opts.eot).any():
+        raise AssertionError(f"parallel decode: tokens {res.tokens.shape}, EOT present: {(res.tokens == opts.eot).any()}")
+    return {"tokens": res.tokens, "logprobs": seen["logprobs"], "generate_ms": ms, "loop_ms": seen["loop_ms"],
+            "steps": opts.max_new_tokens, "launches": launches}
+
+
+def small_fp32_run(torch, dev: str, mesh=None) -> dict:
+    """Phase 3's small pipeline in fp32 without quantization: a 128-wide
+    Whisper (2 heads) transcribes three tone bursts (beam 2) and a 128-wide
+    wav2vec2 aligns a transcript in each chunk, on ``dev`` or on the rank's
+    device of ``mesh`` (Whisper through ``whisper_from_jax(mesh=)``, the
+    aligner through ``shard_align_model``). Token ids rendered as text."""
+    from whisperx_tpu_torch.align.alignment import AlignModel, align, shard_align_model
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.models import wav2vec2 as tw2
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.convert import wav2vec2_from_jax, whisper_from_jax
+    from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
+    from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
+
+    cfg, w2v_cfg, dictionary = small_models()
+    audio = small_audio()
+    tok = ids_tokenizer(cfg.n_vocab)
+    model = whisper_from_jax(tw.random_params(cfg, seed=0, scale=0.1), cfg, device=None if mesh else dev, mesh=mesh)
+    pipe = WhisperPipeline(
+        engine=WhisperEngine(model, tok), vad=VadPipeline(EnergyVAD()), vad_params={"vad_onset": 0.5, "vad_offset": 0.363},
+        options=TranscriptionOptions(beam_size=2, max_new_tokens=6), tokenizer=tok, language="en", mesh=mesh,
+    )
+    res = pipe.transcribe(audio, batch_size=2, chunk_size=5)
+    am = AlignModel(wav2vec2_from_jax(tw2.random_params(w2v_cfg, seed=0), w2v_cfg, device=dev), dictionary, "en")
+    if mesh is not None:
+        am = shard_align_model(am, mesh)
+    meta = {"language": "en", "dictionary": dictionary, "type": "torch"}
+    aligned = align([dict(s, text=" the quick brown fox jumps") for s in res["segments"]], am, meta, audio, dev)
+    words = [(w["word"], w.get("start"), w.get("end")) for w in aligned["word_segments"]]
+    return {"segments": res["segments"], "words": words, "heads": model.decoder.layers[0].attn.n_head}
+
+
+def gloo_cuda_collectives(torch, group) -> dict:
+    """Which collectives gloo takes on CUDA tensors in this torch, each
+    checked for its value: "ok" or the error. The port calls all_reduce
+    (the row-parallel sums, the search's exit flag, a split vocabulary's
+    lookup) and all_gather (rows over "data", a split vocabulary's logits)."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    checks = {
+        "all_reduce": lambda: _reduced(dist, torch, group, me) == sum(range(1, n + 1)),
+        "broadcast": lambda: _broadcast(dist, torch, group, me) == 7.0,
+        "all_gather": lambda: _gathered(dist, torch, group, me, n) == list(range(n)),
+    }
+    out = {}
+    for name, check in checks.items():
+        try:
+            out[name] = "ok" if check() else "wrong value"
+        except RuntimeError as e:
+            out[name] = f"refused: {str(e)[:120]}"
+    return out
+
+
+def _reduced(dist, torch, group, me):
+    t = torch.full((4,), float(me + 1), device="cuda")
+    dist.all_reduce(t, group=group)
+    return t[0].item()
+
+
+def _broadcast(dist, torch, group, me):
+    t = torch.full((4,), 7.0 if me == 0 else 0.0, device="cuda")
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t[0].item()
+
+
+def _gathered(dist, torch, group, me, n):
+    parts = [torch.empty(1, device="cuda") for _ in range(n)]
+    dist.all_gather(parts, torch.full((1,), float(me), device="cuda"), group=group)
+    return [int(p.item()) for p in parts]
+
+
+def parallel_rank(spec: dict) -> int:
+    """One of phase 10's two ranks (``python3 chip_smoke.py --parallel-rank
+    <json>``), both on cuda:0 over gloo, mesh (1, 2): (b) load_model(<phase
+    7's large-v2 directory>, compute_type="int8", mesh=) → the 8-chunk decode
+    with every kernel (``captured_decode``); shard_align_model(<phase 7's
+    wav2vec2 base>) alignment of bench.py's transcript over the 8 chunks in
+    the default and the flash arm; (c) ``small_fp32_run`` under the mesh.
+    Prints one ``RANK_RESULT`` JSON line; the first step's log-probs go to
+    ``<tmp>/rank<r>_logprobs.npy``."""
+    import torch
+
+    from whisperx_tpu_torch.align.alignment import align, load_align_model, shard_align_model
+    from whisperx_tpu_torch.ops import flash_attn, int8_mm
+    from whisperx_tpu_torch.parallel import make_mesh
+    from whisperx_tpu_torch.parallel.distributed import initialize
+    from whisperx_tpu_torch.pipeline.asr import load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = spec["rank"]
+    initialize(f"127.0.0.1:{spec['port']}", 2, rank, backend="gloo")
+    mesh = make_mesh(1, 2)
+    collectives = gloo_cuda_collectives(torch, mesh.get_group("model"))
+    if collectives["all_reduce"] != "ok" or collectives["all_gather"] != "ok":
+        raise AssertionError(f"rank {rank}: gloo refuses a collective the port calls on CUDA tensors: {collectives}")
+    t0 = time.perf_counter()
+    pipe = load_model(
+        "large-v2", checkpoint=spec["whisper_dir"], compute_type="int8", language="en", mesh=mesh,
+        asr_options={"beam_size": 5, "max_new_tokens": 112, "suppress_tokens": (-1, 50257)},
+    )
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    model = pipe.model
+    heads = [model.encoder.layers[0].attn.n_head, model.decoder.layers[0].attn.n_head, model.decoder.layers[0].cross_attn.n_head]
+    if heads != [10, 10, 10] or model.fused_qkv or model.decoder.token_embedding.shape[0] != 51865:
+        raise AssertionError(f"rank {rank}: heads {heads}, fused {model.fused_qkv}, vocab rows {model.decoder.token_embedding.shape}")
+    wavs = parallel_audio(torch)
+    dec = captured_decode(torch, pipe, wavs)
+    np.save(os.path.join(spec["tmp"], f"rank{rank}_logprobs.npy"), dec["logprobs"])
+    L, steps = model.config.n_text_layer, dec["steps"]
+    # Unfused q/k/v: 8 projections a layer and step (prompt + every step).
+    want = {"int8_matmul": 8 * L * (1 + steps), "cross_attention_decode": L * (1 + steps),
+            "flash_self_attention": model.config.n_audio_layer, "log_mel": 0}
+    if dec["launches"] != want:
+        raise AssertionError(f"rank {rank} decode: launches {dec['launches']}, expected {want}")
+    del pipe, model
+    torch.cuda.empty_cache()
+
+    am = shard_align_model(load_align_model("en", model_name=spec["w2v_dir"])[0], mesh)
+    if am.model.layers[0].attention.num_heads != 6:
+        raise AssertionError(f"rank {rank}: wav2vec2 heads {am.model.layers[0].attention.num_heads}")
+    audio = wavs.reshape(-1).astype(np.float32) / 32768.0
+    meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
+    aligned, align_ms, flash = {}, {}, {}
+    for arm, env in (("default", {}), ("flash", {"WHISPERX_ATTN": "flash"})):
+        os.environ.update(env)
+        try:
+            flash_attn.launches = int8_mm.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = align(align_transcript(8), am, meta, audio)
+            align_ms[arm] = (time.perf_counter() - t) * 1e3
+            flash[arm] = flash_attn.launches
+        finally:
+            for knob in env:
+                os.environ.pop(knob, None)
+        aligned[arm] = [(w["word"], w.get("start"), w.get("end"), w.get("score")) for w in res["word_segments"]]
+        if not aligned[arm] or any(w[1] is None for w in aligned[arm]):
+            raise AssertionError(f"rank {rank} align {arm}: words without times")
+    if flash != {"default": 0, "flash": am.model.config.num_layers}:
+        raise AssertionError(f"rank {rank} align: flash launches {flash}")
+    small = small_fp32_run(torch, "cuda", mesh)
+    result = {
+        "rank": rank, "load_ms": load_ms, "tokens": dec["tokens"].tolist(), "generate_ms": dec["generate_ms"],
+        "loop_ms": dec["loop_ms"], "steps": steps, "launches": dec["launches"], "aligned": aligned,
+        "align_ms": align_ms, "align_flash": flash, "small": small, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "collectives": collectives,
+    }
+    print("RANK_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def world_of_one_phase(torch, card: str, cli: dict, tmp: str) -> dict:
+    """(a) A world of one over NCCL, in this process: ``load_model(<phase
+    7's large-v2 directory>, compute_type="int8", mesh=make_mesh())``
+    transcribes phase 6's 6-minute WAV (beam 5, 112 tokens, EOT banned),
+    ``shard_align_model`` of phase 7's wav2vec2 base aligns bench.py's
+    transcript in every chunk, ``DiarizationPipeline(mesh=)`` with phase 7's
+    WeSpeaker and PyanNet files diarizes it; then the same calls without a
+    mesh on the same weights (a WhisperPipeline without a mesh over the
+    loaded model, the unsplit align model, a DiarizationPipeline without a
+    mesh). Segments, texts, words, timestamps, turns and int8_matmul's
+    launches must be equal. Returns the pipeline without a mesh (phase 10
+    (b)'s whole-model reference) and the launches."""
+    import torch.distributed as dist
+
+    from whisperx_tpu_torch.align.alignment import align, load_align_model, shard_align_model
+    from whisperx_tpu_torch.audio import io as audio_io
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.diarize import DiarizationPipeline
+    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.parallel import make_mesh
+    from whisperx_tpu_torch.pipeline.asr import WhisperPipeline, load_model
+
+    mesh = make_mesh()
+    if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1):
+        raise AssertionError(f"world of one: backend {dist.get_backend()}, mesh {tuple(mesh.shape)}")
+    path = os.path.join(tmp, "pipeline.wav")
+    audio_io.write_wav(path, pipeline_audio(PIPELINE_MINUTES))
+    t0 = time.perf_counter()
+    pipe = load_model(
+        "large-v2", checkpoint=cli["whisper_dir"], compute_type="int8", language="en", mesh=mesh,
+        asr_options={"beam_size": 5, "max_new_tokens": 112, "suppress_tokens": (-1, 50257)},
+    )
+    load_ms = (time.perf_counter() - t0) * 1e3
+    plain = WhisperPipeline(
+        engine=WhisperEngine(pipe.model, pipe.engine.tokenizer), vad=pipe.vad_model, vad_params=pipe._vad_params,
+        options=pipe.options, tokenizer=pipe.tokenizer, language="en", kv_cache_dtype=pipe.kv_cache_dtype,
+    )
+    am, _ = load_align_model("en", model_name=cli["w2v_dir"])
+    diarize = {"wespeaker": cli["wespeaker"], "pyannet": cli["pyannet"]}
+    arms = {
+        "no mesh": (plain, am, DiarizationPipeline(checkpoint=diarize["wespeaker"], segmentation_checkpoint=diarize["pyannet"])),
+        "mesh": (pipe, shard_align_model(am, mesh), DiarizationPipeline(
+            checkpoint=diarize["wespeaker"], segmentation_checkpoint=diarize["pyannet"], mesh=mesh)),
+    }
+    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
+    meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
+    runs = {}
+    for arm, (p, a, d) in arms.items():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = p.transcribe(path, batch_size=8)
+        t1 = time.perf_counter()
+        aligned = align([dict(s, text=ALIGN_TEXT) for s in res["segments"]], a, meta, path)
+        t2 = time.perf_counter()
+        turns = d(path, min_speakers=2, max_speakers=2)
+        t3 = time.perf_counter()
+        runs[arm] = {
+            "segments": res["segments"],
+            "words": [(w["word"], w.get("start"), w.get("end"), w.get("score")) for w in aligned["word_segments"]],
+            "turns": [(float(s), float(e), k) for s, e, k in zip(turns["start"], turns["end"], turns["speaker"])],
+            "launches": {name: c.launches for name, c in counters.items()},
+            "ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3],
+        }
+    a, b = runs["no mesh"], runs["mesh"]
+    n_batches = -(-len(b["segments"]) // 8)
+    L = pipe.model.config.n_text_layer
+    if a["launches"] != b["launches"] or b["launches"]["int8_matmul"] != 6 * L * 113 * n_batches:
+        raise AssertionError(f"world of one: launches {b['launches']} with the mesh, {a['launches']} without")
+    for key in ("segments", "words", "turns"):
+        if a[key] != b[key]:
+            raise AssertionError(f"world of one: {key} differ with the mesh")
+    if not b["words"] or len({t[2] for t in b["turns"]}) != 2:
+        raise AssertionError(f"world of one: {len(b['words'])} words, turns of {sorted({t[2] for t in b['turns']})}")
+    dist.destroy_process_group()
+    log(
+        f"parallel (a) world of one over NCCL [{card}]: load_model(mesh=make_mesh()) {load_ms:.1f} ms; "
+        f"{len(b['segments'])} chunks, {len(b['words'])} words, {len(b['turns'])} turns of 2 speakers, launches "
+        f"{b['launches']}, all equal to the calls without a mesh; transcribe / align / diarize ms with the mesh "
+        + " / ".join(f"{x:.1f}" for x in b["ms"]) + ", without " + " / ".join(f"{x:.1f}" for x in a["ms"]) + ": ok"
+    )
+    return {"pipe": plain, "launches": b["launches"]}
+
+
+def parallel_phase(torch, card: str, cli: dict, tmp: str) -> dict:
+    """Phase 10: (a) ``world_of_one_phase``; (b) two ranks sharing this card
+    over gloo (``parallel_rank`` in two processes, mesh (1, 2)): equal
+    results on both ranks, the first step's log-probs within
+    ``TP_LOGPROB_ATOL`` of the whole model's on this card (from (a), same
+    weights, same kernels) and the token agreement with it, ms a step and
+    each kernel's launches a step; (c) the ranks' ``small_fp32_run`` under
+    the mesh equal to this process's on the CPU. Returns rank 0's launches
+    in (b) (its decode and its flash alignment arm)."""
+    one = world_of_one_phase(torch, card, cli, tmp)
+    ref = captured_decode(torch, one["pipe"], parallel_audio(torch))
+    del one
+    torch.cuda.empty_cache()
+
+    spec = {"port": _free_port(), "tmp": tmp, "whisper_dir": cli["whisper_dir"], "w2v_dir": cli["w2v_dir"]}
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", json.dumps({**spec, "rank": r})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for r in range(2)
+    ]
+    small_cpu = small_fp32_run(torch, "cpu")
+    results = []
+    for r, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        if p.returncode != 0:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+            raise AssertionError(f"parallel rank {r} failed (rc {p.returncode}):\n{err[-3000:]}")
+        results.append(json.loads([ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")][-1][12:]))
+    wall = time.perf_counter() - t0
+    r0, r1 = results
+    same = ("tokens", "aligned", "small", "launches", "align_flash")
+    if any(r0[k] != r1[k] for k in same):
+        raise AssertionError(f"parallel (b): the ranks differ in {[k for k in same if r0[k] != r1[k]]}")
+    lp0, lp1 = (np.load(os.path.join(tmp, f"rank{r}_logprobs.npy")) for r in range(2))
+    if not np.array_equal(lp0, lp1) or not np.isfinite(lp0).all():
+        raise AssertionError("parallel (b): the ranks' first-step log-probs differ or are not finite")
+    lp_err = float(np.abs(lp0 - ref["logprobs"]).max())
+    if lp_err > TP_LOGPROB_ATOL:
+        raise AssertionError(f"parallel (b): first-step log-probs {lp_err:.4g} from the whole model's (atol {TP_LOGPROB_ATOL})")
+    agree = float((np.asarray(r0["tokens"]) == ref["tokens"]).mean())
+    top1 = float((lp0.argmax(-1) == ref["logprobs"].argmax(-1)).mean())
+    small_want = json.loads(json.dumps(small_cpu))
+    if (r0["small"]["segments"], r0["small"]["words"]) != (small_want["segments"], small_want["words"]) or r0["small"]["heads"] != 1:
+        raise AssertionError(f"parallel (c): the two-rank card mesh {r0['small']} != the CPU {small_want}")
+    steps = r0["steps"]
+    n = r0["launches"]
+    log(
+        f"parallel (b) two ranks sharing one card over gloo, mesh (1, 2) [{card}; NOT a multi-card number: every "
+        f"all-reduce is staged through the host and both ranks share the card]: large-v2 int8, 10 heads a rank, "
+        f"unfused QKV, batch 8, beam 5, {steps} tokens (EOT banned), cross-attention kernel + flash: load_model "
+        f"{r0['load_ms']:.1f} / {r1['load_ms']:.1f} ms, generate {r0['generate_ms']:.1f} ms, beam loop "
+        f"{r0['loop_ms'] / steps:.2f} ms a step (whole model on this card alone: {ref['loop_ms'] / steps:.2f}); "
+        f"launches a step (prompt + {steps} steps): int8_matmul {n['int8_matmul'] / (1 + steps):g}, "
+        f"cross_attention_decode {n['cross_attention_decode'] / (1 + steps):g}; flash_self_attention "
+        f"{n['flash_self_attention']} a batch (encoder), log_mel {n['log_mel']}; first-step log-probs max abs diff "
+        f"{lp_err:.4g} from the whole model (atol {TP_LOGPROB_ATOL}), top-1 "
+        f"agreement {top1:.3f}, token agreement {agree:.3f} of positions; both ranks equal (tokens, log-probs, words); "
+        f"alignment of 8 x 30 s under shard_align_model (6 heads a rank): {len(r0['aligned']['default'])} words, "
+        f"{r0['align_ms']['default']:.1f} ms default, {r0['align_ms']['flash']:.1f} ms flash ({r0['align_flash']['flash']} "
+        f"flash launches), peak {r0['peak_gib']:.2f} GiB a rank; gloo on CUDA tensors: {r0['collectives']}; "
+        f"{wall:.1f} s for both ranks: ok"
+    )
+    log(
+        f"parallel (c) 128-wide fp32 Whisper and wav2vec2 under the two-rank card mesh (1 head a rank) == the CPU "
+        f"single process: {len(small_want['segments'])} chunks, {len(small_want['words'])} words and timestamps: ok"
+    )
+    launches = dict(r0["launches"])
+    launches["flash_self_attention"] += r0["align_flash"]["flash"]
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 # ---- phase 8: the training step at full width ------------------------------
 
 TRAIN_STEPS = 5
@@ -2439,6 +2900,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 10's two ranks
+        return parallel_rank(json.loads(sys.argv[2]))
     from whisperx_tpu_torch.ops import _build
 
     # Stated references: fp32 products in full fp32 (no TF32) on the card.
@@ -2479,6 +2942,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(torch, card, tmp)
         int4_launches = int4_phase(torch, card, cli["whisper_dir"], cli["w2v_dir"], cli)
+        parallel_launches = parallel_phase(torch, card, cli, tmp)
     cli_launches = cli["launches"]
     trained = train_phase(torch, card)
     for k in kernels:
@@ -2495,6 +2959,7 @@ def main() -> int:
             k["launches_cli"] = cli_launches[k["name"]]
         k["launches_train_xla"] = trained["xla"]["launches"].get(k["name"], 0)
         k["launches_int4"] = int4_launches[k["name"]]  # phase 9's arm (b)
+        k["launches_parallel"] = parallel_launches.get(k["name"], 0)  # phase 10 (b), rank 0
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

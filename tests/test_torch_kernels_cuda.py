@@ -87,6 +87,30 @@ def test_int8_mm_kernel_matches_plain_at_wav2vec2_shapes(gen, M, K, N):
 
 
 @pytest.mark.cuda
+# Whisper large-v2's decoder projections at the tensor-parallel shard shapes
+# of a (data, 2) mesh in the beam step (M 40): q/k/v and cross-q split their
+# columns (K 1280 → N 640), fc1 (1280 → 2560); the row-parallel out/cross-out
+# (K 640 → N 1280) and fc2 (2560 → 1280). Each without a bias in fp32 (the
+# row-parallel partial products, models/whisper.py:Dense._row_parallel; the
+# key projection has no bias either) and with one in bf16.
+@pytest.mark.parametrize("K,N", [(1280, 640), (1280, 2560), (640, 1280), (2560, 1280)])
+@pytest.mark.parametrize("with_bias,out_dtype", [(False, torch.float32), (True, torch.bfloat16)])
+def test_int8_mm_kernel_matches_plain_at_tensor_parallel_shards(gen, K, N, with_bias, out_dtype):
+    M = 40
+    x = torch.randn((M, K), device="cuda", generator=gen).bfloat16()
+    w = torch.randint(-127, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8)
+    scale = torch.rand((N,), device="cuda", generator=gen) * 0.01
+    bias = torch.randn((N,), device="cuda", generator=gen) if with_bias else None
+    before = int8_mm.launches
+    got = int8_mm.int8_matmul(x, w, scale, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == before + 1
+    want = int8_mm.int8_matmul_plain(x, w, scale, bias, out_dtype=out_dtype)
+    rtol = 2 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_int4_unpack_on_the_card_equals_the_cpu(gen):
     """The arithmetic shifts of int8 on CUDA sign-extend as on the CPU, for
     all 256 byte values."""
@@ -111,7 +135,11 @@ def test_launch_plans_size_shared_memory_as_the_kernels_do(gen):
 @pytest.mark.parametrize("kv_int8", [True, False])
 # The flagship beam step and prompt, a small S (one chunk per CTA), G > 8
 # (several passes of 8 query rows), and S split over a cluster of 7.
-@pytest.mark.parametrize("B,G,S,H", [(8, 5, 1500, 20), (8, 4, 1500, 20), (2, 3, 96, 4), (2, 20, 300, 4), (1, 3, 2100, 2)])
+# The beam step at a rank's heads under a model axis of 2: 10 (large-v2), 6.
+@pytest.mark.parametrize(
+    "B,G,S,H",
+    [(8, 5, 1500, 20), (8, 4, 1500, 20), (2, 3, 96, 4), (2, 20, 300, 4), (1, 3, 2100, 2), (8, 5, 1500, 10), (8, 5, 1500, 6)],
+)
 def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
     q = (torch.randn((B, G, H * 64), device="cuda", generator=gen) * 0.05).bfloat16()
     k = torch.randn((B, S, H, 64), device="cuda", generator=gen) * 0.8
@@ -151,7 +179,9 @@ def test_cross_attn_kernel_matches_plain_bf16_edges(gen, S, G):
      # T around the 128-row tile and key tile; 180 work items (B x H x query
      # tiles), more than the persistent grid's one CTA per SM.
      (2, 127, 3, None), (2, 128, 3, (128, 5)), (2, 129, 3, (129, 128)), (2, 257, 3, (257, 129)),
-     (3, 1500, 5, (1500, 1479, 1)), (1, 33, 1, None)],
+     (3, 1500, 5, (1500, 1479, 1)), (1, 33, 1, None),
+     # The rank's heads under a model axis of 2: large-v2 10, wav2vec2 base 6.
+     (8, 1500, 10, None), (8, 1499, 6, (1499, 1479, 1200, 700, 64, 65, 1, 1499))],
 )
 def test_flash_attn_kernel_matches_plain(gen, B, T, H, lengths):
     q = (torch.randn((B, T, H, 64), device="cuda", generator=gen) * 0.35).bfloat16()

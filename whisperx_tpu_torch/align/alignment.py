@@ -17,13 +17,17 @@ packs pending; ``AlignJob.finish()`` fetches them and aggregates on the host.
 
 ``load_align_model`` reads a local HF wav2vec2-CTC checkpoint
 (``models/convert.py:load_wav2vec2``); ``compute_type="int8"`` quantizes it
-weight-only (``models/wav2vec2.py:quantize_wav2vec2``). Not ported: the
-``mesh`` of ``AlignModel``/``shard_align_model`` (multi-device), ROADMAP.md
-queue 1, item 9.
+weight-only (``models/wav2vec2.py:quantize_wav2vec2``).
+``shard_align_model`` puts the model on a ``parallel.make_mesh`` mesh: each
+batch's rows split over the "data" axis (a multiple of it, on the ladder),
+the transformer over "model", and every rank gathers the packs back in rank
+order before the host aggregation.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -40,6 +44,7 @@ from ..io.types import AlignedTranscriptionResult, SingleAlignedSegment, SingleS
 from ..models.configs import WAV2VEC2_TEST
 from ..models.wav2vec2 import Wav2Vec2ForCTC
 from ..ops.ctc import PathPoint, align_tokens_batch, ctc_align_batch_device, merge_repeats
+from ..parallel.mesh import axis_size, gather_rows, mesh_device, shard_batch
 from ..utils import interpolate_nans, telemetry
 from .registry import TORCH_BUNDLE_TO_HF, default_align_model
 from .sentences import PUNKT_ABBREVIATIONS, sentence_spans
@@ -54,10 +59,38 @@ class AlignModel:
     language: str
     blank_id: int = 0
     max_batch: int = 8
+    # Optional parallel.make_mesh mesh (shard_align_model): align batches run
+    # data-parallel over its "data" axis, the model split over "model".
+    mesh: Any = None
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+
+def shard_align_model(align_model: AlignModel, mesh) -> AlignModel:
+    """Return a copy of the align model placed on a (data, model) mesh.
+
+    The model becomes this rank's slice under the wav2vec2 tensor-parallel
+    rules (whole wherever a dim does not divide the "model" axis), on the
+    rank's device; align() then splits each batch's rows over "data" and
+    gathers the results, so the word timestamps are the single-device
+    ones. ``max_batch`` rounds up to a multiple of the data axis. Every rank
+    calls this.
+    """
+    from ..models.convert import wav2vec2_from_jax, whisper_to_jax
+
+    if align_model.mesh is not None:
+        raise ValueError("shard_align_model: the align model is already on a mesh")
+    m = align_model.model
+    model = wav2vec2_from_jax(
+        whisper_to_jax(m), m.config, dtype=m.dtype, attn_impl=m.layers[0].attention.attn_impl,
+        device=mesh_device(mesh), mesh=mesh,
+    )
+    # Round the batch up to a data-axis multiple so rows tile the mesh.
+    n_data = axis_size(mesh, "data")
+    max_batch = -(-align_model.max_batch // n_data) * n_data
+    return dataclasses.replace(align_model, model=model, mesh=mesh, max_batch=max_batch)
 
 
 def _find_blank_id(dictionary: dict) -> int:
@@ -201,14 +234,26 @@ def _fused_align_fwd(model: Wav2Vec2ForCTC, wavs: torch.Tensor, tok_pack: torch.
     return torch.cat([pack, tail[:, :, None]], dim=2)
 
 
-def _ladder_rows(n: int, max_batch: int) -> int:
+def _ladder_rows(n: int, max_batch: int, mesh=None) -> int:
     """Round a tail batch up on the halving ladder {B, B/2, B/4}: at most
     three row counts per length bucket, and a half-full tail pays about half
-    the wav2vec2 work."""
+    the wav2vec2 work. Under a mesh, rows stay a multiple of the data axis
+    so batches tile it."""
+    floor = axis_size(mesh, "data") if mesh is not None else 1
     for rows in (max_batch // 4, max_batch // 2, max_batch):
-        if rows >= max(n, 1):
+        if rows >= max(n, floor, 1) and rows % floor == 0:
             return rows
     return max_batch
+
+
+def _run_rows(align_model: AlignModel, fn, *host_arrays, dim: int = 0) -> torch.Tensor:
+    """``fn`` on the device copies of ``host_arrays`` (row-aligned): all
+    rows on the model's device, or under a mesh this rank's rows, with the
+    result's rows (along ``dim``) gathered from every rank."""
+    if align_model.mesh is None:
+        return fn(*(_upload(a, align_model.device) for a in host_arrays))
+    out = fn(*(shard_batch(align_model.mesh, a) for a in host_arrays))
+    return gather_rows(align_model.mesh, out, dim=dim)
 
 
 def _bucket_len(n: int) -> int:
@@ -222,14 +267,13 @@ def _batched_emissions(align_model: AlignModel, slices: List[np.ndarray]):
     """Run wav2vec2 over length-sorted padded batches → per-segment
     (log_probs (T', V), T') on the host."""
     model = align_model.model
-    dev = align_model.device
     order = sorted(range(len(slices)), key=lambda i: len(slices[i]))
     results: List[Any] = [None] * len(slices)
     B = align_model.max_batch
     for i in range(0, len(order), B):
         batch_idx = order[i : i + B]
         max_len = _bucket_len(max(len(slices[j]) for j in batch_idx))
-        rows = _ladder_rows(len(batch_idx), B)
+        rows = _ladder_rows(len(batch_idx), B, align_model.mesh)
         # Keep the slices' dtype: int16 PCM is rescaled on the device.
         wavs = np.zeros((rows, max_len), slices[batch_idx[0]].dtype)
         lens = np.zeros((rows,), np.int64)
@@ -237,8 +281,7 @@ def _batched_emissions(align_model: AlignModel, slices: List[np.ndarray]):
             wavs[row, : len(slices[j])] = slices[j]
             lens[row] = len(slices[j])
         lens = np.maximum(lens, 400)  # avoid zero-length conv edge on pad rows
-        logp, _ = _emissions(model, _upload(wavs, dev), _upload(lens, dev))
-        logp = logp.cpu().numpy()
+        logp = _run_rows(align_model, lambda w, n: _emissions(model, w, n)[0], wavs, lens).cpu().numpy()
         frame_lens = model.feature_lengths(lens)
         for row, j in enumerate(batch_idx):
             results[j] = (logp[row], int(frame_lens[row]))
@@ -413,7 +456,7 @@ def align_begin(
             max_len = _bucket_len(max(len(slices[k]) for k in idx))
             N_true = max(len(token_lists[k]) for k in idx)
             N = max(64, -(-N_true // 64) * 64)
-            rows = _ladder_rows(len(idx), B)
+            rows = _ladder_rows(len(idx), B, model.mesh)
             wavs = np.zeros((rows, max_len), audio_up.dtype)
             # tok_pack = [tokens | sample_len | n_len]: one small upload.
             tok_pack = np.zeros((rows, N + 2), np.int64)
@@ -425,7 +468,8 @@ def align_begin(
                 tok_pack[row, N] = len(slices[k])
                 tok_pack[row, N + 1] = len(token_lists[k])
             tok_pack[:, N] = np.maximum(tok_pack[:, N], 400)  # avoid zero-length conv edge on pad rows
-            out = _fused_align_fwd(model.model, _upload(wavs, dev), _upload(tok_pack, dev), model.blank_id)
+            fwd = functools.partial(_fused_align_fwd, model.model, blank=model.blank_id)
+            out = _run_rows(model, fwd, wavs, tok_pack, dim=1)
             pendings.append((idx, out))
             # Bound the launch window: each pending batch keeps its upload
             # alive on the device. Consuming the oldest blocks on a batch

@@ -10,6 +10,13 @@ resolve into one typed ``CliConfig``, and four small stage functions
 (transcribe / align / diarize / write) fold over a list of ``FileJob``
 records. Behavioral quirks of the reference that downstream output depends
 on are kept and marked inline.
+
+Under ``torchrun --nproc-per-node N python -m whisperx_tpu_torch ...`` (or
+the JAX package's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``)
+each rank takes its round-robin share of the files
+(``parallel/distributed.py:shard_files``) and runs them on its own card
+(``cuda:<LOCAL_RANK>``, whatever ``--device_index`` says) with no mesh, as
+the JAX CLI shards its files over processes.
 """
 
 from __future__ import annotations
@@ -18,10 +25,11 @@ import argparse
 import gc
 import os
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from .align.alignment import align_begin, load_align_model
 from .audio.io import AudioPrefetcher
@@ -29,6 +37,7 @@ from .diarize.assign import assign_word_speakers
 from .diarize.pipeline import DiarizationPipeline
 from .io.languages import LANGUAGES, TO_LANGUAGE_CODE
 from .io.writers import get_writer
+from .parallel.distributed import initialize, local_device, shard_files, world_size
 from .pipeline.asr import load_model
 from .utils import optional_float, optional_int, str2bool
 
@@ -416,15 +425,25 @@ def cli(argv=None):
 
         torch.set_num_threads(cfg.threads)
 
-    # One process takes every file (the JAX package shards the list over its
-    # hosts; multi-device runs are not ported).
-    jobs = [FileJob(path) for path in cfg.files]
-    _transcribe_stage(cfg, jobs)
-    if cfg.do_align:
-        _align_stage(cfg, jobs)
-    if cfg.do_diarize:
-        _diarize_stage(cfg, jobs)
-    _write_stage(cfg, jobs)
+    # Fleets: each rank owns a round-robin share of the file list (coarse data
+    # parallelism; see parallel/distributed.shard_files), on its own card.
+    joined = not dist.is_initialized()
+    initialize()
+    files = cfg.files
+    if world_size() > 1:
+        files = shard_files(files)
+        if cfg.device == "cuda":
+            cfg = replace(cfg, device_index=local_device().index)
+    jobs = [FileJob(path) for path in files]
+    if jobs:  # a rank may have none: more ranks than files
+        _transcribe_stage(cfg, jobs)
+        if cfg.do_align:
+            _align_stage(cfg, jobs)
+        if cfg.do_diarize:
+            _diarize_stage(cfg, jobs)
+        _write_stage(cfg, jobs)
+    if joined and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
+from ..parallel.mesh import gather_rows
 from .search import SearchOptions, beam_decode, greedy_decode
 from .tokenizer import WhisperTokenizer
 
@@ -41,6 +42,11 @@ class DecodeResult:
         """Copy both buffers to the host (once)."""
         self._tokens, self._stats = _host(self._tokens), _host(self._stats)
         return self
+
+    def gathered(self, mesh) -> "DecodeResult":
+        """The rows of every rank of the mesh's "data" axis, in rank order
+        (a collective: every rank calls it). Call before the first read."""
+        return DecodeResult(gather_rows(mesh, self._tokens), gather_rows(mesh, self._stats, dim=1))
 
     @property
     def tokens(self) -> np.ndarray:
@@ -161,7 +167,8 @@ class WhisperEngine:
             cross_impl=self._cross_impl(opts),
         )
         tokens, sum_lp, lengths = greedy_decode(
-            self._step_fn(cache["cross"]), init_logits, cache["self"], prompt_tokens.shape[1], opts, generator
+            self._step_fn(cache["cross"]), init_logits, cache["self"], prompt_tokens.shape[1], opts, generator,
+            group=self.model.tp_group,
         )
         return tokens, sum_lp, lengths, no_speech
 
@@ -182,7 +189,8 @@ class WhisperEngine:
         # (B*K, ...). Cross K/V stay per batch element.
         expanded = [{n: buf.repeat_interleave(K, dim=0) for n, buf in layer.items()} for layer in cache["self"]]
         tokens, sum_lp, lengths = beam_decode(
-            self._step_fn(cache["cross"]), init_logits, expanded, prompt_tokens.shape[1], opts
+            self._step_fn(cache["cross"]), init_logits, expanded, prompt_tokens.shape[1], opts,
+            group=self.model.tp_group,
         )
         return tokens, sum_lp, lengths, no_speech
 

@@ -8,7 +8,10 @@ self cache is reordered with one ``index_select`` per layer buffer every step
 ``WHISPERX_REORDER_COND``, ``WHISPERX_TOPK=approx``) are not ported.
 
 The JAX loops are ``lax.while_loop``s whose condition exits early. Here the
-loop runs on the host and reads that condition back once a step.
+loop runs on the host and reads that condition back once a step. Under
+tensor parallelism every rank of the model group runs the loop, and each
+step's collectives wait for all of them, so the ranks must leave it at the
+same step: :func:`_all_done` takes that decision for the whole group.
 
 Tie order: ``lax.top_k`` puts the lower index first among equal values and
 ``torch.topk`` promises no order, so every selection whose kept set or order
@@ -23,6 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -96,6 +100,20 @@ def _candidate_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return vals, torch.gather(idx, -1, order)
 
 
+def _all_done(done: torch.Tensor, group) -> bool:
+    """``bool(done.all())``, one decision for every rank of the
+    tensor-parallel ``group``. The ranks hold the same logits (each is the
+    same fp32 sum after the all-reduces and gathers), but the exit does not
+    rest on bit equality: the flag is all-reduced (MIN) over the group, so
+    no rank leaves the loop while another starts a step whose collectives
+    would wait for it forever."""
+    flag = done.all()
+    if group is not None:
+        flag = flag.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag)
+
+
 def _check_topk(opts: SearchOptions) -> None:
     if opts.topk not in ("auto", "exact"):
         raise ValueError(f"unknown top-k impl {opts.topk!r}: the port has auto|exact")
@@ -108,6 +126,7 @@ def greedy_decode(
     prompt_len: int,
     opts: SearchOptions,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ):
     """Batched greedy/sampling decode.
 
@@ -115,7 +134,8 @@ def greedy_decode(
     the cross K/V are closed over by ``step_fn``. Returns (tokens
     (B, max_new), sum_logprobs (B,), lengths (B,)); token buffers are padded
     with EOT after finish. Sampling (temperature > 0) draws from
-    ``generator``.
+    ``generator``. ``group``: the tensor-parallel group whose ranks run
+    this loop together (:func:`_all_done`).
     """
     B, V = init_logits.shape
     dev = init_logits.device
@@ -129,7 +149,7 @@ def greedy_decode(
     tokens = torch.full((B, max_new), opts.eot, dtype=torch.long, device=dev)
     sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
     for step in range(max_new):
-        if bool(finished.all()):
+        if _all_done(finished, group):
             break
         logits = logits + suppress
         if step == 0:
@@ -164,12 +184,14 @@ def beam_decode(
     expanded_cache,  # SELF cache with leading dim B*K (prompt replicated per beam)
     prompt_len: int,
     opts: SearchOptions,
+    group=None,
 ):
     """Fixed-shape batched beam search.
 
     Returns (tokens (B, max_new), sum_logprobs (B,), lengths (B,)) for the
     best hypothesis per batch element (finished preferred, ranked by the GNMT
-    length-penalized cumulative logprob).
+    length-penalized cumulative logprob). ``group``: as for
+    :func:`greedy_decode`.
     """
     _check_topk(opts)
     B, V = init_logits.shape
@@ -201,7 +223,7 @@ def beam_decode(
         best_alive = length_penalized(alive_scores.amax(dim=1), step + max_new, alpha)
         worst_fin = fin_scores.amin(dim=1)
         saturated = (fin_count >= target_finished) & (best_alive <= worst_fin)
-        if bool(saturated.all()):
+        if _all_done(saturated, group):
             break
 
         cand = alive_scores[:, :, None] + logprobs  # (B, K, V)

@@ -29,11 +29,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 ROW_CHUNK = 64
 
 
-def map_rows(fn: Callable[[torch.Tensor], torch.Tensor], rows: np.ndarray, device: torch.device) -> np.ndarray:
+def map_rows(
+    fn: Callable[[torch.Tensor], torch.Tensor], rows: np.ndarray, device: torch.device, mesh=None
+) -> np.ndarray:
     """``fn`` over the rows of a host array, ``ROW_CHUNK`` rows at a time on
     ``device`` so that memory stays bounded (rows are independent, so the
     result does not depend on the cut); the outputs concatenated on the host
-    as float32."""
+    as float32. Under a ``parallel.make_mesh`` mesh the rows pad to
+    ``pad_rows_to_mesh``'s granule, each rank maps its own share on its
+    device, and every rank gets all the rows back (a collective: every rank
+    calls it)."""
+    if mesh is not None:
+        from .parallel.mesh import gather_rows, pad_rows_to_mesh
+
+        with torch.inference_mode():
+            local = pad_rows_to_mesh(mesh, np.asarray(rows, np.float32))
+            out = torch.cat([fn(local[i : i + ROW_CHUNK]).float() for i in range(0, local.shape[0], ROW_CHUNK)])
+            return gather_rows(mesh, out)[: rows.shape[0]].cpu().numpy()
     out = []
     with torch.inference_mode():
         for i in range(0, rows.shape[0], ROW_CHUNK):

@@ -113,15 +113,16 @@ class NeuralSpeakerEmbedding:
     """Batched window → embedding inference: kaldi fbank (hamming, CMN) — the
     WeSpeaker front end — then the net, then L2 normalization."""
 
-    def __init__(self, model: ResNet34Embedding):
+    def __init__(self, model: ResNet34Embedding, mesh=None):
         self.model = model.eval()
+        self.mesh = mesh  # data-parallel window batches when set
 
     def _fwd(self, wavs: torch.Tensor) -> torch.Tensor:
         emb = self.model(kaldi_fbank(wavs, num_mel_bins=self.model.n_mels))
         return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
 
     def __call__(self, windows: np.ndarray) -> np.ndarray:  # (B, T) -> (B, D)
-        return map_rows(self._fwd, windows, self.model.device)
+        return map_rows(self._fwd, windows, self.model.device, self.mesh)
 
 
 def _melstats_fwd(wavs: torch.Tensor) -> torch.Tensor:
@@ -140,11 +141,12 @@ class MelStatsEmbedding:
     """Weight-free embedding: log-mel moments + deltas, L2-normalized.
     ``device=None`` means the card."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh  # data-parallel window batches when set
 
     def __call__(self, windows: np.ndarray) -> np.ndarray:
-        return map_rows(_melstats_fwd, windows, self.device)
+        return map_rows(_melstats_fwd, windows, self.device, self.mesh)
 
 
 def init_resnet34_params(seed: int = 0, embed_dim: int = 256, stage_blocks=(3, 4, 6, 3)) -> dict:

@@ -21,7 +21,8 @@ Two modes:
   overlapping speakers.
 
 The networks run on ``device`` (``None`` means the card; pass ``"cpu"`` for
-the CPU). A checkpoint that does not load raises: it never falls back to the
+the CPU), or on the rank's device of ``mesh``, whose "data" axis the window
+batches split over. A checkpoint that does not load raises: it never falls back to the
 weight-free scorers. The agglomerative cosine-distance threshold used when
 the speaker count is unknown is ``clustering_threshold`` (default 0.7).
 """
@@ -35,6 +36,7 @@ import numpy as np
 from ..audio.constants import SAMPLE_RATE
 from ..audio.io import load_audio
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import mesh_device
 from ..vad.model import EnergyVAD, VadPipeline, load_vad_model
 from .assign import Segment
 from .cluster import cluster_speakers
@@ -72,8 +74,9 @@ class DiarizationPipeline:
         segmentation=None,
         segmentation_checkpoint: Optional[str] = None,
         clustering_threshold: float = 0.7,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh) if mesh is not None else resolve_device(device)
         if embedder is None:
             if checkpoint:
                 # WeSpeaker ResNet34 (the embedding model inside the
@@ -115,6 +118,15 @@ class DiarizationPipeline:
                 verify_checkpoint_sha256(segmentation_checkpoint, None)
             segmentation = NeuralSegmentation(load_pyannet_vad(segmentation_checkpoint, device=self.device))
         self.segmentation = segmentation
+        # Data-parallel mesh (parallel.make_mesh): window batches of the
+        # embedder and the segmentation scorer split over the "data" axis
+        # and are gathered back (the reference's pyannote pipeline is
+        # strictly single-device, whisperx/diarize.py:19).
+        self.mesh = mesh
+        if mesh is not None:
+            for stage in (self.embedder, self.segmentation):
+                if stage is not None and hasattr(stage, "mesh"):
+                    stage.mesh = mesh
         self._overlap = None
         if segmentation is not None:
             from .segmentation import OverlapDiarizer

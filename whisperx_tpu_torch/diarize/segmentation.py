@@ -51,11 +51,12 @@ class NeuralSegmentation:
     max-reduced mono VAD score.
     """
 
-    def __init__(self, model):
+    def __init__(self, model, mesh=None):
         self.model = model.eval()
+        self.mesh = mesh  # data-parallel window batches when set
 
     def __call__(self, windows: np.ndarray) -> np.ndarray:  # (W, T) -> (W, T', C)
-        return map_rows(self.model, windows, self.model.device)
+        return map_rows(self.model, windows, self.model.device, self.mesh)
 
 
 class OverlapDiarizer:

@@ -29,6 +29,10 @@ Layout changes, leaf by leaf:
 - Dense kernels keep (K, N) = (in, out): the layout the int8 kernel reads;
   int4 ones are packed two to a byte along K, (K / 2, N).
 - Everything else (embeddings, scales, biases, LayerNorms) is copied as is.
+
+With a ``mesh`` (``parallel.make_mesh``), :func:`whisper_from_jax` and
+:func:`wav2vec2_from_jax` build this rank's tensor-parallel slice of the
+model from :func:`local_params`.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..diarize.embed import ResNet34Embedding
+from ..parallel.mesh import axis_index, axis_size
+from ..parallel.partition import W2V2_RULES, WHISPER_RULES, shard_leaf, shard_params
 from .configs import Wav2Vec2Config, WhisperConfig
 from .vad_net import PyanNetVAD
 from .wav2vec2 import Wav2Vec2ForCTC
@@ -678,6 +684,32 @@ def whisper_to_jax(model: nn.Module) -> dict:
     return tree
 
 
+def local_params(params: dict, mesh, rules) -> dict:
+    """This rank's slices of ``params`` for the port's tensor-parallel
+    modules: :func:`~..parallel.partition.shard_params`, then the ``bias``
+    and ``kernel_scale`` of every kernel whose output dim was split are cut
+    with it. (pjit adds a whole bias to split columns as it stands, so the
+    wav2vec2 rules leave the q/k/v biases whole; a local module adds only
+    its own columns'.)"""
+    local = shard_params(params, mesh, rules)
+    n, i = axis_size(mesh, "model"), axis_index(mesh, "model")
+
+    def walk(full: dict, loc: dict) -> None:
+        for name, child in loc.items():
+            if isinstance(child, dict):
+                walk(full[name], child)
+        if "kernel" not in loc or np.ndim(loc["kernel"]) != 2:
+            return
+        cols = np.shape(full["kernel"])[1]
+        if loc["kernel"].shape[1] != cols:
+            for name in ("bias", "kernel_scale"):
+                if name in loc and loc[name].shape == (cols,):
+                    loc[name] = shard_leaf(loc[name], ("model",), n, i)
+
+    walk(params, local)
+    return local
+
+
 def whisper_from_jax(
     params: dict,
     config: WhisperConfig,
@@ -686,6 +718,7 @@ def whisper_from_jax(
     attn_impl: str = "auto",
     quant_bits: Optional[int] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Whisper:
     """A port ``Whisper`` holding ``params`` (numpy tree, JAX layout).
 
@@ -693,8 +726,13 @@ def whisper_from_jax(
     the width with ``quant_bits=None``: 4 if a leaf is int4 (a JAX int4 tree
     through ``np.asarray``), else 8. ``quant_bits=4`` reads int8-valued int4
     kernels (``quantize_params(..., bits=4)``). ``device=None`` means the
-    card.
+    card. With ``mesh``, the model is this rank's slice under
+    ``WHISPER_RULES`` (quantize first, then split: column splits take their
+    slice of ``kernel_scale``, row splits keep it whole); a fused-QKV tree
+    does not split, so fuse only without a "model" axis.
     """
+    if mesh is not None:
+        params = local_params(params, mesh, WHISPER_RULES)
     q_enc = _has_key(params["encoder"], "kernel_scale")
     q_dec = _has_key(params["decoder"], "kernel_scale")
     quantized = (q_enc and q_dec) or ("encoder" if q_enc else "decoder" if q_dec else False)
@@ -703,7 +741,7 @@ def whisper_from_jax(
         quant_bits = 4 if any(_is_int4(leaf) for _, leaf in _flatten(params)) else 8
     model = Whisper(
         config, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused, attn_impl=attn_impl,
-        device=device,
+        device=device, mesh=mesh,
     )
     return load_jax_params(model, params)
 
@@ -715,13 +753,17 @@ def wav2vec2_from_jax(
     dtype: torch.dtype = torch.float32,
     attn_impl: str = "auto",
     device: DeviceLike = None,
+    mesh=None,
 ) -> Wav2Vec2ForCTC:
     """A port ``Wav2Vec2ForCTC`` holding ``params`` (numpy tree, the Flax
     layout of ``whisperx_tpu/models/wav2vec2.py``): the int8 model when the
     tree holds ``kernel_scale`` leaves (``quantize_wav2vec2``'s tree), the
-    fp one otherwise. ``device=None`` means the card."""
+    fp one otherwise. ``device=None`` means the card. With ``mesh``, the
+    model is this rank's slice under ``W2V2_RULES``."""
+    if mesh is not None:
+        params = local_params(params, mesh, W2V2_RULES)
     quantized = _has_key(params, "kernel_scale")
-    model = Wav2Vec2ForCTC(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
+    model = Wav2Vec2ForCTC(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device, mesh=mesh)
     return load_jax_params(model, params)
 
 

@@ -25,6 +25,11 @@ Differences in mechanism, not in value:
   most 256 rows with both widths multiples of 128 (short alignment batches)
   go through ``ops/int8_mm.py``, as they go through the Pallas kernel in the
   JAX package.
+
+Under a ``mesh`` the transformer's attention (local heads, row-parallel
+``out_proj``) and feed-forward (local hidden units, row-parallel ``output``)
+split over the "model" axis as ``models/whisper.py``'s do; ``lm_head``, the
+feature extractor and the positional conv stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import fused_self_attention
 from .configs import Wav2Vec2Config
-from .whisper import Conv, Dense, LayerNorm, _param
+from ..parallel.mesh import mesh_device, model_group
+from .whisper import Conv, Dense, LayerNorm, _param, local_heads, split_factor
 
 NEG_MASK = -1e9
 
@@ -106,49 +112,56 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class W2VAttention(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str = "auto", device):
+    def __init__(
+        self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str = "auto", group=None, device
+    ):
         super().__init__()
         d = config.hidden_size
-        self.num_heads = config.num_heads
+        self.head_dim = d // config.num_heads
+        self.num_heads = local_heads(d, config.num_heads, group)  # this rank's heads
+        width = self.num_heads * self.head_dim
         # ops/attention.py:fused_self_attention's impl ("auto" | "xla" | "flash").
         self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, device=device)
-        self.q_proj = Dense(d, d, **kw)
-        self.k_proj = Dense(d, d, **kw)
-        self.v_proj = Dense(d, d, **kw)
-        self.out_proj = Dense(d, d, **kw)
+        self.q_proj = Dense(d, width, **kw)
+        self.k_proj = Dense(d, width, **kw)
+        self.v_proj = Dense(d, width, **kw)
+        self.out_proj = Dense(width, d, reduce_group=group if width != d else None, **kw)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        B, T, D = x.shape
-        H = self.num_heads
-        Dh = D // H
+        B, T, _ = x.shape
+        H, Dh = self.num_heads, self.head_dim
         scale = Dh**-0.25
         q = self.q_proj(x).reshape(B, T, H, Dh) * scale
         k = self.k_proj(x).reshape(B, T, H, Dh) * scale
         v = self.v_proj(x).reshape(B, T, H, Dh)
         out = fused_self_attention(q, k, v, pad_mask, impl=self.attn_impl, neg_mask=NEG_MASK)
-        return self.out_proj(out.reshape(B, T, D))
+        return self.out_proj(out.reshape(B, T, H * Dh))
 
 
 class W2VFeedForward(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, group=None, device):
         super().__init__()
         kw = dict(dtype=dtype, quantized=quantized, device=device)
-        self.intermediate = Dense(config.hidden_size, config.intermediate_size, **kw)
-        self.output = Dense(config.intermediate_size, config.hidden_size, **kw)
+        F_ = config.intermediate_size
+        hidden = F_ // split_factor(F_, group)
+        self.intermediate = Dense(config.hidden_size, hidden, **kw)
+        self.output = Dense(hidden, config.hidden_size, reduce_group=group if hidden != F_ else None, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.output(F.gelu(self.intermediate(x)))
 
 
 class W2VEncoderLayer(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str, device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str, group=None, device):
         super().__init__()
         self.config, self.dtype = config, dtype
         eps = config.layer_norm_eps
-        self.attention = W2VAttention(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
+        self.attention = W2VAttention(
+            config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, group=group, device=device
+        )
         self.layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
-        self.feed_forward = W2VFeedForward(config, dtype=dtype, quantized=quantized, device=device)
+        self.feed_forward = W2VFeedForward(config, dtype=dtype, quantized=quantized, group=group, device=device)
         self.final_layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -168,7 +181,8 @@ class Wav2Vec2ForCTC(nn.Module):
     ``ops.attention.set_attn_impl`` changes it later). ``quantized``: int8
     weight-only projections in the transformer and ``feat_projection``
     (the convolutions and the ``lm_head`` emissions projection stay fp).
-    ``device=None`` means the card.
+    ``device=None`` means the card (the rank's device under a ``mesh``, whose
+    "model" axis the transformer splits over).
     """
 
     def __init__(
@@ -179,9 +193,11 @@ class Wav2Vec2ForCTC(nn.Module):
         quantized: bool = False,
         attn_impl: str = "auto",
         device: DeviceLike = None,
+        mesh=None,
     ):
         super().__init__()
-        device = resolve_device(device)
+        device = resolve_device(mesh_device(mesh) if device is None and mesh is not None else device)
+        group = model_group(mesh)
         cfg = config
         self.config, self.dtype, self.quantized = cfg, dtype, quantized
         eps = cfg.layer_norm_eps
@@ -191,7 +207,7 @@ class Wav2Vec2ForCTC(nn.Module):
         self.pos_conv_embed = ConvPositionalEmbedding(cfg, dtype=dtype, device=device)
         self.encoder_layer_norm = LayerNorm(cfg.hidden_size, device, eps=eps)
         self.layers = nn.ModuleList(
-            W2VEncoderLayer(cfg, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device)
+            W2VEncoderLayer(cfg, dtype=dtype, quantized=quantized, attn_impl=attn_impl, group=group, device=device)
             for _ in range(cfg.num_layers)
         )
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=dtype, device=device)

@@ -31,6 +31,18 @@ Differences in mechanism, not in value:
   code casts its int4 arrays, and the products then run on the same values.
   int4 projections never go through ``ops/int8_mm.py``: the JAX package
   computes them with an XLA ``dot``.
+
+Tensor parallelism (``Whisper(mesh=...)``, built by ``models/convert.py:
+whisper_from_jax(..., mesh=)`` from ``parallel/partition.py``'s slices):
+where pjit splits the JAX package's arrays over the mesh's "model" axis,
+each rank here holds the local slice and calls the collectives itself, in
+the Megatron layout. Attention runs ``n_head / n_model`` local heads (the
+caches and scale planes hold only those), fc1 ``4d / n_model`` hidden units;
+the row-parallel projections (``attn/out``, ``cross_attn/out``, ``mlp/fc2``)
+all-reduce fp32 partial products over the group (:meth:`Dense.
+_row_parallel`); a vocab-split token embedding looks up its own rows and
+all-reduces, and its logits are gathered before the search. A dimension that
+does not divide ``n_model`` stays whole, as ``shard_params`` keeps it.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -46,6 +59,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.attention import fused_self_attention, matmul_f32
 from ..ops.cross_attn import cross_attention_decode
 from ..ops.int8_mm import MAX_ROWS, int8_matmul
+from ..parallel.mesh import gather_cat, mesh_device, model_group
 from .configs import WhisperConfig
 
 NEG_MASK = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
@@ -139,13 +153,33 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
 
 
+def split_factor(width: int, group) -> int:
+    """How many ways a dimension of ``width`` splits over the tensor-parallel
+    ``group``: its size where that divides ``width``, else 1 (the dimension
+    stays whole, as ``parallel/partition.py:shard_params`` keeps it)."""
+    n = 1 if group is None else dist.get_world_size(group)
+    return n if width % n == 0 else 1
+
+
+def local_heads(d_model: int, n_head: int, group) -> int:
+    """Attention heads a rank of ``group`` runs: all of them, or
+    ``n_head / n`` where the projections split ``n`` ways. Raises where the
+    split would cut a head (the port splits attention by whole heads)."""
+    tp = split_factor(d_model, group)
+    if n_head % tp:
+        raise ValueError(f"{n_head} heads of width {d_model // n_head} do not split over {tp} ranks")
+    return n_head // tp
+
+
 class Dense(nn.Module):
     """Projection with an optional int8 or int4 weight-only mode.
 
     ``kernel`` is (in_features, features), the layout the int8 kernel reads;
     with ``quant_bits=4`` it is (in_features / 2, features) of
     :data:`PACKED_INT4`, packed along in_features. Quantized modules add a
-    per-output-channel fp32 ``kernel_scale``.
+    per-output-channel fp32 ``kernel_scale``. With ``reduce_group`` the
+    projection is row-parallel: ``in_features`` is this rank's slice of the
+    input dim, and the output is summed over the group.
     """
 
     def __init__(
@@ -157,6 +191,7 @@ class Dense(nn.Module):
         dtype: torch.dtype = torch.float32,
         quantized: bool = False,
         quant_bits: int = 8,
+        reduce_group=None,
         device: DeviceLike,
     ):
         super().__init__()
@@ -167,6 +202,7 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.quantized = quantized
         self.quant_bits = quant_bits
+        self.reduce_group = reduce_group
         if quantized and quant_bits == 4:
             self.kernel = _param((in_features // 2, features), PACKED_INT4, device)
         else:
@@ -175,7 +211,29 @@ class Dense(nn.Module):
             self.kernel_scale = _param((features,), torch.float32, device)
         self.bias = _param((features,), torch.float32, device) if use_bias else None
 
+    def _weight(self) -> torch.Tensor:
+        return unpack_int4(self.kernel, dim=0) if self.quantized and self.quant_bits == 4 else self.kernel
+
+    def _row_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial product in fp32, without the bias (through the
+        int8 kernel where :func:`use_int8_kernel` holds), all-reduced over
+        the group; then the bias, once, and the cast to the model dtype."""
+        if self.quantized and self.quant_bits == 8 and use_int8_kernel(x, self.features):
+            lead = x.shape[:-1]
+            x2 = x.reshape(-1, self.in_features)
+            y = int8_matmul(x2, self.kernel, self.kernel_scale, None, out_dtype=torch.float32).reshape(*lead, self.features)
+        else:
+            y = matmul_f32(x.to(self.dtype), self._weight().to(self.dtype))
+            if self.quantized:
+                y = y * self.kernel_scale
+        dist.all_reduce(y, group=self.reduce_group)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.reduce_group is not None:
+            return self._row_parallel(x)
         if self.quantized:
             if self.quant_bits == 8 and use_int8_kernel(x, self.features):
                 lead = x.shape[:-1]
@@ -187,8 +245,7 @@ class Dense(nn.Module):
                     out_dtype=self.dtype,
                 )
                 return y.reshape(*lead, self.features)
-            w = unpack_int4(self.kernel, dim=0) if self.quant_bits == 4 else self.kernel
-            y = torch.matmul(x.to(self.dtype), w.to(self.dtype))
+            y = torch.matmul(x.to(self.dtype), self._weight().to(self.dtype))
             y = y * self.kernel_scale.to(self.dtype)
         else:
             y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
@@ -242,7 +299,11 @@ class Conv(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Attention with an optional static KV cache and precomputed cross K/V."""
+    """Attention with an optional static KV cache and precomputed cross K/V.
+
+    Under a tensor-parallel ``group`` the module runs its rank's
+    :func:`local_heads`: q/k/v project to ``width = n_head * head_dim``
+    local columns and ``out`` is row-parallel."""
 
     def __init__(
         self,
@@ -254,24 +315,28 @@ class MultiHeadAttention(nn.Module):
         quant_bits: int = 8,
         fused_qkv: bool = False,
         attn_impl: str = "auto",
+        group=None,
         device: DeviceLike,
     ):
         super().__init__()
         self.d_model = d_model
-        self.n_head = n_head
         self.head_dim = d_model // n_head
+        self.n_head = local_heads(d_model, n_head, group)  # this rank's heads
+        self.width = self.n_head * self.head_dim
         self.dtype = dtype
         self.fused_qkv = fused_qkv
         # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it.
         self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
+        if fused_qkv and self.width != d_model:
+            raise ValueError("fused QKV is not split under tensor parallelism; load the unfused tree")
         if fused_qkv:
             self.qkv = Dense(d_model, 3 * d_model, **kw)
         else:
-            self.query = Dense(d_model, d_model, **kw)
-            self.key = Dense(d_model, d_model, use_bias=False, **kw)
-            self.value = Dense(d_model, d_model, **kw)
-        self.out = Dense(d_model, d_model, **kw)
+            self.query = Dense(d_model, self.width, **kw)
+            self.key = Dense(d_model, self.width, use_bias=False, **kw)
+            self.value = Dense(d_model, self.width, **kw)
+        self.out = Dense(self.width, d_model, reduce_group=group if self.width != d_model else None, **kw)
 
     def _split(self, h: torch.Tensor) -> torch.Tensor:  # (B, T, D) -> (B, T, H, Dh)
         return h.reshape(h.shape[0], h.shape[1], self.n_head, self.head_dim)
@@ -279,7 +344,7 @@ class MultiHeadAttention(nn.Module):
     def _project_qkv(self, x: torch.Tensor):
         if self.fused_qkv:
             y = self.qkv(x)
-            D = self.d_model
+            D = self.width
             return y[..., :D], y[..., D : 2 * D], y[..., 2 * D :]
         return self.query(x), self.key(x), self.value(x)
 
@@ -306,9 +371,9 @@ class MultiHeadAttention(nn.Module):
             Tq = x.shape[1]
             group = x.shape[0] // Bkv
             q = self.query(x) * (head_dim**-0.5)  # full 1/sqrt(Dh): exact in bf16
-            q = q.reshape(Bkv, group * Tq, self.d_model).to(torch.bfloat16).contiguous()
+            q = q.reshape(Bkv, group * Tq, self.width).to(torch.bfloat16).contiguous()
             out = cross_attention_decode(q, fkv.k, fkv.v, fkv.k_scale, fkv.v_scale)
-            out = out.to(self.dtype).reshape(x.shape[0], Tq, self.d_model)
+            out = out.to(self.dtype).reshape(x.shape[0], Tq, self.width)
             return self.out(out), None
 
         # int8/int4 K/V carry per-(token, head) scales that commute with both
@@ -329,7 +394,7 @@ class MultiHeadAttention(nn.Module):
         # Encoder path: full bidirectional self-attention, no cache.
         if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
             out = fused_self_attention(q, k * scale, v, impl=self.attn_impl)
-            return self.out(out.reshape(x.shape[0], x.shape[1], self.d_model)), None
+            return self.out(out.reshape(x.shape[0], x.shape[1], self.width)), None
 
         new_cache = None
         if cache is not None:
@@ -368,26 +433,32 @@ class MultiHeadAttention(nn.Module):
         if vs is not None:
             weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :].to(self.dtype)
         out = torch.matmul(weights, v.to(self.dtype).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
-        out = out.permute(0, 2, 1, 3).reshape(x.shape[0], Tq, self.d_model)
+        out = out.permute(0, 2, 1, 3).reshape(x.shape[0], Tq, self.width)
         return self.out(out), new_cache
 
 
 class MLP(nn.Module):
-    def __init__(self, d_model: int, *, dtype, quantized, quant_bits=8, device):
+    """fc1 → GELU → fc2; under a tensor-parallel ``group`` fc1 holds this
+    rank's hidden units and fc2 is row-parallel."""
+
+    def __init__(self, d_model: int, *, dtype, quantized, quant_bits=8, group=None, device):
         super().__init__()
         kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
-        self.fc1 = Dense(d_model, 4 * d_model, **kw)
-        self.fc2 = Dense(4 * d_model, d_model, **kw)
+        hidden = 4 * d_model // split_factor(4 * d_model, group)
+        self.fc1 = Dense(d_model, hidden, **kw)
+        self.fc2 = Dense(hidden, d_model, reduce_group=group if hidden != 4 * d_model else None, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl, device):
+    def __init__(
+        self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl, group=None, device
+    ):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, group=group, device=device)
         self.attn_ln = LayerNorm(d_model, device)
         self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, attn_impl=attn_impl, **kw)
         self.mlp_ln = LayerNorm(d_model, device)
@@ -400,7 +471,9 @@ class EncoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl="auto", device):
+    def __init__(
+        self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl="auto", group=None, device
+    ):
         super().__init__()
         cfg = config
         self.dtype = dtype
@@ -410,7 +483,7 @@ class AudioEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderBlock(
                 D, cfg.n_audio_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
-                attn_impl=attn_impl, device=device,
+                attn_impl=attn_impl, group=group, device=device,
             )
             for _ in range(cfg.n_audio_layer)
         )
@@ -429,10 +502,10 @@ class AudioEncoder(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, device):
+    def __init__(self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, group=None, device):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
+        kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, group=group, device=device)
         self.attn_ln = LayerNorm(d_model, device)
         self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, **kw)
         self.cross_attn_ln = LayerNorm(d_model, device)
@@ -454,28 +527,55 @@ class DecoderBlock(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, device):
+    """Token embedding → decoder blocks → tied logits. Under a
+    tensor-parallel ``group`` whose size divides ``n_vocab``, the embedding
+    holds this rank's ``n_vocab / n`` rows, starting at ``vocab_start``."""
+
+    def __init__(self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, group=None, device):
         super().__init__()
         cfg = config
         self.dtype = dtype
         self.quantized = quantized
         D = cfg.n_text_state
+        vocab_tp = split_factor(cfg.n_vocab, group)
+        self.vocab_group = group if vocab_tp > 1 else None
+        rows = cfg.n_vocab // vocab_tp
+        self.vocab_start = rows * dist.get_rank(group) if self.vocab_group is not None else 0
         if quantized:
             # Per-row int8 embedding table (int4 models too); the row scales
             # commute with the tied logits product.
-            self.token_embedding = _param((cfg.n_vocab, D), torch.int8, device)
-            self.token_embedding_scale = _param((cfg.n_vocab,), torch.float32, device)
+            self.token_embedding = _param((rows, D), torch.int8, device)
+            self.token_embedding_scale = _param((rows,), torch.float32, device)
         else:
-            self.token_embedding = _param((cfg.n_vocab, D), torch.float32, device)
+            self.token_embedding = _param((rows, D), torch.float32, device)
         self.positional_embedding = _param((cfg.n_text_ctx, D), torch.float32, device)
         self.layers = nn.ModuleList(
             DecoderBlock(
                 D, cfg.n_text_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
-                device=device,
+                group=group, device=device,
             )
             for _ in range(cfg.n_text_layer)
         )
         self.ln = LayerNorm(D, device)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token rows in the compute dtype. A vocab-split table looks up the
+        ids in its own rows, zeros the others and all-reduces: exactly one
+        rank contributes each row, so the sum is the unsplit lookup."""
+        emb = self.token_embedding
+        ids = tokens
+        if self.vocab_group is not None:
+            ids = tokens - self.vocab_start
+            mine = (ids >= 0) & (ids < emb.shape[0])
+            ids = torch.where(mine, ids, 0)
+        x = emb[ids].to(self.dtype)
+        if self.quantized:
+            x = x * self.token_embedding_scale[ids][..., None].to(self.dtype)
+        if self.vocab_group is not None:
+            x = torch.where(mine[..., None], x.float(), 0.0)
+            dist.all_reduce(x, group=self.vocab_group)
+            x = x.to(self.dtype)
+        return x
 
     def forward(self, tokens: torch.Tensor, cache: Cache, cache_index: int):
         """Decode ``tokens`` (B, T) starting at absolute position ``cache_index``.
@@ -485,9 +585,7 @@ class TextDecoder(nn.Module):
         """
         T = tokens.shape[1]
         emb = self.token_embedding
-        x = emb[tokens].to(self.dtype)
-        if self.quantized:
-            x = x * self.token_embedding_scale[tokens][..., None].to(self.dtype)
+        x = self._embed(tokens)
         x = x + self.positional_embedding.to(self.dtype)[cache_index : cache_index + T]
 
         # Causal mask against the static cache: the query at absolute position
@@ -514,6 +612,8 @@ class TextDecoder(nn.Module):
         logits = matmul_f32(x.to(self.dtype), table.t())
         if self.quantized:
             logits = logits * self.token_embedding_scale[None, None, :]
+        # A vocab-split table gives this rank's columns; the search needs all.
+        logits = gather_cat(logits, -1, self.vocab_group)
         return logits, {"self": new_self, "cross": cache["cross"]}
 
     def compute_cross_kv(self, audio_states: torch.Tensor):
@@ -528,7 +628,10 @@ class Whisper(nn.Module):
     ``fused_qkv``: one (D, 3D) projection for every self-attention block;
     pair with :func:`fuse_qkv_params`. ``attn_impl``: the encoder's
     self-attention path ("auto" | "xla" | "flash"; ``ops.attention.
-    set_attn_impl`` changes it later). ``device=None`` means the card.
+    set_attn_impl`` changes it later). ``device=None`` means the card (the
+    rank's device under a ``mesh``). ``mesh``: a ``parallel.make_mesh``
+    mesh whose "model" axis the module splits over (module docstring);
+    ``tp_group`` is that axis's process group, None without a split.
     """
 
     def __init__(
@@ -541,9 +644,12 @@ class Whisper(nn.Module):
         fused_qkv: bool = False,
         attn_impl: str = "auto",
         device: DeviceLike = None,
+        mesh=None,
     ):
         super().__init__()
-        device = resolve_device(device)
+        device = resolve_device(mesh_device(mesh) if device is None and mesh is not None else device)
+        self.mesh = mesh
+        self.tp_group = group = model_group(mesh)
         self.config = config
         self.dtype = dtype
         self.quantized = quantized
@@ -551,7 +657,7 @@ class Whisper(nn.Module):
         self.fused_qkv = fused_qkv
         q_enc = quantized is True or quantized == "encoder"
         q_dec = quantized is True or quantized == "decoder"
-        kw = dict(dtype=dtype, quant_bits=quant_bits, fused_qkv=fused_qkv, device=device)
+        kw = dict(dtype=dtype, quant_bits=quant_bits, fused_qkv=fused_qkv, group=group, device=device)
         self.encoder = AudioEncoder(config, quantized=q_enc, attn_impl=attn_impl, **kw)
         self.decoder = TextDecoder(config, quantized=q_dec, **kw)
 
@@ -597,9 +703,9 @@ class Whisper(nn.Module):
         engine."""
         cfg = self.config
         dt = cache_dtype or self.dtype
-        head_dim = cfg.n_text_state // cfg.n_text_head
-        shape = (batch, cache_len or cfg.n_text_ctx, cfg.n_text_head, head_dim)
-        vshape = shape[:-1] + (head_dim // 2,) if dt == PACKED_INT4 else shape
+        attn = self.decoder.layers[0].attn
+        shape = (batch, cache_len or cfg.n_text_ctx, attn.n_head, attn.head_dim)
+        vshape = shape[:-1] + (attn.head_dim // 2,) if dt == PACKED_INT4 else shape
         dev = self.device
 
         def one_layer():

@@ -13,8 +13,16 @@ PCM and turned into log-mel features on the device, and one batch is kept in
 flight while the host detokenizes the one before.
 
 Differences: the weights live in the model, so the pipeline takes no
-parameter tree; ``mesh`` (multi-device) is not ported (ROADMAP.md queue 1,
-item 9) and a ``device`` argument takes its place.
+parameter tree, and a ``device`` argument says where it runs. ``mesh`` is
+a ``parallel.make_mesh`` mesh over ``torch.distributed`` ranks, one process
+per device: the model holds this rank's slice of the weights
+(``whisper_from_jax(..., mesh=)``), every batch pads to a multiple of the
+"data" axis, each rank decodes its own rows, and the rows are gathered back
+so that every rank returns the whole transcript. ``load_model``'s
+``mesh="auto"`` means no mesh: in the JAX package it builds one over the
+devices of the process, and a process here drives one device; a mesh over
+ranks is always explicit (the CLI shards its files over ranks and runs each
+rank without one).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from ..decode.search import SearchOptions
 from ..decode.tokenizer import WhisperTokenizer
 from ..device import DeviceLike, resolve_device
 from ..io.types import SingleSegment, TranscriptionResult
+from ..parallel.mesh import axis_size, mesh_device, shard_batch
 from ..utils.telemetry import PipelineTelemetry
 from ..vad.model import EnergyVAD, VadPipeline, load_vad_model
 
@@ -94,8 +103,11 @@ class WhisperPipeline:
         tokenizer: Optional[WhisperTokenizer] = None,
         language: Optional[str] = None,
         suppress_numerals: bool = False,
+        mesh: Any = None,
         kv_cache_dtype: str = "model",
     ):
+        if mesh is not None and axis_size(mesh, "model") > 1 and engine.model.mesh is not mesh:
+            raise ValueError("a mesh with a model axis needs the model built for it: whisper_from_jax(..., mesh=mesh)")
         self.engine = engine
         self.vad_model = vad
         self._vad_params = vad_params
@@ -107,11 +119,20 @@ class WhisperPipeline:
         # cache (load_model pairs it with int8 weights).
         self.kv_cache_dtype = kv_cache_dtype
         self.model = engine.model
+        self.mesh = mesh
         self.telemetry = PipelineTelemetry()
 
     @property
     def device(self) -> torch.device:
         return self.engine.device
+
+    def _data_granule(self) -> int:
+        return axis_size(self.mesh, "data") if self.mesh is not None else 1
+
+    def _gathered(self, result):
+        """A batch's result with every data rank's rows (``DecodeResult.
+        gathered``); the result itself without a mesh."""
+        return result if self.mesh is None else result.gathered(self.mesh)
 
     # -- helpers -------------------------------------------------------------
 
@@ -161,17 +182,21 @@ class WhisperPipeline:
 
     def _mel(self, wavs: np.ndarray) -> torch.Tensor:
         """(B, N) host waveforms → (B, n_mels, 3000) features in the model's
-        dtype, computed on the model's device. The upload goes through pinned
-        memory without blocking the host; int16 PCM is divided by 32768 on
-        the device."""
-        t = torch.from_numpy(wavs)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
+        dtype, computed on the model's device: this rank's rows under a mesh.
+        The upload goes through pinned memory without blocking the host;
+        int16 PCM is divided by 32768 on the device."""
+        if self.mesh is not None:
+            t = shard_batch(self.mesh, wavs)
+        else:
+            t = torch.from_numpy(wavs)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
         mel = log_mel_spectrogram(t, n_mels=self.engine.config.n_mels, device=self.device)
         return mel.to(self.model.dtype)
 
     def _feature_batches(self, audio: np.ndarray, chunks: List[dict], batch_size: int):
-        """Yield (mel_batch (B, n_mels, 3000), n_valid) fixed-shape batches.
+        """Yield (mel_batch (B, n_mels, 3000), n_valid) fixed-shape batches
+        (this rank's B / n_data rows under a mesh).
 
         ``audio`` may be float32 or int16 PCM (see ``_device_audio``): the
         waveform batch is uploaded in the audio's dtype.
@@ -204,6 +229,9 @@ class WhisperPipeline:
             audio = load_audio(audio)
         audio = np.asarray(audio, dtype=np.float32).reshape(-1)
         batch_size = batch_size or 8
+        # Batch rows must tile the mesh's data axis exactly (fixed shapes).
+        granule = self._data_granule()
+        batch_size = -(-batch_size // granule) * granule
         total_audio = len(audio) / SAMPLE_RATE
 
         with self.telemetry.stage("vad", audio_seconds=total_audio):
@@ -250,16 +278,18 @@ class WhisperPipeline:
         # is launched before batch i's tokens are read back, so host-side
         # detokenization and chunk prep overlap device work — the replacement
         # for the reference's DataLoader worker overlap (whisperx/asr.py:158-171).
+        # Under a mesh each batch's rows are gathered from the data axis as
+        # soon as it is launched, in the same order on every rank.
         total_audio_s = sum(s["end"] - s["start"] for s in vad_segments)
         with self.telemetry.stage("asr_decode", audio_seconds=total_audio_s):
             in_flight = None
             for mel, n_valid in self._feature_batches(audio_dev, vad_segments, batch_size):
-                result = engine.generate(
+                result = self._gathered(engine.generate(
                     mel, options=search_opts,
                     initial_prompt=self.options.initial_prompt,
                     prefix=self.options.prefix,
                     sync=False,
-                )
+                ))
                 if in_flight is not None:
                     consume(*in_flight)
                     done += in_flight[1]
@@ -337,12 +367,13 @@ class WhisperPipeline:
             done = 0
             for mel, n_valid in self._feature_batches(audio, retry_segments, batch_size):
                 gen = torch.Generator(device=self.device).manual_seed(hash((t_i, done)) & 0x7FFFFFFF)
-                result = engine.generate(
+                result = self._gathered(engine.generate(
                     mel, options=fb_opts,
                     initial_prompt=opts.initial_prompt,
                     prefix=opts.prefix,
                     generator=gen,
-                )
+                    sync=False,
+                ))
                 new_texts.extend(engine.decode_text(result)[:n_valid])
                 new_lps.extend(result.avg_logprobs[:n_valid].tolist())
                 done += n_valid
@@ -364,7 +395,9 @@ class WhisperPipeline:
         if audio.shape[0] < N_SAMPLES:
             print("Warning: audio is shorter than 30s, language detection may be inaccurate.")
         clip = pad_or_trim(_device_audio(np.asarray(audio, np.float32))[:N_SAMPLES])
-        mel = self._mel(np.ascontiguousarray(clip[None]))
+        # Tile the single clip over the mesh's data axis: every rank detects
+        # on the same clip.
+        mel = self._mel(np.ascontiguousarray(np.tile(clip[None], (self._data_granule(), 1))))
         (language, prob) = self.engine.detect_language(mel)[0]
         print(f"Detected language: {language} ({prob:.2f}) in first 30s of audio...")
         return language
@@ -417,6 +450,7 @@ def load_model(
     threads: int = 0,
     checkpoint: Optional[str] = None,
     vad_checkpoint: Optional[str] = None,
+    mesh: Any = "auto",
     kv_cache_dtype: str = "auto",
 ) -> WhisperPipeline:
     """Build the transcription pipeline (reference load_model API, asr.py:259).
@@ -430,16 +464,26 @@ def load_model(
     byte; the token embedding stays int8). ``kv_cache_dtype``: "auto" (int8
     for int8 and int4 weights, the model's dtype otherwise), "model",
     "int8" or "int4". ``device=None`` means the card (``cuda:<device_index>``);
-    pass ``device="cpu"`` for the plain PyTorch versions. ``model`` and
+    pass ``device="cpu"`` for the plain PyTorch versions. ``mesh``: a
+    ``parallel.make_mesh`` mesh to run data/tensor-parallel over (on its
+    rank's device; every rank calls ``load_model``), or "auto", which means
+    None here (module docstring). ``model`` and
     ``threads`` are accepted for reference API parity and unused, as in the
     JAX package.
     """
     from ..models.convert import read_whisper, resolve_checkpoint_dir, whisper_from_jax
     from ..models.whisper import fuse_qkv_params, quantize_params
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", device_index)
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh={mesh!r}: expected a mesh, None or 'auto'")
+        mesh = None
+    if mesh is not None:
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", device_index)
 
     if whisper_arch.endswith(".en"):
         language = "en"
@@ -471,9 +515,12 @@ def load_model(
         params = quantize_params(params, bits=bits)
     # Fuse q/k/v into one projection for the per-token decode path (the JAX
     # package's on-chip A/B winner); opt out with WHISPERX_FUSED_QKV=0.
-    if os.environ.get("WHISPERX_FUSED_QKV", "1") != "0":
+    # Skipped under a model axis (the partition rules target the unfused
+    # layout).
+    tp_size = axis_size(mesh, "model") if mesh is not None else 1
+    if os.environ.get("WHISPERX_FUSED_QKV", "1") != "0" and tp_size == 1:
         params = fuse_qkv_params(params)
-    whisper_model = whisper_from_jax(params, config, dtype=dtype, quant_bits=bits, device=dev)
+    whisper_model = whisper_from_jax(params, config, dtype=dtype, quant_bits=bits, device=dev, mesh=mesh)
     del params
     tokenizer_backend = WhisperTokenizer.from_pretrained(path, language=language, task=task)
     engine = WhisperEngine(whisper_model, tokenizer_backend)
@@ -513,6 +560,7 @@ def load_model(
         tokenizer=tokenizer,
         language=language,
         suppress_numerals=suppress_numerals,
+        mesh=mesh,
         kv_cache_dtype=kv_cache_dtype,
     )
 
@@ -524,18 +572,19 @@ def load_test_pipeline(
     beam_size: int = 1,
     config=None,
     device: DeviceLike = None,
+    mesh: Any = None,
 ) -> WhisperPipeline:
     """Random-weight pipeline on the miniature config (tests/benchmarks).
 
     The weights equal the JAX package's ``load_test_pipeline(seed=seed)``
     (``models/whisper.py:random_params``); fp32; ``device=None`` means the
-    card."""
+    card (the rank's device under a ``mesh``)."""
     from ..models.configs import TEST_CONFIG
     from ..models.convert import whisper_from_jax
     from ..models.whisper import random_params
 
     cfg = config or TEST_CONFIG
-    model = whisper_from_jax(random_params(cfg, seed=seed), cfg, device=device)
+    model = whisper_from_jax(random_params(cfg, seed=seed), cfg, device=device, mesh=mesh)
     backend_tok = WhisperTokenizer.dummy(cfg.n_vocab, language=language or "en")
     engine = WhisperEngine(model, backend_tok)
     tokenizer = WhisperTokenizer.dummy(cfg.n_vocab, language=language) if language else None
@@ -546,4 +595,5 @@ def load_test_pipeline(
         options=TranscriptionOptions(beam_size=beam_size, max_new_tokens=8),
         tokenizer=tokenizer,
         language=language,
+        mesh=mesh,
     )
