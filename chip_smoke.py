@@ -7,7 +7,8 @@ without the final ``ok`` line, on any failure: no card, the package missing,
 a kernel that does not build, launch or agree, a wrong result.
 
 Phases:
-  1. build every CUDA kernel of the paths (one nvcc per source, in parallel);
+  1. build every CUDA kernel of the paths and the device loop's
+     csrc/graph_loop.cu (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (plus edge shapes), and time the kernel, the plain version and
      one PyTorch library call (the yardstick) with cold caches; the flash
@@ -30,7 +31,12 @@ Phases:
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
      flagship), in two arms: the JAX package's defaults (plain log-mel,
      "xla" encoder attention, einsum cross attention) and the kernel arm
-     (log-mel kernel, flash encoder attention, cross-attention kernel);
+     (log-mel kernel, flash encoder attention, cross-attention kernel). The
+     loop runs on the card (one WHILE-graph launch a batch, ops/graph_loop.py);
+     each arm also runs the host loop on the same inputs (tokens, sum
+     log-probs and lengths equal), and the kernel arm's generate(sync=False)
+     returns before the loop ends, with no read of the card between the
+     launch and the fetch;
   5. drive the alignment path: wav2vec2 base (published widths, random
      weights from seed 0, bf16) aligning bench.py's fixed transcript to 8 x
      30 s of int16 audio through align_begin(...).finish(), with the "xla"
@@ -82,7 +88,11 @@ large-v2's tensor-parallel shard shapes, and cross-attention and flash at a
 rank's heads (10 and 6); phase 3 also checks int4-weight and int4-KV decode
 tokens and the int8 wav2vec2's alignment, card against CPU.
 Every kernel's launch count is zeroed just before each run of a path and
-read just after.
+read just after: the wrapper's count plus, for each device-loop launch,
+(launches in the captured step) x (steps the loop's device counter reports).
+Phases 4, 6, 7 and 9 decode on the device loop; phase 9 also holds it equal
+to the host loop on the same inputs; phase 10 (b) (a model split over gloo)
+runs the host loop.
 
 Prints the card's name and power limit, one line per check, a ``kernels``
 JSON line and, last, ``{"ok": true, "device": {...}}``. Every time is taken
@@ -92,6 +102,7 @@ on this card in this run.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -104,7 +115,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet)
-KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel")
+KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel", "graph_loop")
 # bench.py's alignment transcript (bench.py:277-285): ~70 words per 30 s chunk.
 _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
@@ -496,6 +507,27 @@ def profiled(torch, fn, iters: int = 1) -> dict:
         "wall_ms": wall_ms, "busy_ms": busy_ms,
         "kernels": [(e.key, e.self_device_time_total / 1e3 / iters, e.count // iters) for e in top],
     }
+
+
+def zero_launches() -> None:
+    """Zero every kernel's launch count: the wrappers' counters and the
+    launches inside device-loop graphs (``ops/graph_loop.py``)."""
+    from whisperx_tpu_torch.ops import graph_loop
+
+    for mod in graph_loop.COUNTERS.values():
+        mod.launches = 0
+    graph_loop.reset_counts()
+
+
+def read_launches() -> dict:
+    """Each kernel's launches since ``zero_launches``: its wrapper's count
+    (launches outside loop graphs) plus, for every device-loop launch,
+    (launches in the captured step) x (steps the loop's device counter
+    reports). Reads the card."""
+    from whisperx_tpu_torch.ops import graph_loop
+
+    in_loops = graph_loop.kernel_launches()
+    return {name: mod.launches + in_loops.get(name, 0) for name, mod in graph_loop.COUNTERS.items()}
 
 
 def max_err_within(torch, what: str, got, want, atol: float, rtol: float) -> float:
@@ -1154,9 +1186,9 @@ def small_int4_phase(torch) -> None:
             for cross in ("xla", "pallas"):
                 opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype=kv)
                 opts = dataclasses.replace(opts, cross_attn=cross)
-                int8_mm.launches = cross_attn.launches = 0
+                zero_launches()
                 got = engines["cuda"].generate(mel, options=opts)
-                launched = (int8_mm.launches, cross_attn.launches)
+                launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
                 want = engines["cpu"].generate(mel, options=opts)
                 if not np.array_equal(got.tokens, want.tokens):
                     raise AssertionError(f"small {what} beam={beam} cross={cross}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
@@ -1339,9 +1371,9 @@ def small_pipeline_phase(torch) -> None:
     try:
         for dev in ("cuda", "cpu"):
             pipe = pipeline(dev)
-            int8_mm.launches = cross_attn.launches = 0
+            zero_launches()
             res = pipe.transcribe(audio, batch_size=2, chunk_size=5)
-            launched = (int8_mm.launches, cross_attn.launches)
+            launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
             am = AlignModel(wav2vec2_from_jax(w2v_params, w2v_cfg, device=dev), dictionary, "en")
             aligned = align([dict(s, text=" the quick brown fox jumps") for s in res["segments"]], am, meta, audio, dev)
             results[dev] = (res, aligned, launched)
@@ -1546,7 +1578,7 @@ def main_path_phase(torch, card: str, model) -> dict:
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.search import beam_decode
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.ops import attention, graph_loop, mel
 
     cfg = model.config
     batch, beam, max_new = 8, 5, 112
@@ -1569,9 +1601,20 @@ def main_path_phase(torch, card: str, model) -> dict:
         attention.set_attn_impl(model, a["attn"])
         return dataclasses.replace(opts, cross_attn=a["cross"]), lambda x: a["mel"](x, n_mels=cfg.n_mels).to(torch.bfloat16)
 
-    # One-time CUDA and cuBLAS set-up, outside the counted runs.
-    o, mel_of = use("kernel")
-    engine.generate(mel_of(audio), options=dataclasses.replace(o, max_new_tokens=2))
+    # One-time CUDA and cuBLAS set-up, and each arm's device loop captured
+    # (a graph per shape key), outside the counted runs.
+    for arm in arms:
+        o, mel_of = use(arm)
+        engine.generate(mel_of(audio), options=o)
+        if not engine.uses_device_loop(o):
+            raise AssertionError(f"main path {arm}: the device loop is not chosen for {o}")
+        loop, _, graph = model.decode_loops[("beam", batch, len(engine.build_prompt(1)[0]), o, o.cross_attn)]
+        log(
+            f"device loop {arm} arm [{card}]: captured in {graph.capture_ms:.1f} ms (warm-up step + capture), WHILE "
+            f"graph built and instantiated in {graph.instantiate_ms:.1f} ms; captured step's pool "
+            f"{graph.pool_bytes / 2**20:.1f} MiB, static state {state_bytes(loop) / 2**20:.1f} MiB; launches in one "
+            f"step {graph.body_launches}"
+        )
 
     L = cfg.n_text_layer
     want = {
@@ -1583,39 +1626,66 @@ def main_path_phase(torch, card: str, model) -> dict:
             "log_mel": 1,  # one call for the batch
         },
     }
-    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     runs = {}
     for arm in ("reference", "kernel", "kernel", "reference"):  # in turns: two runs each
         o, mel_of = use(arm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         mel_b = mel_of(audio)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         res = engine.generate(mel_b, options=o)  # returns host arrays: synchronized
         t2 = time.perf_counter()
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = read_launches()
         if res.tokens.shape != (batch, max_new) or not np.isfinite(res.sum_logprobs).all():
             raise AssertionError(f"main path {arm}: tokens {res.tokens.shape}, sum_logprobs {res.sum_logprobs}")
         if not (res.lengths == max_new + 1).all() or (res.tokens == opts.eot).any():
             raise AssertionError(f"main path {arm}: EOT is banned, yet lengths are {res.lengths}")
-        if launches != want[arm]:
-            raise AssertionError(f"main path {arm}: launches {launches}, expected {want[arm]}")
+        if launches != want[arm] or graph_loop.launches != 1:
+            raise AssertionError(f"main path {arm}: launches {launches}, {graph_loop.launches} loop graphs; expected {want[arm]}, 1")
         mel_ms, gen_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         rate = batch * 30.0 / (t2 - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        runs[arm] = {"tokens": res.tokens, "launches": launches}
+        runs[arm] = {"tokens": res.tokens, "launches": {**launches, "decode_while_loop": graph_loop.launches}}
         log(
-            f"main path {arm} arm [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms, "
+            f"main path {arm} arm [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms (one WHILE-graph launch), "
             f"{rate:.2f} audio-s/s, peak {peak:.1f} GiB, launches {launches}: ok"
         )
 
+    # generate(sync=False) returns once the loop is enqueued: its return time
+    # next to the wait at the first read, and no read of the card in between.
+    o, mel_of = use("kernel")
+    mel_b = mel_of(audio)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = engine.generate(mel_b, options=o, sync=False)
+    t1 = time.perf_counter()
+    done = torch.cuda.Event()
+    done.record()
+    busy_at_return = not done.query()
+    pending.fetch()
+    t2 = time.perf_counter()
+    if not busy_at_return:
+        raise AssertionError("generate(sync=False): the card had finished the loop when the call returned")
+    reads = reads_between_launch_and_fetch(torch, engine, mel_b, o)
+    if reads["local_scalar_dense"] or reads["syncs"]:
+        raise AssertionError(f"generate(sync=False): the host read the card between launch and fetch: {reads}")
+    log(
+        f"generate(sync=False) kernel arm [{card}]: returned in {(t1 - t0) * 1e3:.2f} ms with the loop still running "
+        f"on the card; the first read waited {(t2 - t1) * 1e3:.2f} ms; between the loop's launch and the fetch: "
+        f"{reads['local_scalar_dense']} aten::_local_scalar_dense (profiler), {len(reads['syncs'])} synchronizing "
+        f"calls (sync debug mode: device-to-host copies, item, synchronize); host reads before the launch: "
+        f"{reads['before_launch'] or 'none'}: ok"
+    )
+
     # Per-stage breakdown: the same stages generate() runs, each ended by a
-    # sync; then a profiled window of the beam loop for the device busy share.
-    profiles = {}
+    # sync; the loop twice on the same inputs, as one device-loop launch and
+    # on the host loop (tokens and statistics equal); then a profiled window
+    # of the host loop (the launch counts a step) and a profiled device loop
+    # (its idle share).
+    profiles, loops = {}, {}
     with torch.inference_mode():
         for arm in ("reference", "kernel"):
             o, mel_of = use(arm)
@@ -1630,23 +1700,171 @@ def main_path_phase(torch, card: str, model) -> dict:
             states = engine._encode(mel_b)
             mark()
             prompt = engine.build_prompt(batch)
+            key = ("beam", batch, prompt.shape[1], o, o.cross_attn)
             logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl=o.cross_attn
+                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl=o.cross_attn,
+                cross=engine._loop_cross(key),
             )
+            mark()
+            device = engine._device_loop(key, logits, cache)
             mark()
             expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
-            beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], o)
+            host = beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], o)
             mark()
-            mel_ms, enc_ms, prompt_ms, loop_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+            same_loops(torch, f"main path {arm} arm", device, host)
+            loop_err = float((device[1] - host[1]).abs().max())
+            mel_ms, enc_ms, prompt_ms, dev_ms, host_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
             log(
                 f"stages {arm} arm (cross={o.cross_attn}, encoder attention={arms[arm]['attn']}) [{card}]: "
-                f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms "
-                f"({loop_ms / max_new:.2f} ms/step), {batch * 30.0 / (stamps[-1] - stamps[0]):.2f} audio-s/s"
+                f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, device loop {dev_ms:.1f} ms "
+                f"({dev_ms / max_new:.2f} ms/step), host loop {host_ms:.1f} ms ({host_ms / max_new:.2f} ms/step); "
+                f"tokens, sum_logprobs and lengths equal between the two loops; "
+                f"{batch * 30.0 / (stamps[4] - stamps[0]):.2f} audio-s/s with the device loop"
             )
             profiles[arm] = profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], o, card)
+            loops[arm] = profile_device_loop(torch, engine, logits, cache, key, card)
+            loops[arm].update(device_ms_per_step=dev_ms / max_new, host_ms_per_step=host_ms / max_new, max_abs_err=loop_err,
+                              bound_ms=bound_ms(loop_step_bytes(engine, key, loops[arm]["steps"]), 0)[0])
     same = float((runs["reference"]["tokens"] == runs["kernel"]["tokens"]).mean())
     log(f"main path tokens equal between the two arms: {same:.3f} of positions (random weights)")
-    return runs["kernel"]["launches"], profiles["kernel"]
+    return runs["kernel"]["launches"], profiles["kernel"], loops
+
+
+def state_bytes(loop) -> int:
+    """Bytes of a search loop's static state: its tensors, the self cache
+    and its reorder scratch (the cross K/V are held beside it in
+    ``Whisper.decode_loops``)."""
+    tensors = [v for v in vars(loop).values() if hasattr(v, "element_size") and hasattr(v, "numel")]
+    tensors += [b for layer in loop.cache for b in layer.values()]
+    tensors += list(getattr(loop, "scratch", {}).values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def loop_step_bytes(engine, key: tuple, steps: int) -> float:
+    """Bytes a beam step of the device loop ``key`` must move at least, on
+    average over a loop of ``steps`` steps: every decoder weight (Dense
+    kernels, scales and biases, the token embedding of the tied logits and
+    its row scales) and the cross K/V (values and scales) read once; of the
+    self cache (values and scales) only the filled slots read once, the step
+    at position P + s reading P + s + 1 of them, P + (steps + 1) / 2 on
+    average; its new slot and the (B·K, V) fp32 logits written once. The
+    bound of ``bound_ms`` in bytes; the step's operations are far below it."""
+    model = engine.model
+    loop, cross, _ = model.decode_loops[key]
+    weights = sum(p.numel() * p.element_size() for p in model.decoder.parameters())
+    cross_b = sum(t.numel() * t.element_size() for kv in cross for t in kv)
+    cache_b = sum(b.numel() * b.element_size() for layer in loop.cache for b in layer.values())
+    slot_b = cache_b / next(iter(loop.cache[0].values())).shape[1]
+    read_b = slot_b * (loop.prompt_len + (steps + 1) / 2)
+    logits_b = loop.logprobs.numel() * 4
+    return weights + cross_b + read_b + slot_b + logits_b
+
+
+def held_loops(model) -> str:
+    """The device loops ``model`` keeps (``Whisper.decode_loops``) and the
+    card memory they hold: static state, cross K/V and the captured step's
+    pool."""
+    total = 0
+    for loop, cross, graph in model.decode_loops.values():
+        total += state_bytes(loop) + sum(t.numel() * t.element_size() for kv in cross for t in kv) + graph.pool_bytes
+    return f"{len(model.decode_loops)} device loops kept, holding {total / 2**30:.2f} GiB"
+
+
+def same_loops(torch, what: str, device, host) -> None:
+    """The device loop's (tokens, sum_logprobs, lengths) equal to the host
+    loop's on the same inputs, bit for bit."""
+    if not all(torch.equal(a, b) for a, b in zip(device, host)):
+        diff = [int((a != b).sum()) for a, b in zip(device, host)]
+        raise AssertionError(f"{what}: the device loop differs from the host loop (elements differing: {diff})")
+
+
+def reads_between_launch_and_fetch(torch, engine, mel_b, opts) -> dict:
+    """``generate(mel_b, sync=False)`` and the fetch, with the host's reads of
+    the card after the loop's WHILE-graph launch counted two ways: the
+    ``aten::_local_scalar_dense`` calls between the launch and the fetch
+    (torch.profiler's host events only: no CUPTI tracing over the graph, see
+    ``profile_device_loop``), and every synchronizing call torch makes after
+    the launch until ``generate`` returns (its CUDA sync debug mode:
+    device-to-host copies, ``item``, stream and device synchronizations).
+    Also the ``_local_scalar_dense`` calls before the launch, with the ops
+    they came from."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from whisperx_tpu_torch.ops import graph_loop
+
+    launch = graph_loop.DeviceLoop.launch
+
+    def marked(self):
+        with record_function("graph_loop.launch"):
+            launch(self)
+        torch.cuda.set_sync_debug_mode("warn")
+
+    graph_loop.DeviceLoop.launch = marked
+    try:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught, \
+                profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof:
+            warnings.simplefilter("always")
+            try:
+                pending = engine.generate(mel_b, options=opts, sync=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            with record_function("fetch"):
+                pending.fetch()
+    finally:
+        graph_loop.DeviceLoop.launch = launch
+    events = prof.events()
+    at = {e.name: e.time_range.start for e in events if e.name in ("graph_loop.launch", "fetch")}
+    if len(at) != 2:
+        raise AssertionError(f"reads between launch and fetch: the profiler lost the markers {sorted(at)}")
+    scalar = [e for e in events if e.name == "aten::_local_scalar_dense"]
+
+    def origin(e) -> str:
+        chain, p = [], e.cpu_parent
+        while p is not None and len(chain) < 6:
+            chain.append(p.name)
+            p = p.cpu_parent
+        return " < ".join(chain) + (f" ({e.stack[0]})" if e.stack else "")
+
+    return {
+        "local_scalar_dense": sum(at["graph_loop.launch"] <= e.time_range.start < at["fetch"] for e in scalar),
+        # torch's warning for each synchronizing call ("called a synchronizing
+        # CUDA operation"), not its notice that the mode is a prototype.
+        "syncs": [str(w.message)[:200] for w in caught
+                  if "synchroniz" in str(w.message).lower() and "prototype" not in str(w.message)],
+        "before_launch": [origin(e) for e in scalar if e.time_range.start < at["graph_loop.launch"]],
+    }
+
+
+def loop_entry(loops: dict) -> dict:
+    """The ``kernels`` line's entry of the device loop (``csrc/graph_loop.cu``):
+    its ms a step against the host loop's (its plain version), in phase 4's
+    kernel arm."""
+    k = loops["kernel"]
+    return {
+        "name": "decode_while_loop",
+        "route": "cuda",
+        "design": "the captured beam step as a child graph in the body of a conditional WHILE node; a one-thread "
+                  "kernel sets the node's condition from the step's continue flag, before the first step and after each",
+        "source": "whisperx_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "whisperx_tpu/decode/search.py:525 (lax.while_loop, cond at :404; not a Pallas kernel)",
+        "launches": None,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["device_ms_per_step"],
+        "plain_ms": k["host_ms_per_step"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "idle_share": k["idle_share"],
+        "idle_share_of": "the captured step replayed alone under torch.profiler: 1 - device busy / the span from a "
+                         "step's first kernel to its last",
+        "busy_ms": k["busy_ms_per_step"],
+        "span_ms": k["span_ms_per_step"],
+        "unit": "one beam step of large-v2, batch 8 x beam 5, int8 weights and KV, kernel arm (host clock around the "
+                "whole loop / steps); the plain version is the host loop on the same inputs",
+    }
 
 
 # The CUDA kernels of the port by their device names, as the profiler lists them.
@@ -1655,8 +1873,11 @@ STEP_KERNELS = {"int8_matmul": "int8_mm_kernel", "cross_attention_decode": "cros
 
 def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card: str, steps: int = 8) -> dict:
     """Device busy share and the costliest kernels over ``steps`` beam steps
-    (torch.profiler; its own overhead lengthens the host side). Returns the
-    device busy ms per step and each port kernel's device ms per step."""
+    of the host loop (torch.profiler; its own overhead lengthens the host
+    side). Returns the device busy ms per step and each port kernel's
+    device ms per step. The kernel events a step are also the check of the
+    device loop's launch counts: each must equal the launches that the
+    captured step recorded."""
     from whisperx_tpu_torch.decode.search import beam_decode
 
     o = dataclasses.replace(opts, max_new_tokens=steps)
@@ -1668,14 +1889,105 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
         return {}
     kernels, busy_ms, wall_ms = prof["kernels"], prof["busy_ms"], prof["wall_ms"]
     step_ms = {name: sum(t for k, t, _ in kernels if key in k) / steps for name, key in STEP_KERNELS.items()}
+    events = {name: sum(c for k, _, c in kernels if key in k) / steps for name, key in STEP_KERNELS.items()}
+    key = ("beam", logits.shape[0], prompt_len, opts, engine._cross_impl(opts))
+    body = engine.model.decode_loops[key][2].body_launches
+    if any(events[name] != body[name] for name in STEP_KERNELS):
+        raise AssertionError(f"launches a step: the profiler's kernel events {events} != the captured step's {body}")
     log(
-        f"profile cross={opts.cross_attn} [{card}], {steps} beam steps under torch.profiler: wall {wall_ms:.1f} ms, "
-        f"device busy {busy_ms:.2f} ms ({busy_ms / steps:.3f} ms/step), idle share {1 - busy_ms / wall_ms:.3f}; "
-        "top kernels: "
+        f"profile host loop cross={opts.cross_attn} [{card}], {steps} beam steps under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms ({busy_ms / steps:.3f} ms/step), idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; kernel events a step {events} == the device loop's captured step: ok; top kernels: "
         + "; ".join(f"{k[:60]} {t / steps:.3f} ms/step x{c // steps}" for k, t, c in kernels[:6])
         + "; port kernels: " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in step_ms.items())
     )
     return {"busy_ms_per_step": busy_ms / steps, **step_ms}
+
+
+def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, replays: int = 8,
+                        pause_s: float = 0.05) -> dict:
+    """One launch of the device loop ``key`` timed by CUDA events, then its
+    captured step traced: the step's CUDA graph (``DeviceLoop._graph``, the
+    child of the WHILE body) replayed alone ``replays`` times from the loop's
+    start under torch.profiler, a synchronize and ``pause_s`` of sleep after
+    each. The kernels split into the replays at the ``replays - 1`` widest
+    gaps between them: the pause leaves the card idle for far longer than
+    any gap inside a step (traced steps hold gaps of a few ms, which a bare
+    host round trip of tens of µs does not outlast), and each cut must be at
+    least half the pause. Per step:
+    the device busy ms (the union of its kernels' intervals), the span from
+    its first kernel's start to its last kernel's end, and the idle share
+    1 - busy / span. The WHILE launch itself runs without torch.profiler:
+    CUPTI's kernel tracing inside a conditional body kept a varying share of
+    the iterations (1 and 34.7 of 112) and once ended in an illegal memory
+    access on this card. Each step's events of the port's kernels must equal
+    the launches the capture recorded, which also checks the split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    loop, cross, graph = engine.model.decode_loops[key]
+    arm = key[3].cross_attn
+    if cache["cross"] is not cross:
+        raise AssertionError("profile device loop: the cross K/V are not the loop's own")
+    with torch.inference_mode():
+        loop.start(logits, cache["self"])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.launch()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms, steps = start.elapsed_time(end), int(loop.step)
+        loop.start(logits, cache["self"])
+        graph._graph.replay()  # instantiates the step graph: outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                graph._graph.replay()
+                torch.cuda.synchronize()
+                time.sleep(pause_s)
+    kernels = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    )
+    out = {"wall_ms_per_step": wall_ms / steps, "steps": steps}
+    if len(kernels) < replays:
+        log(f"device loop cross={arm} [{card}]: the profiler saw {len(kernels)} kernels in {replays} step replays; "
+            f"idle share not measured")
+        return {**out, "idle_share": None, "busy_ms_per_step": None, "span_ms_per_step": None}
+    gaps = sorted(range(1, len(kernels)), key=lambda i: kernels[i][0] - kernels[i - 1][1])[len(kernels) - replays:]
+    cuts = [0, *sorted(gaps), len(kernels)]
+    per_step = [kernels[a:b] for a, b in zip(cuts, cuts[1:])]
+    cut_us = min((kernels[i][0] - kernels[i - 1][1] for i in gaps), default=pause_s * 1e6)
+    inner_us, at, before, after = max(
+        ((ks[i][0] - ks[i - 1][1], i, ks[i - 1][2], ks[i][2]) for ks in per_step for i in range(1, len(ks))),
+        default=(0.0, 0, "", ""),
+    )
+    widest = f"widest gap inside a step {inner_us:.1f} us, before its kernel {at} ({after[:40]}, after {before[:40]})"
+    busy = span = 0.0
+    for ks in per_step:
+        span += max(k[1] for k in ks) - ks[0][0]
+        reach = ks[0][0]
+        for a, b, _ in ks:  # the union of the intervals
+            busy += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+    busy_ms, span_ms = busy / 1e3 / replays, span / 1e3 / replays
+    counts = [{name: sum(dev in k for _, _, k in ks) for name, dev in STEP_KERNELS.items()} for ks in per_step]
+    if cut_us < pause_s * 1e6 / 2 or any(c[name] != graph.body_launches[name] for c in counts for name in STEP_KERNELS):
+        raise AssertionError(
+            f"device loop: kernel events of the step replays {counts} != the captured step's {graph.body_launches}, "
+            f"or a cut between replays ({cut_us:.1f} us) shorter than half the {pause_s * 1e6:.0f} us pause "
+            f"({widest})"
+        )
+    idle = 1 - busy_ms / span_ms
+    log(
+        f"device loop cross={arm} [{card}]: one WHILE-graph launch, {steps} steps in {wall_ms:.2f} ms "
+        f"({wall_ms / steps:.3f} ms/step, CUDA events); its captured step replayed alone {replays} times under "
+        f"torch.profiler: device busy {busy_ms:.3f} ms a step over a span of {span_ms:.3f} ms from its first kernel "
+        f"to its last ({len(kernels) / replays:.0f} kernels a step, {widest}, narrowest cut between replays "
+        f"{cut_us:.1f} us), idle share {idle:.3f}; the port's kernel events "
+        f"in every step {counts[0]} == the captured step's launches: ok"
+    )
+    return {**out, "idle_share": idle, "busy_ms_per_step": busy_ms, "span_ms_per_step": span_ms}
 
 
 # ---- phase 5: the alignment path -------------------------------------------
@@ -1787,7 +2099,7 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.ops import attention, graph_loop
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.utils import telemetry
     from whisperx_tpu_torch.vad.model import SpeechBandVAD, VadPipeline
@@ -1816,7 +2128,6 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     ready = native.available()
     log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
     arms = {"default": {}, "kernel": {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}}
-    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     L, runs = cfg.n_text_layer, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pipeline.wav")
@@ -1828,8 +2139,7 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 torch.cuda.reset_peak_memory_stats()
                 pipe.telemetry.stages.clear()
                 telemetry.GLOBAL.stages.clear()
-                for c in counters.values():
-                    c.launches = 0
+                zero_launches()
                 t0 = time.perf_counter()
                 result = pipe.transcribe(path, batch_size=batch)
                 decoder = audio_io.LAST_DECODER
@@ -1837,7 +2147,7 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
                 aligned = alignment.align_begin(segs, align_model, meta, path).finish()
                 t2 = time.perf_counter()
-                launches = {name: c.launches for name, c in counters.items()}
+                launches, loop_graphs = read_launches(), graph_loop.launches
             finally:
                 for knob in env:
                     os.environ.pop(knob, None)
@@ -1858,17 +2168,18 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 "flash_self_attention": (cfg.n_audio_layer + align_model.model.config.num_layers) * n_batches if kernel else 0,
                 "log_mel": 0,
             }
-            if launches != want:
-                raise AssertionError(f"pipeline {arm}: launches {launches}, expected {want}")
+            if launches != want or loop_graphs != n_batches:
+                raise AssertionError(f"pipeline {arm}: launches {launches}, {loop_graphs} loop graphs; expected {want}, {n_batches}")
             stages = {**pipe.telemetry.report(), **telemetry.GLOBAL.report()}
-            runs[arm] = {"vad": [(s["start"], s["end"]) for s in chunks], "launches": launches}
+            runs[arm] = {"vad": [(s["start"], s["end"]) for s in chunks], "launches": {**launches, "decode_while_loop": loop_graphs}}
             log(
                 f"pipeline {arm} arm [{card}]: {audio_s:.1f} s WAV (decoded by {decoder}) -> {len(chunks)} chunks, "
                 f"{n_batches} decode batches of {batch} (last {len(chunks) - (n_batches - 1) * batch} rows), {n_batches} "
                 f"align batches; transcribe {(t1 - t0) * 1e3:.1f} ms, align {(t2 - t1) * 1e3:.1f} ms, end to end "
                 f"{audio_s / (t2 - t0):.2f} audio-s/s; stages "
                 + ", ".join(f"{k} {stages[k]['seconds'] * 1e3:.1f} ms" for k in ("vad", "asr_decode", "align"))
-                + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}: ok"
+                + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, one WHILE-graph "
+                f"launch a decode batch: ok"
             )
     if runs["default"]["vad"] != runs["kernel"]["vad"]:
         raise AssertionError("pipeline: the two arms' VAD segments differ")
@@ -1955,11 +2266,10 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     from whisperx_tpu_torch.diarize import embed, segmentation
     from whisperx_tpu_torch.io import get_writer
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE, get_whisper_config
-    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.ops import graph_loop
 
     cfg = get_whisper_config("large-v2")
     steps, L, batch = cfg.n_text_ctx // 2, cfg.n_text_layer, 8  # decode/engine.py's default horizon
-    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     times: dict = {}
     seen: dict = {"generate": 0, "pool_decodes": 0}
 
@@ -1972,6 +2282,15 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
             times[name] = times.get(name, 0.0) + time.perf_counter() - t
             if name == "transcribe":
                 seen["chunks"] = len(a[1][0].result["segments"])
+                # Read what the pipeline holds, then drop this script's
+                # reference: the CLI frees the model and its device loops
+                # before alignment, as it does for a user.
+                pipe = seen.pop("pipeline")
+                seen.update(stages=pipe.telemetry.report(), weights=weight_bytes(pipe.model), held=held_loops(pipe.model),
+                            transcribe_peak=torch.cuda.max_memory_allocated() / 2**30)
+                del pipe
+                gc.collect()
+                seen["freed_to"] = torch.cuda.memory_allocated() / 2**30
             if name == "load_model":
                 seen["pipeline"] = out
             return out
@@ -2033,12 +2352,11 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         cli.cli(argv)
         wall = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counters.items()}
+        launches, loop_graphs = read_launches(), graph_loop.launches
     finally:
         for obj, name, fn in originals:
             setattr(obj, name, fn)
@@ -2049,7 +2367,7 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     # "all" writes five formats, as in the JAX CLI; the sixth, "aud", from the same result.
     get_writer("aud", out)(result, wav, {"max_line_width": None, "max_line_count": None, "highlight_words": False})
     written_all = sorted(os.listdir(out))
-    stages = seen["pipeline"].telemetry.report()
+    stages = seen["stages"]
 
     n_batches = -(-seen["chunks"] // batch)
     want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0}
@@ -2061,8 +2379,11 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     # stages reuse the waveform; load_audio's own routes are never taken.
     if seen["pool_decodes"] != 1 or audio_io.LAST_DECODER is not None:
         raise AssertionError(f"cli: {seen['pool_decodes']} pool decodes, load_audio route {audio_io.LAST_DECODER}")
-    if launches != want:
-        raise AssertionError(f"cli: launches {launches}, expected {want} ({n_batches} decode batches of {steps} steps)")
+    if launches != want or loop_graphs != n_batches:
+        raise AssertionError(
+            f"cli: launches {launches}, {loop_graphs} loop graphs; expected {want}, {n_batches} ({n_batches} decode "
+            f"batches of {steps} steps)"
+        )
     segs = result["segments"]
     if not segs or any(s["end"] - s["start"] > 30.0 for s in segs):
         raise AssertionError(f"cli: segments empty or longer than 30 s: {[(s['start'], s['end']) for s in segs]}")
@@ -2090,14 +2411,17 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
         f"(segmentation forward {ms['segmentation forward']:.1f}, fbank + ResNet34 {ms['fbank + ResNet34']:.1f}, "
         f"clustering {ms['clustering']:.1f}, binarize {ms['binarize']:.1f}), write {ms['write']:.1f} ms; "
         f"file {audio_s / wall:.2f} audio-s/s end to end ({wall:.1f} s with the loads), "
-        f"{audio_s / ((run_ms - loads) / 1e3):.2f} audio-s/s without them; peak {peak:.2f} GiB; the WAV decoded once "
+        f"{audio_s / ((run_ms - loads) / 1e3):.2f} audio-s/s without them; peak {peak:.2f} GiB over the run, "
+        f"{seen['transcribe_peak']:.2f} GiB by the end of the transcribe stage ({seen['held']} there), "
+        f"{seen['freed_to']:.2f} GiB allocated once that stage dropped its model; the WAV decoded once "
         f"by AudioPrefetcher's native pool (load_audio's routes not taken: LAST_DECODER None); "
         f"{len(seen['turns'])} speaker turns of {turn_speakers}; {len(segs)} segments, speakers "
-        f"{sorted(set(speakers))}, six files; launches {launches}; "
+        f"{sorted(set(speakers))}, six files; launches {launches}, one WHILE-graph launch a decode batch; "
         f"python -m whisperx_tpu_torch --help rc 0: ok"
     )
-    return {"launches": launches, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir, "wespeaker": wespeaker, "pyannet": pyannet,
-            "weights": weight_bytes(seen["pipeline"].model), "load_model_ms": ms["load_model"]}
+    return {"launches": {**launches, "decode_while_loop": loop_graphs}, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir,
+            "wespeaker": wespeaker, "pyannet": pyannet,
+            "weights": seen["weights"], "load_model_ms": ms["load_model"]}
 
 
 # ---- phase 9: int4 weights and KV cache, the int8 wav2vec2 ----------------
@@ -2135,7 +2459,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     from whisperx_tpu_torch.decode.search import beam_decode
     from whisperx_tpu_torch.models import convert
     from whisperx_tpu_torch.models import whisper as tw
-    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm, mel
+    from whisperx_tpu_torch.ops import attention, flash_attn, graph_loop
     from whisperx_tpu_torch.pipeline.asr import load_model
     from whisperx_tpu_torch.utils import telemetry
 
@@ -2235,8 +2559,8 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
                 torch.cuda.reset_peak_memory_stats()
                 pipe.telemetry.stages.clear()
                 telemetry.GLOBAL.stages.clear()
-                int8_mm.launches = cross_attn.launches = mel.launches = 0
-                flash_attn.launches = flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
+                zero_launches()
+                flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
                 results.clear()
                 finite.fill_(True)
                 t0 = time.perf_counter()
@@ -2244,14 +2568,13 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
                 t1 = time.perf_counter()
                 segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
                 aligned = align_begin(segs, am, meta, audio).finish()
-                chunk_int8 = int8_mm.launches
+                chunk_int8 = read_launches()["int8_matmul"]
                 t2 = time.perf_counter()
                 aligned_short = align_begin([dict(s) for s in short], am, meta, audio).finish()
                 t3 = time.perf_counter()
-                launches = {"int8_matmul": int8_mm.launches, "cross_attention_decode": cross_attn.launches,
-                            "log_mel": mel.launches, "flash_self_attention": flash_attn.launches,
-                            "flash_attention_bwd_dq": flash_attn.launches_bwd_dq,
+                launches = {**read_launches(), "flash_attention_bwd_dq": flash_attn.launches_bwd_dq,
                             "flash_attention_bwd_dkv": flash_attn.launches_bwd_dkv}
+                loop_graphs = graph_loop.launches
             finally:
                 for knob in env:
                     os.environ.pop(knob, None)
@@ -2268,18 +2591,23 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
                     sg["words"] and all("start" in w and "end" in w for w in sg["words"]) for sg in out["segments"]
                 ):
                     raise AssertionError(f"int4 arm {arm}: {what} not every segment aligned")
-            if chunk_int8 != 0 or launches != want[arm]:
-                raise AssertionError(f"int4 arm {arm}: launches {launches} ({chunk_int8} in the chunks' batch), expected {want[arm]}")
+            if chunk_int8 != 0 or launches != want[arm] or loop_graphs != 1:
+                raise AssertionError(
+                    f"int4 arm {arm}: launches {launches} ({chunk_int8} in the chunks' batch), {loop_graphs} loop graphs; "
+                    f"expected {want[arm]}, 1"
+                )
             stages = {**pipe.telemetry.report(), **telemetry.GLOBAL.report()}
             dec_ms = stages["asr_decode"]["seconds"] * 1e3
-            runs.setdefault(arm, []).append({"vad": [(c["start"], c["end"]) for c in chunks], "launches": launches,
+            runs.setdefault(arm, []).append({"vad": [(c["start"], c["end"]) for c in chunks],
+                                             "launches": {**launches, "decode_while_loop": loop_graphs},
                                              "decode_ms": dec_ms, "align_ms": (t3 - t1) * 1e3})
             log(
                 f"int4 arm ({arm}) kv={kv}{' ' + ' '.join(f'{k}={v}' for k, v in env.items()) if env else ''} [{card}]: "
                 f"{len(audio) / 16000:.1f} s -> {len(chunks)} chunks, one decode batch of {batch}; transcribe "
                 f"{(t1 - t0) * 1e3:.1f} ms (vad {stages['vad']['seconds'] * 1e3:.1f}, asr_decode {dec_ms:.1f} ms = "
                 f"{dec_ms / (1 + max_new):.2f} ms a step with the encoder and prompt); align {(t2 - t1) * 1e3:.1f} ms "
-                f"(8 chunks) + {(t3 - t2) * 1e3:.1f} ms (4 x 0.9 s); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"(8 chunks) + {(t3 - t2) * 1e3:.1f} ms (4 x 0.9 s); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"({held_loops(model)}); "
                 f"logits finite; launches {launches}: ok"
             )
     finally:
@@ -2288,7 +2616,8 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     if runs["a"][0]["vad"] != runs["b"][0]["vad"]:
         raise AssertionError("int4: the two arms' VAD chunks differ")
 
-    # Each arm's beam loop once more, stage by stage (phase 4's split, same shapes).
+    # Each arm's beam loop once more, stage by stage (phase 4's split, same
+    # shapes), the loop as one device-loop launch and on the host loop.
     engine = WhisperEngine(model, pipe.tokenizer)
     raw = pcm16((np.random.default_rng(0).standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32))
     split = {}
@@ -2308,26 +2637,38 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
             states = engine._encode(mel_b)
             mark()
             prompt = engine.build_prompt(batch)
+            key = ("beam", batch, prompt.shape[1], opts, cross)
             logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], opts), kv_bits=engine._kv_bits(opts), cross_impl=cross
+                states, prompt, engine._cache_len(prompt.shape[1], opts), kv_bits=engine._kv_bits(opts), cross_impl=cross,
+                cross=engine._loop_cross(key),
             )
             mark()
-            expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
-            beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], opts)
+            engine._device_loop(key, logits, cache)  # the capture, outside the timing
             mark()
-        mel_ms, enc_ms, prompt_ms, loop_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
-        split[arm] = loop_ms / max_new
+            device = engine._device_loop(key, logits, cache)
+            mark()
+            expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
+            host = beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], opts)
+            mark()
+            same_loops(torch, f"int4 arm ({arm})", device, host)
+        mel_ms, enc_ms, prompt_ms, capture_ms, dev_ms, host_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        split[arm] = (dev_ms / max_new, host_ms / max_new)
+        graph = model.decode_loops[("beam", batch, prompt.shape[1], opts, cross)][2]
         log(
             f"int4 stages arm ({arm}) kv={kv} cross={cross} encoder attention={attn} [{card}]: mel {mel_ms:.1f} ms, "
-            f"encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, beam loop {loop_ms:.1f} ms ({split[arm]:.2f} ms/step)"
+            f"encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, device loop {dev_ms:.1f} ms ({split[arm][0]:.2f} "
+            f"ms/step; its first launch with the capture {capture_ms:.1f} ms: capture {graph.capture_ms:.1f}, "
+            f"instantiate {graph.instantiate_ms:.1f} ms, pool {graph.pool_bytes / 2**20:.1f} MiB), host loop "
+            f"{host_ms:.1f} ms ({split[arm][1]:.2f} ms/step); tokens, sum_logprobs and lengths equal between the loops"
         )
     attention.set_attn_impl(model, "auto")
     mean = {arm: {k: float(np.mean([r[k] for r in rs])) for k in ("decode_ms", "align_ms")} for arm, rs in runs.items()}
     log(
         f"int4 summary [{card}]: load_model {load_ms:.1f} ms, Dense weights {w4['dense'] / 2**30:.3f} GiB (int8 "
         f"{int8['weights']['dense'] / 2**30:.3f}); asr_decode a step (a) {mean['a']['decode_ms'] / (1 + max_new):.2f} ms, "
-        f"(b) {mean['b']['decode_ms'] / (1 + max_new):.2f} ms; beam loop (a) {split['a']:.2f} ms/step, (b) "
-        f"{split['b']:.2f} ms/step; align (a) {mean['a']['align_ms']:.1f} ms, (b) {mean['b']['align_ms']:.1f} ms: ok"
+        f"(b) {mean['b']['decode_ms'] / (1 + max_new):.2f} ms; beam loop (a) {split['a'][0]:.2f} ms/step on the device "
+        f"loop, {split['a'][1]:.2f} on the host loop, (b) {split['b'][0]:.2f} / {split['b'][1]:.2f} ms/step; align (a) "
+        f"{mean['a']['align_ms']:.1f} ms, (b) {mean['b']['align_ms']:.1f} ms: ok"
     )
     return runs["b"][-1]["launches"]
 
@@ -2357,44 +2698,54 @@ def parallel_audio(torch):
 def captured_decode(torch, pipe, wavs) -> dict:
     """One ``generate`` of the 8-chunk batch through ``pipe``'s engine and
     front end (beam 5, 112 tokens, EOT suppressed by the pipeline's options),
-    with every kernel of the path (``PARALLEL_ENV``); the beam loop is
-    wrapped to keep the first step's log-probs and time the loop. Returns
-    tokens, log-probs, times and launches."""
+    with every kernel of the path (``PARALLEL_ENV``); the beam loop (the host
+    loop under a model split, else the device loop, whose first use is a
+    capture outside the timed call) is wrapped to keep the first step's
+    log-probs and time the loop. Returns tokens, log-probs, times, launches
+    and which loop ran."""
     from whisperx_tpu_torch.decode import engine as engine_mod
-    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
 
-    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     opts, engine = pipe._search_options(pipe.tokenizer)
     seen = {}
-    loop = engine_mod.beam_decode
+    host_loop, device_loop = engine_mod.beam_decode, engine_mod.WhisperEngine._device_loop
 
-    def beam(step_fn, init_logits, cache, prompt_len, o, group=None):
+    def timed(fn, init_logits, *a, **kw):
         seen["logprobs"] = torch.log_softmax(init_logits.float(), dim=-1).cpu().numpy()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = loop(step_fn, init_logits, cache, prompt_len, o, group=group)
+        out = fn(*a, **kw)
         torch.cuda.synchronize()
         seen["loop_ms"] = (time.perf_counter() - t) * 1e3
         return out
 
+    def beam(step_fn, init_logits, cache, prompt_len, o, group=None):
+        seen["loop"] = "host"
+        return timed(host_loop, init_logits, step_fn, init_logits, cache, prompt_len, o, group=group)
+
+    def device(self, key, init_logits, *a):
+        seen["loop"] = "device"
+        return timed(device_loop, init_logits, self, key, init_logits, *a)
+
     os.environ.update(PARALLEL_ENV)
-    engine_mod.beam_decode = beam
+    engine_mod.beam_decode, engine_mod.WhisperEngine._device_loop = beam, device
     try:
-        for c in counters.values():
-            c.launches = 0
+        mel_b = pipe._mel(wavs)
+        if engine.uses_device_loop(opts):
+            engine.generate(mel_b, options=opts)  # the capture
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = engine.generate(pipe._mel(wavs), options=opts)
+        res = engine.generate(mel_b, options=opts)
         ms = (time.perf_counter() - t0) * 1e3
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = read_launches()
     finally:
-        engine_mod.beam_decode = loop
+        engine_mod.beam_decode, engine_mod.WhisperEngine._device_loop = host_loop, device_loop
         for knob in PARALLEL_ENV:
             os.environ.pop(knob, None)
     if res.tokens.shape != (8, opts.max_new_tokens) or (res.tokens == opts.eot).any():
         raise AssertionError(f"parallel decode: tokens {res.tokens.shape}, EOT present: {(res.tokens == opts.eot).any()}")
     return {"tokens": res.tokens, "logprobs": seen["logprobs"], "generate_ms": ms, "loop_ms": seen["loop_ms"],
-            "steps": opts.max_new_tokens, "launches": launches}
+            "steps": opts.max_new_tokens, "launches": launches, "loop": seen["loop"]}
 
 
 def small_fp32_run(torch, dev: str, mesh=None) -> dict:
@@ -2512,8 +2863,8 @@ def parallel_rank(spec: dict) -> int:
     # Unfused q/k/v: 8 projections a layer and step (prompt + every step).
     want = {"int8_matmul": 8 * L * (1 + steps), "cross_attention_decode": L * (1 + steps),
             "flash_self_attention": model.config.n_audio_layer, "log_mel": 0}
-    if dec["launches"] != want:
-        raise AssertionError(f"rank {rank} decode: launches {dec['launches']}, expected {want}")
+    if dec["launches"] != want or dec["loop"] != "host":
+        raise AssertionError(f"rank {rank} decode: launches {dec['launches']} on the {dec['loop']} loop, expected {want} on the host loop")
     del pipe, model
     torch.cuda.empty_cache()
 
@@ -2543,7 +2894,7 @@ def parallel_rank(spec: dict) -> int:
     small = small_fp32_run(torch, "cuda", mesh)
     result = {
         "rank": rank, "load_ms": load_ms, "tokens": dec["tokens"].tolist(), "generate_ms": dec["generate_ms"],
-        "loop_ms": dec["loop_ms"], "steps": steps, "launches": dec["launches"], "aligned": aligned,
+        "loop_ms": dec["loop_ms"], "loop": dec["loop"], "steps": steps, "launches": dec["launches"], "aligned": aligned,
         "align_ms": align_ms, "align_flash": flash, "small": small, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "collectives": collectives,
     }
@@ -2569,7 +2920,6 @@ def world_of_one_phase(torch, card: str, cli: dict, tmp: str) -> dict:
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.diarize import DiarizationPipeline
-    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
     from whisperx_tpu_torch.parallel import make_mesh
     from whisperx_tpu_torch.pipeline.asr import WhisperPipeline, load_model
 
@@ -2595,12 +2945,10 @@ def world_of_one_phase(torch, card: str, cli: dict, tmp: str) -> dict:
         "mesh": (pipe, shard_align_model(am, mesh), DiarizationPipeline(
             checkpoint=diarize["wespeaker"], segmentation_checkpoint=diarize["pyannet"], mesh=mesh)),
     }
-    counters = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
     meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
     runs = {}
     for arm, (p, a, d) in arms.items():
-        for c in counters.values():
-            c.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = p.transcribe(path, batch_size=8)
@@ -2613,7 +2961,7 @@ def world_of_one_phase(torch, card: str, cli: dict, tmp: str) -> dict:
             "segments": res["segments"],
             "words": [(w["word"], w.get("start"), w.get("end"), w.get("score")) for w in aligned["word_segments"]],
             "turns": [(float(s), float(e), k) for s, e, k in zip(turns["start"], turns["end"], turns["speaker"])],
-            "launches": {name: c.launches for name, c in counters.items()},
+            "launches": read_launches(),
             "ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3],
         }
     a, b = runs["no mesh"], runs["mesh"]
@@ -2696,7 +3044,8 @@ def parallel_phase(torch, card: str, cli: dict, tmp: str) -> dict:
         f"all-reduce is staged through the host and both ranks share the card]: large-v2 int8, 10 heads a rank, "
         f"unfused QKV, batch 8, beam 5, {steps} tokens (EOT banned), cross-attention kernel + flash: load_model "
         f"{r0['load_ms']:.1f} / {r1['load_ms']:.1f} ms, generate {r0['generate_ms']:.1f} ms, beam loop "
-        f"{r0['loop_ms'] / steps:.2f} ms a step (whole model on this card alone: {ref['loop_ms'] / steps:.2f}); "
+        f"({r0['loop']} loop) {r0['loop_ms'] / steps:.2f} ms a step (whole model on this card alone, {ref['loop']} "
+        f"loop: {ref['loop_ms'] / steps:.2f}); "
         f"launches a step (prompt + {steps} steps): int8_matmul {n['int8_matmul'] / (1 + steps):g}, "
         f"cross_attention_decode {n['cross_attention_decode'] / (1 + steps):g}; flash_self_attention "
         f"{n['flash_self_attention']} a batch (encoder), log_mel {n['log_mel']}; first-step log-probs max abs diff "
@@ -2935,7 +3284,8 @@ def main() -> int:
     small_cli_phase(torch)
     small_train_phase(torch)
     model = large_v2(torch)
-    launches, profile = main_path_phase(torch, card, model)  # the decode path's kernel arm
+    launches, profile, loops = main_path_phase(torch, card, model)  # the decode path's kernel arm
+    kernels.append(loop_entry(loops))
     flash_align, align_model = align_path_phase(torch, card)
     pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
     del model, align_model

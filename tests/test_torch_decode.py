@@ -88,3 +88,55 @@ def test_language_detection_matches_jax(engines, monkeypatch):
     got = tengine.detect_language(torch.from_numpy(mel))
     assert [c for c, _ in got] == [c for c, _ in want]
     np.testing.assert_allclose([p for _, p in got], [p for _, p in want], rtol=1e-3)
+
+
+def test_the_cpu_runs_the_host_loop(engines):
+    """The rule of ``WhisperEngine.uses_device_loop``: the device loop needs a
+    card; on the CPU every decode runs the host loop and makes no loop graph.
+    The no-speech probability read at the SOT position stays on the device
+    (an index_select) and equals softmax of the logits there."""
+    from whisperx_tpu_torch.ops import graph_loop
+
+    _, _, tengine, mel = engines
+    greedy = tengine.build_options(beam_size=1, max_new_tokens=2, kv_cache_dtype="int8")
+    for opts in (greedy, dataclasses.replace(greedy, beam_size=2), dataclasses.replace(greedy, temperature=0.5)):
+        assert not tengine.uses_device_loop(opts)
+    before = graph_loop.launches
+    res = tengine.generate(mel, options=greedy, generator=torch.Generator().manual_seed(0))
+    assert graph_loop.launches == before and not tengine.model.decode_loops
+    with torch.inference_mode():
+        states = tengine._encode(torch.from_numpy(mel))
+        prompt = tengine.build_prompt(2)
+        logits, cache, no_speech = tengine._prompt_cache(states, prompt, 64, kv_bits=8)
+        layout = tengine.tokenizer.layout
+        full, _ = tengine.model.decode_step(prompt, tengine.model.empty_cache(2, torch.int8, 64) | {"cross": cache["cross"]}, 0)
+        sot = prompt[0].tolist().index(layout.sot)
+        want = torch.softmax(full[:, sot], dim=-1)[:, layout.no_speech]
+    assert torch.equal(no_speech, want)
+    np.testing.assert_array_equal(res.no_speech_probs, no_speech.numpy())
+
+
+@pytest.mark.parametrize("kv_bits,cross_impl", [(0, "xla"), (8, "xla"), (4, "xla"), (8, "pallas"), (0, "pallas")])
+def test_prompt_cache_writes_cross_kv_into_given_buffers(engines, kv_bits, cross_impl):
+    """``_prompt_cache(cross=...)`` (a device loop's static cross K/V) writes
+    each layer's cross K/V into the given buffers and returns those very
+    buffers, equal to the ones it makes without them, with the same logits,
+    self cache and no-speech probability; the layer-by-layer computation
+    equals the model's ``compute_cross_kv`` of all layers at once."""
+    _, _, tengine, mel = engines
+    with torch.inference_mode():
+        states = tengine._encode(torch.from_numpy(mel))
+        prompt = tengine.build_prompt(2)
+        fresh = tengine._prompt_cache(states, prompt, 64, kv_bits=kv_bits, cross_impl=cross_impl)
+        filled = [[torch.full_like(t, 3) for t in kv] for kv in fresh[1]["cross"]]
+        bufs = [tw.FlatCrossKV(*f) if isinstance(kv, tw.FlatCrossKV) else tuple(f) for f, kv in zip(filled, fresh[1]["cross"])]
+        got = tengine._prompt_cache(states, prompt, 64, kv_bits=kv_bits, cross_impl=cross_impl, cross=bufs)
+        whole = tengine.model.compute_cross_kv(states)
+    assert got[1]["cross"] is bufs
+    for mine, theirs in zip(bufs, fresh[1]["cross"]):
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    if kv_bits == 0 and cross_impl == "xla":
+        assert all(torch.equal(a, b) for kv, ref in zip(fresh[1]["cross"], whole) for a, b in zip(kv, ref))
+    assert torch.equal(got[0], fresh[0]) and torch.equal(got[2], fresh[2])
+    for layer, ref in zip(got[1]["self"], fresh[1]["self"]):
+        assert all(torch.equal(layer[n], ref[n]) for n in layer)

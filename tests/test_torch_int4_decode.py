@@ -21,7 +21,7 @@ from whisperx_tpu.decode.tokenizer import WhisperTokenizer as JTokenizer
 from whisperx_tpu.models import whisper as jw
 from whisperx_tpu.models.configs import TEST_CONFIG
 from whisperx_tpu_torch.decode.engine import WhisperEngine
-from whisperx_tpu_torch.decode.search import _gather_cache
+from whisperx_tpu_torch.decode.search import reorder_cache_
 from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.convert import whisper_from_jax
@@ -154,14 +154,17 @@ def test_int4_cache_layout(pairs, mel, cross):
 
 
 def test_beam_reorder_on_packed_buffers():
-    """search.py's axis-0 index_select moves packed rows whole: the reordered
-    packed cache unpacks to the reordered int8 values."""
+    """search.py's axis-0 index_select moves packed rows whole: the packed
+    cache reordered in place unpacks to the reordered int8 values."""
     rng = np.random.default_rng(5)
     vals = torch.from_numpy(rng.integers(-7, 8, (6, 16, 2, 64)).astype(np.int8))
     scales = torch.from_numpy(rng.random((6, 16, 2, 1)).astype(np.float32))
-    cache = [{"k": tw.pack_int4(vals), "v": tw.pack_int4(-vals), "k_scale": scales, "v_scale": 2 * scales}]
+    cache = [{"k": tw.pack_int4(vals), "v": tw.pack_int4(-vals), "k_scale": scales.clone(), "v_scale": 2 * scales}]
     idx = torch.tensor([2, 2, 0, 5, 1, 1])
-    out = _gather_cache(cache, idx)[0]
+    buffers = dict(cache[0])
+    reorder_cache_(cache, idx, {(tuple(b.shape), b.dtype): torch.empty_like(b) for b in buffers.values()})
+    out = cache[0]
+    assert all(out[n] is b for n, b in buffers.items())  # the same buffers, reordered in place
     assert out["k"].dtype == tw.PACKED_INT4 and out["k"].shape == (6, 16, 2, 32)
     assert torch.equal(tw.unpack_int4(out["k"]), vals[idx])
     assert torch.equal(tw.unpack_int4(out["v"]), -vals[idx])

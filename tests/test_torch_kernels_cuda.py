@@ -335,3 +335,40 @@ def test_log_mel_kernel_matches_plain(gen, B, n, n_mels, int16):
     assert mel.launches == before + 1
     # fp32 products in another order (chip_smoke.py's card-vs-CPU tolerance).
     torch.testing.assert_close(got, log_mel_spectrogram(a, n_mels, device="cuda"), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cross", ["xla", "pallas"])
+@pytest.mark.parametrize("beam", [1, 5])
+def test_device_loop_equals_host_loop(gen, monkeypatch, beam, cross):
+    """The decode loop as one WHILE-node graph launch (ops/graph_loop.py)
+    gives the host loop's tokens and statistics, bit for bit, on a 128-wide
+    int8 Whisper with the int8 KV cache; the exit is tested on the card, and
+    the kernels' launches in the loop are those of the captured step times
+    the steps the card counted."""
+    import dataclasses
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.ops import graph_loop
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    model = whisper_from_jax(params, cfg, device="cuda")
+    tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
+    engine = WhisperEngine(model, tok)
+    opts = dataclasses.replace(engine.build_options(beam_size=beam, max_new_tokens=24, kv_cache_dtype="int8"), cross_attn=cross)
+    mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
+    assert engine.uses_device_loop(opts)
+    graph_loop.reset_counts()
+    got = engine.generate(mel, options=opts)
+    assert graph_loop.launches == 1
+    ((loop, _, graph),) = engine.model.decode_loops.values()
+    assert graph_loop.kernel_launches() == {n: c * int(loop.step) for n, c in graph.body_launches.items()}
+    monkeypatch.setattr(WhisperEngine, "uses_device_loop", lambda self, opts: False)  # the host loop on the card
+    want = engine.generate(mel, options=opts)
+    assert graph_loop.launches == 1
+    assert (got.tokens == want.tokens).all() and (got._stats == want._stats).all()

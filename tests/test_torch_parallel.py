@@ -14,7 +14,10 @@ the files are byte-equal.
 
 Run the workers alone: ``python tests/test_torch_parallel.py <dir>`` with
 COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set (the fixture writes
-``<dir>/align.npz`` and ``<dir>/align.json`` first).
+``<dir>/align.npz`` and ``<dir>/align.json`` first). A third fixture runs
+``python tests/test_torch_parallel.py <dir> fallback`` as two ranks of a
+(2, 1) mesh: the sampled decodes (the fallback's ``best_of`` candidates
+across data ranks, and a sampled first pass called twice).
 """
 
 import dataclasses
@@ -33,6 +36,7 @@ SR = 16000
 MAX_NEW = 6
 MEL_ROWS = 4
 INT8_MEL_SEED = 9  # tests/test_parallel.py's int8-KV mesh case
+FALLBACK_BEST_OF = 4  # candidates a chunk: two rows on each of two data ranks
 
 
 # ---- inputs shared by both sides (numpy only) --------------------------------
@@ -277,6 +281,66 @@ def _worker(data_dir: str) -> dict:
     return out
 
 
+def _fallback_worker() -> dict:
+    """Two data ranks, mesh (2, 1), each with the whole model: the sampled
+    decodes of ``transcribe`` (fault 3.1 of the port's ROADMAP)."""
+    import torch
+
+    torch.set_num_threads(1)
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import ByteBackend, WhisperTokenizer
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.parallel import distributed as pd
+    from whisperx_tpu_torch.parallel import make_mesh
+    from whisperx_tpu_torch.pipeline import asr as tasr
+    from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
+
+    pd.initialize(backend="gloo")
+    mesh = make_mesh(device="cpu")  # (2, 1)
+    cfg = _configs()["test"]
+    model = whisper_from_jax(_weights(cfg), cfg, device="cpu")
+
+    class Ids(ByteBackend):
+        def decode(self, ids):
+            return "".join(f"<{i}>" for i in ids)
+
+    decoded = []  # the token rows of every gathered batch, in order
+    decode_text = WhisperEngine.decode_text
+
+    def recording(self, result):
+        decoded.append(np.asarray(result.tokens).tolist())
+        return decode_text(self, result)
+
+    WhisperEngine.decode_text = recording
+
+    def pipeline(mesh, temperatures, fallback):
+        base, tok = (WhisperTokenizer.dummy(cfg.n_vocab, language="en") for _ in range(2))
+        base.backend = tok.backend = Ids(cfg.n_vocab)
+        opts = tasr.TranscriptionOptions(
+            beam_size=2, best_of=FALLBACK_BEST_OF, max_new_tokens=8, temperatures=temperatures,
+            log_prob_threshold=1.0,  # above any average log-prob: every chunk is retried
+            compression_ratio_threshold=None, no_speech_threshold=None, enable_fallback=fallback,
+        )
+        return tasr.WhisperPipeline(
+            WhisperEngine(model, base), VadPipeline(EnergyVAD()), {"vad_onset": 0.5, "vad_offset": 0.363}, opts,
+            tokenizer=tok, language="en", mesh=mesh,
+        )
+
+    audio = _islands(1)  # one chunk: its best_of copies fill one retry batch
+    out = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        decoded.clear()
+        pipeline(m, (0.0, 1.0), True).transcribe(audio, batch_size=FALLBACK_BEST_OF, chunk_size=5)
+        out[f"fallback/{name}"] = decoded[-1]  # the retry batch at temperature 1.0
+    sampled = pipeline(mesh, (1.0,), False)
+    out["sampled"] = [sampled.transcribe(audio, batch_size=FALLBACK_BEST_OF, chunk_size=5) for _ in range(2)]
+    # Leave together: a rank that exits while the other still talks to the
+    # store it hosts can abort the other.
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return out
+
+
 # ---- the fixtures -----------------------------------------------------------
 
 
@@ -293,17 +357,18 @@ def _env(**extra) -> dict:
 
 
 class _Ranks:
-    """The four rank processes; ``results()`` waits for them once."""
+    """The rank processes (``n`` of them, running ``worker``); ``results()``
+    waits for them once."""
 
-    def __init__(self, data_dir):
+    def __init__(self, data_dir, n=N_RANKS, worker="all"):
         port = _free_port()
         self.procs = [
             subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), str(data_dir)],
-                env=_env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES=N_RANKS, PROCESS_ID=r),
+                [sys.executable, os.path.abspath(__file__), str(data_dir), worker],
+                env=_env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES=n, PROCESS_ID=r),
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
             )
-            for r in range(N_RANKS)
+            for r in range(n)
         ]
         self._results = None
 
@@ -338,6 +403,15 @@ def ranks(tmp_path_factory, jax_align):
         json.dumps({"dictionary": jax_align.dictionary, "blank_id": jax_align.blank_id, "max_batch": jax_align.max_batch})
     )
     r = _Ranks(d)
+    yield r
+    for p in r.procs:
+        if p.poll() is None:
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def fallback_ranks(tmp_path_factory):
+    r = _Ranks(tmp_path_factory.mktemp("fallback"), n=2, worker="fallback")
     yield r
     for p in r.procs:
         if p.poll() is None:
@@ -507,6 +581,34 @@ def test_neural_diarize_mesh_equals_one_rank(ranks):
     _assert_ranks_agree(ranks, "neural_diarize")
 
 
+# ---- sampling under a data axis -------------------------------------------------
+
+
+def test_fallback_candidates_stay_distinct_under_a_data_axis(fallback_ranks):
+    """The temperature fallback under a (2, 1) mesh: one chunk's best_of
+    copies fill a retry batch whose rows span both data ranks. Each rank
+    folds its data coordinate into its generator's seed, so the mesh run
+    gives as many distinct candidates as the single-process run (without
+    the fold, rows at the same local index on the two ranks drew the same
+    uniforms and decoded the same tokens)."""
+    res = fallback_ranks.results()
+    single = res[0]["fallback/single"]
+    assert len(single) == FALLBACK_BEST_OF and len({tuple(r) for r in single}) == FALLBACK_BEST_OF
+    mesh = res[0]["fallback/mesh"]
+    assert len(mesh) == FALLBACK_BEST_OF and len({tuple(r) for r in mesh}) == FALLBACK_BEST_OF
+    assert all(r["fallback/mesh"] == mesh for r in res)  # every rank gathers the same rows
+
+
+def test_sampled_decode_is_reproducible_from_call_to_call(fallback_ranks):
+    """temperatures[0] > 0: the main decode samples from a generator seeded
+    as the JAX package's PRNGKey(0), with the data coordinate folded in, so
+    two calls give the same transcript, on every rank."""
+    res = fallback_ranks.results()
+    first, second = res[0]["sampled"]
+    assert first == second and first["segments"]
+    assert all(r["sampled"] == res[0]["sampled"] for r in res)
+
+
 # ---- helpers: row counts, shards, the world -----------------------------------
 
 
@@ -656,5 +758,5 @@ def test_cli_two_ranks_write_their_shards_byte_equal(cli_runs):
 
 
 if __name__ == "__main__":
-    result = _worker(sys.argv[1])
+    result = _fallback_worker() if sys.argv[2:] == ["fallback"] else _worker(sys.argv[1])
     print("RESULT " + json.dumps(result), flush=True)

@@ -16,19 +16,19 @@ torch.set_num_threads(2)
 V, DH, EOT, B = 64, 16, 3, 3
 
 
-def _tables(seed):
+def _tables(seed, eot_bias=1.5):
     rng = np.random.default_rng(seed)
     emb = rng.standard_normal((V, DH)).astype(np.float32)
     proj = (rng.standard_normal((DH, V)) * 0.8).astype(np.float32)
     proj[:, 10] += 1.0  # make token 10 likely...
     emb[11], proj[:, 11] = emb[10], proj[:, 10]  # ...and token 11 its exact tie
-    proj[:, EOT] += 1.5  # make hypotheses finish early, at various steps
+    proj[:, EOT] += eot_bias  # make hypotheses finish early, at various steps
     init = (rng.standard_normal((B, V)) * 2).astype(np.float32)
     return emb, proj, init
 
 
-def _step_fns(seed):
-    emb, proj, _ = _tables(seed)
+def _step_fns(seed, eot_bias=1.5):
+    emb, proj, _ = _tables(seed, eot_bias)
 
     def jstep(tokens, cache, pos):
         h = 0.5 * cache[0]["h"] + jnp.asarray(emb)[tokens[:, 0]]
@@ -111,3 +111,75 @@ def test_length_penalized_matches_jax():
         want = np.asarray(jsearch.length_penalized(jnp.asarray(s), jnp.int32(length), alpha))
         got = tsearch.length_penalized(torch.from_numpy(s), length, alpha).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+LONG = 30  # steps enough for every row to finish: the loops exit early
+
+
+def _counting(jstep):
+    """``jstep`` with a host callback a step: the list gets the position of
+    every step that JAX's while_loop runs."""
+    import jax
+
+    seen = []
+
+    def step(tokens, cache, pos):
+        jax.debug.callback(lambda p: seen.append(int(p)), pos)
+        return jstep(tokens, cache, pos)
+
+    return step, seen
+
+
+# (kind, seed, EOT bias, length penalty, exits before the horizon on the first batch)
+STATIC_CASES = [
+    *[(kind, seed, 1.5, 1.0, False) for kind in ("beam", "greedy") for seed in (0, 1, 2)],
+    ("beam", 3, 3.0, 0.0, True),  # saturated: K finished, no alive beam can beat them
+    ("greedy", 4, 4.0, 1.0, True),  # every row finished
+]
+
+
+@pytest.mark.parametrize("kind,seed,eot_bias,alpha,early", STATIC_CASES)
+def test_static_loop_matches_jax_and_stops_at_its_step(kind, seed, eot_bias, alpha, early):
+    """The loop as the device loop drives it: state allocated once, the
+    prompt cache copied in by ``start`` (to each of the K beams), the
+    in-place body repeated by ``run_host_loop``, then the same loop started
+    again on a second batch. Tokens and log-probs equal JAX's, and the step
+    counter stops where JAX's ``cond`` ended its while_loop (before the
+    horizon in the early cases)."""
+    jstep, tstep = _step_fns(seed, eot_bias)
+    K = 3 if kind == "beam" else 1
+    kw = dict(
+        eot=EOT, suppress_tokens=(5,), blank_tokens=(7,), banned_tokens=(9,), max_new_tokens=LONG,
+        beam_size=K, length_penalty=alpha,
+    )
+    jopts, topts = jsearch.SearchOptions(**kw), tsearch.SearchOptions(**kw)
+    Loop = tsearch.BeamLoop if kind == "beam" else tsearch.GreedyLoop
+    loop = Loop(tstep, [{"h": torch.full((B * K, DH), 7.0)}], B, V, 4, topts)
+    prompt_cache = [{"h": torch.zeros((B, DH))}]
+    for i, init in enumerate((_tables(seed, eot_bias)[2], _tables(seed + 10, eot_bias)[2])):
+        counted, seen = _counting(jstep)
+        jcache = [{"h": jnp.zeros((B * K, DH), jnp.float32)}]
+        run = jsearch.beam_decode if kind == "beam" else jsearch.greedy_decode
+        want = run(counted, jnp.asarray(init), jcache, 4, jopts)
+        tsearch.run_host_loop(loop.start(torch.from_numpy(init), prompt_cache))
+        got = loop.result()
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        assert int(loop.step) == len(seen) and seen == [4 + j for j in range(len(seen))]
+        assert not bool(loop.cont)
+        if early and i == 0:
+            assert int(loop.step) < LONG
+
+
+def test_continue_flag_is_the_cond_before_the_first_step():
+    """As lax.while_loop tests cond before its first body: a horizon of zero
+    steps runs none, and ``start`` leaves ``cont`` true otherwise."""
+    _, tstep = _step_fns(0)
+    init = torch.from_numpy(_tables(0)[2])
+    for n, want in ((0, False), (1, True)):
+        opts = tsearch.SearchOptions(eot=EOT, beam_size=2, max_new_tokens=n)
+        loop = tsearch.BeamLoop(tstep, [{"h": torch.zeros((B * 2, DH))}], B, V, 4, opts).start(init)
+        assert bool(loop.cont) is want
+        tsearch.run_host_loop(loop)
+        assert int(loop.step) == n

@@ -99,3 +99,32 @@ def test_empty_cache_layout():
     assert layer["k"].shape == (3, 128, 2, 64) and layer["k"].dtype == torch.int8
     assert layer["k_scale"].shape == (3, 128, 2, 1) and layer["k_scale"].dtype == torch.float32
     assert set(model.empty_cache(1)["self"][0]) == {"k", "v"}
+
+
+@pytest.mark.parametrize("kv", ["fp32", "int8", "int4"])
+def test_device_position_is_bit_equal_to_the_int(inputs, kv):
+    """The decode loop's position as a 0-d int64 tensor (nothing read back
+    to the host) gives the logits and the cache writes of the Python int,
+    bit for bit: the prompt, then two steps, with the model's cache, the
+    int8 one and the packed int4 one (values and scale planes)."""
+    params, mel, tokens = inputs
+    model = whisper_from_jax(params, SMALL, device="cpu")
+    cache_dtype = {"fp32": None, "int8": torch.int8, "int4": tw.PACKED_INT4}[kv]
+    runs = []
+    with torch.inference_mode():
+        states = model.encode(torch.from_numpy(mel))
+        for wrap in (int, torch.tensor):
+            cache = model.empty_cache(2, cache_dtype=cache_dtype, cache_len=64)
+            cache["cross"] = model.compute_cross_kv(states)
+            logits, cache = model.decode_step(torch.from_numpy(tokens).long(), cache, wrap(0))
+            out = [logits]
+            for i in range(2):
+                step_tokens = out[-1][:, -1].argmax(-1, keepdim=True)
+                logits, cache = model.decode_step(step_tokens, cache, wrap(tokens.shape[1] + i))
+                out.append(logits)
+            runs.append((out, cache["self"]))
+    (int_logits, int_cache), (dev_logits, dev_cache) = runs
+    assert all(torch.equal(a, b) for a, b in zip(int_logits, dev_logits))
+    for a, b in zip(int_cache, dev_cache):
+        assert a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+    assert int_cache[0]["k"][:, tokens.shape[1] + 1].abs().sum() > 0  # the last step wrote its slot

@@ -4,22 +4,32 @@ Port of ``whisperx_tpu/decode/engine.py``: mel features → encoder →
 cross-KV precompute (optionally int8 or int4, optionally in the kernel's
 flat layout) → prompt ingestion (with the no-speech probability at SOT) →
 greedy or beam token loop. The JAX package jit-compiles each of these as one
-program; here they run eagerly on the model's device. The weights live in
-the model, so no call takes a parameter tree.
+program; here the stages before the loop run eagerly on the model's device,
+and the loop runs as one CUDA graph launch where
+:meth:`WhisperEngine.uses_device_loop` says so (the host loop elsewhere).
+The weights live in the model, so no call takes a parameter tree.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
+from ..ops.graph_loop import DeviceLoop
 from ..parallel.mesh import gather_rows
-from .search import SearchOptions, beam_decode, greedy_decode
+from .search import BeamLoop, GreedyLoop, SearchOptions, beam_decode, greedy_decode
 from .tokenizer import WhisperTokenizer
+
+# Captured device loops kept per model (``Whisper.decode_loops``), the least
+# recently used dropped first. Each holds its static inputs: at large-v2,
+# batch 8 x beam 5, ~1 GB of int8 cross K/V, ~0.4 GB of int8 self cache and
+# as much again of reorder scratch.
+MAX_DEVICE_LOOPS = 4
 
 
 def _host(x) -> np.ndarray:
@@ -107,6 +117,31 @@ class WhisperEngine:
             raise ValueError(f"kv_cache_dtype={opts.kv_cache_dtype!r}: expected one of {tuple(_KV_BITS)}")
         return _KV_BITS[opts.kv_cache_dtype]
 
+    def _cross_kv(self, audio_states: torch.Tensor, kv_bits: int, cross_impl: str, out: Optional[list] = None) -> list:
+        """Each decoder layer's cross K/V in the form the step reads: int8 or
+        int4 with ``kv_bits``, the kernel's flat layout with
+        ``cross_impl="pallas"``, else the model's dtype. Layer by layer, so
+        that one layer's K/V at a time exists in the model's dtype. With
+        ``out`` (a device loop's static buffers, :meth:`_loop_cross`) each
+        layer lands in them and ``out`` is returned."""
+        cross = []
+        for i, block in enumerate(self.model.decoder.layers):
+            k, v = block.compute_cross_kv(audio_states)
+            if cross_impl == "pallas":
+                # The kernel reads int8 K/V: an int4 request gets int8 cross
+                # K/V while its self cache stays int4, as in the JAX package.
+                kv = flat_cross_kv(k, v, kv_bits in (4, 8))
+            elif kv_bits:
+                kv = (*store_kv(k, kv_bits), *store_kv(v, kv_bits))
+            else:
+                kv = (k, v)
+            if out is None:
+                cross.append(kv)
+            else:
+                for dst, src in zip(out[i], kv):
+                    dst.copy_(src)
+        return cross if out is None else out
+
     def _prompt_cache(
         self,
         audio_states: torch.Tensor,
@@ -114,34 +149,35 @@ class WhisperEngine:
         cache_len: int = 0,
         kv_bits: int = 0,
         cross_impl: str = "xla",
+        cross: Optional[list] = None,
     ):
         """Run the prompt through the decoder.
 
         Returns (last-position logits, cache, no_speech_prob), where
         no_speech_prob is softmax(logits at the SOT position)[<|nospeech|>].
+        ``cross``: the buffers to write the cross K/V into (:meth:`_cross_kv`).
         """
         B = audio_states.shape[0]
         cache_dtype = {8: torch.int8, 4: PACKED_INT4}.get(kv_bits)
         cache = self.model.empty_cache(B, cache_dtype=cache_dtype, cache_len=cache_len)
-        cross = self.model.compute_cross_kv(audio_states)
-        if cross_impl == "pallas":
-            # The kernel reads int8 K/V: an int4 request gets int8 cross K/V
-            # while its self cache stays int4, as in the JAX package.
-            cross = [flat_cross_kv(k, v, kv_bits in (4, 8)) for (k, v) in cross]
-        elif kv_bits:
-            cross = [(*store_kv(k, kv_bits), *store_kv(v, kv_bits)) for (k, v) in cross]
-        cache["cross"] = cross
+        cache["cross"] = self._cross_kv(audio_states, kv_bits, cross_impl, out=cross)
         logits, cache = self.model.decode_step(prompt_tokens, cache, 0)
         layout = self.tokenizer.layout
-        sot_pos = int(torch.argmax((prompt_tokens[0] == layout.sot).int()))
-        no_speech_prob = torch.softmax(logits[:, sot_pos], dim=-1)[:, layout.no_speech]
+        # The SOT position as a device index: no read back to the host.
+        sot_pos = torch.argmax((prompt_tokens[0] == layout.sot).int()).reshape(1)
+        no_speech_prob = torch.softmax(logits.index_select(1, sot_pos)[:, 0], dim=-1)[:, layout.no_speech]
         return logits[:, -1], cache, no_speech_prob
 
     def _step_fn(self, cross):
-        """Step closure over the loop-invariant cross K/V."""
+        """Step closure over the loop-invariant cross K/V. It holds the model
+        by a weak reference: a device loop kept on the model
+        (``Whisper.decode_loops``) keeps its step, and a strong one would
+        make a cycle, so that a dropped model's card memory waited for the
+        garbage collector."""
+        model = weakref.ref(self.model)
 
         def step(tokens, self_cache, pos):
-            logits, new_cache = self.model.decode_step(tokens, {"self": self_cache, "cross": cross}, pos)
+            logits, new_cache = model().decode_step(tokens, {"self": self_cache, "cross": cross}, pos)
             return logits, new_cache["self"]
 
         return step
@@ -152,24 +188,103 @@ class WhisperEngine:
         need = prompt_len + opts.max_new_tokens
         return min(448, -(-need // 64) * 64)
 
+    # ---- the token loop ---------------------------------------------------
+
+    def uses_device_loop(self, opts: SearchOptions) -> bool:
+        """Which loop runs a decode. The device loop (one CUDA graph launch
+        whose WHILE node tests the exit on the card, ``ops/graph_loop.py``)
+        when all of these hold:
+
+        - the model is on a CUDA device;
+        - ``temperature == 0``: torch's graph-safe Philox gives every
+          iteration of a WHILE body the same offset, so each step of a
+          sampled loop would draw the same uniforms (JAX splits its key
+          each step);
+        - the model is whole (``tp_group is None``): gloo's collectives
+          cannot be captured, and NCCL's inside a conditional body are not
+          verified.
+
+        Otherwise the host loop (``search.run_host_loop``), which drives the
+        same step.
+        """
+        return self.device.type == "cuda" and opts.temperature == 0.0 and self.model.tp_group is None
+
+    def _loop_cross(self, key: tuple) -> Optional[list]:
+        """The cross K/V buffers of the device loop kept for ``key`` (see
+        :meth:`_device_loop`), or None before its first batch."""
+        entry = self.model.decode_loops.get(key)
+        return None if entry is None else entry[1]
+
+    def _device_loop(self, key: tuple, init_logits, cache):
+        """Run the loop of ``key`` = (kind, B, prompt length, options, cross
+        impl) as one graph launch and return (tokens, sum_lp, lengths) in new
+        tensors, without reading the card. The graph and its static inputs
+        are kept per key on the model (at most :data:`MAX_DEVICE_LOOPS`). The
+        first batch's cross K/V become the loop's own; later batches write
+        theirs into them (``_prompt_cache(cross=self._loop_cross(key))``).
+        Each launch copies the batch's init logits and prompt-filled self
+        cache into the loop's state."""
+        kind, B, prompt_len, opts, _ = key
+        loops = self.model.decode_loops
+        entry = loops.get(key)
+        if entry is None:
+            cross = cache["cross"]
+            K = opts.beam_size if kind == "beam" else 1
+            self_cache = [
+                {n: buf.new_empty((B * K, *buf.shape[1:])) for n, buf in layer.items()} for layer in cache["self"]
+            ]
+            V = init_logits.shape[1]
+            step_fn = self._step_fn(cross)
+            if kind == "beam":
+                loop = BeamLoop(step_fn, self_cache, B, V, prompt_len, opts)
+            else:
+                loop = GreedyLoop(step_fn, self_cache, B, V, prompt_len, opts)
+            loop.start(init_logits, cache["self"])  # a real state for the warm-up step
+            entry = loops[key] = (loop, cross, DeviceLoop(loop))
+            while len(loops) > MAX_DEVICE_LOOPS:
+                torch.cuda.current_stream(self.device).synchronize()  # no launch of the dropped graph in flight
+                loops.popitem(last=False)[1][2].close()
+        elif cache["cross"] is not entry[1]:
+            raise ValueError("the batch's cross K/V must be written into the loop's buffers: _prompt_cache(cross=...)")
+        loops.move_to_end(key)
+        loop, _, graph = entry
+        loop.start(init_logits, cache["self"])
+        graph.launch()
+        return loop.result()
+
     # ---- end-to-end decode --------------------------------------------------
+
+    def _prepare(self, kind: str, mel, prompt_tokens: torch.Tensor, opts: SearchOptions):
+        """Encoder and prompt: (init logits, cache, no_speech, key), where
+        ``key`` is the device loop's (:meth:`_device_loop`) where
+        :meth:`uses_device_loop` holds, else None (the host loop)."""
+        cross_impl = self._cross_impl(opts)
+        key = None
+        if self.uses_device_loop(opts):
+            key = (kind, prompt_tokens.shape[0], prompt_tokens.shape[1], opts, cross_impl)
+        init_logits, cache, no_speech = self._prompt_cache(
+            self._encode(mel),
+            prompt_tokens,
+            self._cache_len(prompt_tokens.shape[1], opts),
+            kv_bits=self._kv_bits(opts),
+            cross_impl=cross_impl,
+            cross=None if key is None else self._loop_cross(key),
+        )
+        return init_logits, cache, no_speech, key
 
     @torch.inference_mode()
     def decode_greedy(self, mel, prompt_tokens, opts: SearchOptions, generator=None):
         """(B, n_mels, 3000) features + (B, P) prompt → greedy tokens."""
         prompt_tokens = prompt_tokens.to(self.device)
-        audio_states = self._encode(mel)
-        init_logits, cache, no_speech = self._prompt_cache(
-            audio_states,
-            prompt_tokens,
-            self._cache_len(prompt_tokens.shape[1], opts),
-            kv_bits=self._kv_bits(opts),
-            cross_impl=self._cross_impl(opts),
-        )
-        tokens, sum_lp, lengths = greedy_decode(
-            self._step_fn(cache["cross"]), init_logits, cache["self"], prompt_tokens.shape[1], opts, generator,
-            group=self.model.tp_group,
-        )
+        init_logits, cache, no_speech, key = self._prepare("greedy", mel, prompt_tokens, opts)
+        P = prompt_tokens.shape[1]
+        if key is not None:
+            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache)
+        else:
+            tokens, sum_lp, lengths = greedy_decode(
+                self._step_fn(cache["cross"]), init_logits, cache["self"], P, opts, generator,
+                group=self.model.tp_group,
+            )
         return tokens, sum_lp, lengths, no_speech
 
     @torch.inference_mode()
@@ -177,21 +292,17 @@ class WhisperEngine:
         """(B, n_mels, 3000) features + (B, P) prompt → beam-searched tokens."""
         K = opts.beam_size
         prompt_tokens = prompt_tokens.to(self.device)
-        audio_states = self._encode(mel)
-        init_logits, cache, no_speech = self._prompt_cache(
-            audio_states,
-            prompt_tokens,
-            self._cache_len(prompt_tokens.shape[1], opts),
-            kv_bits=self._kv_bits(opts),
-            cross_impl=self._cross_impl(opts),
-        )
-        # Replicate only the prompt-filled self cache per beam: (B, ...) →
-        # (B*K, ...). Cross K/V stay per batch element.
-        expanded = [{n: buf.repeat_interleave(K, dim=0) for n, buf in layer.items()} for layer in cache["self"]]
-        tokens, sum_lp, lengths = beam_decode(
-            self._step_fn(cache["cross"]), init_logits, expanded, prompt_tokens.shape[1], opts,
-            group=self.model.tp_group,
-        )
+        init_logits, cache, no_speech, key = self._prepare("beam", mel, prompt_tokens, opts)
+        P = prompt_tokens.shape[1]
+        if key is not None:
+            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache)
+        else:
+            # Replicate only the prompt-filled self cache per beam: (B, ...)
+            # → (B*K, ...). Cross K/V stay per batch element.
+            expanded = [{n: buf.repeat_interleave(K, dim=0) for n, buf in layer.items()} for layer in cache["self"]]
+            tokens, sum_lp, lengths = beam_decode(
+                self._step_fn(cache["cross"]), init_logits, expanded, P, opts, group=self.model.tp_group,
+            )
         return tokens, sum_lp, lengths, no_speech
 
     @torch.inference_mode()
@@ -284,7 +395,12 @@ class WhisperEngine:
             prompt.extend(tok.encode(" " + initial_prompt.strip())[-(self.config.n_text_ctx // 2 - 1) :])
         prompt.extend(tok.sot_sequence(without_timestamps=without_timestamps))
         prompt.extend(prefix_tokens)
-        return torch.tensor(prompt, dtype=torch.long, device=self.device)[None, :].repeat(batch, 1)
+        rows = torch.tensor(prompt, dtype=torch.long)[None, :].repeat(batch, 1)
+        if self.device.type == "cuda":
+            # From pinned memory without blocking: a copy from pageable
+            # memory would wait for the loop of the batch still in flight.
+            return rows.pin_memory().to(self.device, non_blocking=True)
+        return rows.to(self.device)
 
     def prefix_tokens(self, prefix: Optional[str]) -> tuple:
         """Encode a decode ``prefix``: forced continuation context after the
@@ -309,9 +425,10 @@ class WhisperEngine:
         ``beam_size > 1`` at temperature 0, greedy/sampling otherwise.
 
         ``sync=False`` returns a result that still holds device tensors: the
-        copy to the host (and the wait for the last launches) happens on the
-        first read, so the caller can prepare and launch the next batch
-        first."""
+        copy to the host (and the wait for the loop) happens on the first
+        read, so the caller can prepare and launch the next batch first.
+        With the device loop (:meth:`uses_device_loop`) nothing is read back
+        before that: the call returns once the loop is enqueued."""
         opts = options or self.build_options()
         prompt = self.build_prompt(
             mel.shape[0], initial_prompt=initial_prompt, prefix_tokens=self.prefix_tokens(prefix)

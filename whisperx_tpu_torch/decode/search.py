@@ -7,11 +7,22 @@ self cache is reordered with one ``index_select`` per layer buffer every step
 (``WHISPERX_REORDER``, ``WHISPERX_BEAM_HISTORY``, ``WHISPERX_REORDER_PREFIX``,
 ``WHISPERX_REORDER_COND``, ``WHISPERX_TOPK=approx``) are not ported.
 
-The JAX loops are ``lax.while_loop``s whose condition exits early. Here the
-loop runs on the host and reads that condition back once a step. Under
-tensor parallelism every rank of the model group runs the loop, and each
-step's collectives wait for all of them, so the ranks must leave it at the
-same step: :func:`_all_done` takes that decision for the whole group.
+The JAX loops are ``lax.while_loop``s whose condition is evaluated on the
+device. Here each loop is a :class:`GreedyLoop` or :class:`BeamLoop`: its
+state lives in tensors allocated once, and :meth:`body` runs one step in
+place (``copy_``, ``index_copy_``, ``scatter_``; the position and the step
+counter are 0-d device tensors), ending with the JAX ``cond`` written as
+tensor code into the 0-d bool ``cont``. Two loops repeat that body:
+
+- :func:`run_host_loop` reads ``cont`` on the host before each step (the
+  CPU, sampling, and a model split over a tensor-parallel group);
+- ``ops/graph_loop.py`` captures the body once into a CUDA graph and runs it
+  as the body of a conditional WHILE node, which tests ``cont`` on the card
+  (``decode/engine.py`` says which one runs).
+
+Under tensor parallelism every rank of the model group runs the loop, and
+each step's collectives wait for all of them, so the ranks must leave it at
+the same step: :func:`run_host_loop` takes that decision for the whole group.
 
 Tie order: ``lax.top_k`` puts the lower index first among equal values and
 ``torch.topk`` promises no order, so every selection whose kept set or order
@@ -100,23 +111,139 @@ def _candidate_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return vals, torch.gather(idx, -1, order)
 
 
-def _all_done(done: torch.Tensor, group) -> bool:
-    """``bool(done.all())``, one decision for every rank of the
-    tensor-parallel ``group``. The ranks hold the same logits (each is the
-    same fp32 sum after the all-reduces and gathers), but the exit does not
-    rest on bit equality: the flag is all-reduced (MIN) over the group, so
-    no rank leaves the loop while another starts a step whose collectives
-    would wait for it forever."""
-    flag = done.all()
-    if group is not None:
-        flag = flag.to(torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-    return bool(flag)
-
-
 def _check_topk(opts: SearchOptions) -> None:
     if opts.topk not in ("auto", "exact"):
         raise ValueError(f"unknown top-k impl {opts.topk!r}: the port has auto|exact")
+
+
+def run_host_loop(loop, group=None) -> None:
+    """Drive ``loop`` (a :class:`GreedyLoop` or :class:`BeamLoop` after
+    ``start``) on the host: read its ``cont`` flag, run a step, until the
+    flag is false. Under a tensor-parallel ``group`` the flag is all-reduced
+    (MAX), so that every rank runs a step while any rank would: the ranks
+    hold the same logits (each is the same fp32 sum after the all-reduces
+    and gathers), but the exit does not rest on bit equality, and no rank
+    leaves the loop while another starts a step whose collectives would
+    wait for it forever."""
+    while True:
+        flag = loop.cont
+        if group is not None:
+            flag = flag.to(torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        if not bool(flag):
+            return
+        loop.body()
+
+
+def _land(cache: list, new: list) -> None:
+    """Make ``new`` (a step function's returned self cache) the contents of
+    ``cache``: the model's step writes in place and returns the same
+    buffers; a step that returns new ones has them copied back, so that the
+    loop's buffers keep their addresses."""
+    for layer, new_layer in zip(cache, new):
+        for name, buf in layer.items():
+            if new_layer[name] is not buf:
+                buf.copy_(new_layer[name])
+
+
+def _broadcast_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy (B, ...) rows into (B*K, ...) ``dst``, each row K times in a row
+    (``repeat_interleave(K, dim=0)`` without the intermediate)."""
+    B = src.shape[0]
+    dst.view(B, dst.shape[0] // B, *dst.shape[1:]).copy_(src[:, None])
+
+
+class _Loop:
+    """What both loops share: the step function, the self cache (per-layer
+    dicts of (B*K, ...) buffers, updated in place), the masks, the step
+    counter and the continue flag."""
+
+    def __init__(self, step_fn: Callable, cache: list, vocab: int, prompt_len: int, opts: SearchOptions):
+        self.step_fn = step_fn
+        self.cache = cache
+        self.opts = opts
+        self.prompt_len = prompt_len
+        self.max_new = opts.max_new_tokens
+        dev = self.device = next(iter(cache[0].values())).device
+        self.suppress = torch.as_tensor(_static_suppress_mask(vocab, opts), device=dev)
+        self.first_mask = torch.as_tensor(_first_step_mask(vocab, opts), device=dev)
+        self.step = torch.zeros((), dtype=torch.long, device=dev)
+        self.cont = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def _load_cache(self, prompt_cache: Optional[list]) -> None:
+        if prompt_cache is not None:
+            for layer, src in zip(self.cache, prompt_cache):
+                for name, buf in layer.items():
+                    _broadcast_rows(buf, src[name])
+
+    def _advance(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decoder step on ``tokens`` (rows, 1) at the device position,
+        its cache landed in the loop's buffers; returns (rows, V) logits."""
+        logits, cache = self.step_fn(tokens, self.cache, self.prompt_len + self.step)
+        _land(self.cache, cache)
+        return logits[:, -1]
+
+
+class GreedyLoop(_Loop):
+    """The greedy/sampling decode as static state and an in-place body.
+
+    ``step_fn(tokens (B, 1), self_cache, pos) -> (logits (B, 1, V),
+    self_cache)``, ``pos`` a 0-d int64 tensor; the cross K/V are closed over
+    by ``step_fn``. ``cache``: the (B, ...) self-cache buffers the loop
+    owns. Sampling (temperature > 0) draws from ``generator``.
+    """
+
+    def __init__(self, step_fn, cache, batch: int, vocab: int, prompt_len: int, opts: SearchOptions, generator=None):
+        super().__init__(step_fn, cache, vocab, prompt_len, opts)
+        dev, B = self.device, batch
+        self.generator = generator
+        self.sample = opts.temperature > 0
+        self.logits = torch.zeros((B, vocab), dtype=torch.float32, device=dev)
+        self.finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.tokens = torch.zeros((B, self.max_new), dtype=torch.long, device=dev)
+        self.sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
+
+    def start(self, init_logits: torch.Tensor, prompt_cache: Optional[list] = None) -> "GreedyLoop":
+        """The initial state: ``init_logits`` (B, V) after the prompt and,
+        where given, the prompt-filled (B, ...) cache copied in."""
+        self._load_cache(prompt_cache)
+        self.logits.copy_(init_logits)
+        self.finished.fill_(False)
+        self.tokens.fill_(self.opts.eot)
+        self.sum_lp.zero_()
+        self.step.zero_()
+        self.cont.copy_(self.cond())
+        return self
+
+    def cond(self) -> torch.Tensor:
+        """The JAX ``cond``: ``step < max_new`` and some row unfinished."""
+        return (self.step < self.max_new) & ~self.finished.all()
+
+    def body(self) -> None:
+        o = self.opts
+        logits = self.logits + self.suppress
+        logits = torch.where(self.step == 0, logits + self.first_mask, logits)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        if self.sample:
+            probs = torch.softmax(logits / o.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        lp = torch.gather(logprobs, 1, tok[:, None])[:, 0]
+        tok = torch.where(self.finished, o.eot, tok)
+        self.sum_lp.add_(torch.where(self.finished, 0.0, lp))
+        self.tokens.scatter_(1, self.step.expand(tok.shape[0], 1), tok[:, None])
+        self.finished.logical_or_(tok == o.eot)
+        self.logits.copy_(self._advance(tok[:, None]))
+        self.step.add_(1)
+        self.cont.copy_(self.cond())
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(tokens (B, max_new), sum_logprobs (B,), lengths (B,)) in new
+        tensors; token rows are padded with EOT after finish."""
+        tokens = self.tokens.clone()
+        lengths = (tokens != self.opts.eot).sum(dim=1) + 1  # +1 for the EOT itself
+        return tokens, self.sum_lp.clone(), lengths
 
 
 def greedy_decode(
@@ -128,54 +255,143 @@ def greedy_decode(
     generator: Optional[torch.Generator] = None,
     group=None,
 ):
-    """Batched greedy/sampling decode.
+    """Batched greedy/sampling decode on the host loop.
 
     step_fn(tokens (B, 1), self_cache, pos) -> (logits (B, 1, V), self_cache);
-    the cross K/V are closed over by ``step_fn``. Returns (tokens
-    (B, max_new), sum_logprobs (B,), lengths (B,)); token buffers are padded
-    with EOT after finish. Sampling (temperature > 0) draws from
-    ``generator``. ``group``: the tensor-parallel group whose ranks run
-    this loop together (:func:`_all_done`).
+    the cross K/V are closed over by ``step_fn``; ``init_cache`` is updated
+    in place. Returns (tokens (B, max_new), sum_logprobs (B,), lengths (B,));
+    token buffers are padded with EOT after finish. Sampling (temperature >
+    0) draws from ``generator``. ``group``: the tensor-parallel group whose
+    ranks run this loop together (:func:`run_host_loop`).
     """
     B, V = init_logits.shape
-    dev = init_logits.device
-    max_new = opts.max_new_tokens
-    suppress = torch.as_tensor(_static_suppress_mask(V, opts), device=dev)
-    first_mask = torch.as_tensor(_first_step_mask(V, opts), device=dev)
-    sample = opts.temperature > 0
-
-    logits, cache = init_logits, init_cache
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-    tokens = torch.full((B, max_new), opts.eot, dtype=torch.long, device=dev)
-    sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
-    for step in range(max_new):
-        if _all_done(finished, group):
-            break
-        logits = logits + suppress
-        if step == 0:
-            logits = logits + first_mask
-        logprobs = torch.log_softmax(logits, dim=-1)
-        if sample:
-            probs = torch.softmax(logits / opts.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            tok = torch.argmax(logits, dim=-1)
-        lp = torch.gather(logprobs, 1, tok[:, None])[:, 0]
-        tok = torch.where(finished, opts.eot, tok)
-        sum_lp = sum_lp + torch.where(finished, 0.0, lp)
-        tokens[:, step] = tok
-        finished = finished | (tok == opts.eot)
-        new_logits, cache = step_fn(tok[:, None], cache, prompt_len + step)
-        logits = new_logits[:, -1]
-    lengths = (tokens != opts.eot).sum(dim=1) + 1  # +1 for the EOT itself
-    return tokens, sum_lp, lengths
+    loop = GreedyLoop(step_fn, init_cache, B, V, prompt_len, opts, generator).start(init_logits)
+    run_host_loop(loop, group)
+    return loop.result()
 
 
-def _gather_cache(self_cache: list, flat_idx: torch.Tensor) -> list:
-    """Reorder the per-layer (B*K, T, H, ·) self cache by beam indices: one
-    axis-0 ``index_select`` per buffer (new buffers, so the in-place cache
-    writes of the next step never touch a buffer two beams share)."""
-    return [{name: buf.index_select(0, flat_idx) for name, buf in layer.items()} for layer in self_cache]
+def reorder_cache_(self_cache: list, flat_idx: torch.Tensor, scratch: dict) -> None:
+    """Reorder the per-layer (B*K, T, H, ·) self cache by beam indices, in
+    place: one axis-0 ``index_select`` per buffer into the scratch buffer of
+    its shape and type (``scratch``, keyed by both), then a copy back, so
+    that the buffers keep their addresses and the next step's in-place cache
+    writes never touch a row two beams share."""
+    for layer in self_cache:
+        for buf in layer.values():
+            tmp = scratch[(tuple(buf.shape), buf.dtype)]
+            torch.index_select(buf, 0, flat_idx, out=tmp)
+            buf.copy_(tmp)
+
+
+class BeamLoop(_Loop):
+    """Fixed-shape batched beam search as static state and an in-place body.
+
+    ``cache``: the (B*K, ...) self-cache buffers the loop owns; ``step_fn``
+    as for :class:`GreedyLoop`, on B*K rows.
+    """
+
+    def __init__(self, step_fn, cache, batch: int, vocab: int, prompt_len: int, opts: SearchOptions):
+        _check_topk(opts)
+        super().__init__(step_fn, cache, vocab, prompt_len, opts)
+        dev, B, K, L = self.device, batch, opts.beam_size, self.max_new
+        self.shape = (B, K, vocab)
+        self.target_finished = max(K, int(round(K * opts.patience)))
+        self.batch_base = torch.arange(B, device=dev)[:, None] * K
+        self.logprobs = torch.zeros((B, K, vocab), dtype=torch.float32, device=dev)
+        self.alive_scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
+        self.alive_toks = torch.zeros((B, K, L), dtype=torch.long, device=dev)
+        self.fin_toks = torch.zeros((B, K, L), dtype=torch.long, device=dev)
+        self.fin_scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
+        self.fin_count = torch.zeros((B,), dtype=torch.long, device=dev)
+        self.scratch = {
+            (tuple(b.shape), b.dtype): torch.empty_like(b) for layer in cache for b in layer.values()
+        }
+
+    def start(self, init_logits: torch.Tensor, prompt_cache: Optional[list] = None) -> "BeamLoop":
+        """The initial state: ``init_logits`` (B, V) after the prompt and,
+        where given, the prompt-filled (B, ...) cache, each row copied to
+        its K beams. Beam 0 starts live, the others at NEG_INF, so the first
+        expansion draws K distinct tokens from the single prompt
+        distribution."""
+        B, K, V = self.shape
+        self._load_cache(prompt_cache)
+        logprobs = torch.log_softmax(init_logits + self.suppress + self.first_mask, dim=-1)
+        self.logprobs.copy_(logprobs[:, None, :].expand(B, K, V))
+        self.alive_scores.fill_(NEG_INF)
+        self.alive_scores[:, 0].fill_(0.0)
+        self.alive_toks.fill_(self.opts.eot)
+        self.fin_toks.fill_(self.opts.eot)
+        self.fin_scores.fill_(NEG_INF)
+        self.fin_count.zero_()
+        self.step.zero_()
+        self.cont.copy_(self.cond())
+        return self
+
+    def cond(self) -> torch.Tensor:
+        """The JAX ``cond``: ``step < max_new`` and not every row saturated,
+        where saturated means enough finished and no alive beam can beat the
+        worst kept finished hypothesis even with a perfect (0 logprob)
+        future."""
+        alpha = self.opts.length_penalty
+        best_alive = length_penalized(self.alive_scores.amax(dim=1), self.step + self.max_new, alpha)
+        worst_fin = self.fin_scores.amin(dim=1)
+        saturated = (self.fin_count >= self.target_finished) & (best_alive <= worst_fin)
+        return (self.step < self.max_new) & ~saturated.all()
+
+    def body(self) -> None:
+        B, K, V = self.shape
+        L, eot, alpha = self.max_new, self.opts.eot, self.opts.length_penalty
+        cand = self.alive_scores[:, :, None] + self.logprobs  # (B, K, V)
+        top_scores, top_idx = _candidate_top_k(cand.reshape(B, K * V), 2 * K)
+        beam_idx = top_idx // V
+        tok_idx = top_idx % V
+        is_eot = tok_idx == eot
+
+        # Finished merge: candidates ending in EOT → top-K finished buffer.
+        eot_pen = torch.where(is_eot, length_penalized(top_scores, self.step + 1, alpha), NEG_INF)
+        self.fin_count.add_(is_eot.sum(dim=1))
+
+        # Alive selection: best K non-EOT of the 2K candidates.
+        new_scores, pick = _sorted_top_k(torch.where(is_eot, NEG_INF, top_scores), K)
+        new_beam = torch.gather(beam_idx, 1, pick)
+        new_tok = torch.gather(tok_idx, 1, pick)
+
+        # Token history of each EOT candidate = alive_toks[beam] + EOT pad.
+        cand_toks = torch.gather(self.alive_toks, 1, beam_idx[:, :, None].expand(B, 2 * K, L))
+        cand_toks.scatter_(2, self.step.expand(B, 2 * K, 1), eot)
+        keep_scores, keep_idx = _sorted_top_k(torch.cat([self.fin_scores, eot_pen], dim=1), K)
+        all_fin_toks = torch.cat([self.fin_toks, cand_toks], dim=1)
+        self.fin_toks.copy_(torch.gather(all_fin_toks, 1, keep_idx[:, :, None].expand(B, K, L)))
+        self.fin_scores.copy_(keep_scores)
+
+        alive_toks = torch.gather(self.alive_toks, 1, new_beam[:, :, None].expand(B, K, L))
+        alive_toks.scatter_(2, self.step.expand(B, K, 1), new_tok[:, :, None])
+        self.alive_toks.copy_(alive_toks)
+
+        reorder_cache_(self.cache, (self.batch_base + new_beam).reshape(-1), self.scratch)
+        logits = self._advance(new_tok.reshape(B * K, 1))
+        self.logprobs.copy_(torch.log_softmax(logits + self.suppress, dim=-1).reshape(B, K, V))
+        self.alive_scores.copy_(new_scores)
+        self.step.add_(1)
+        self.cont.copy_(self.cond())
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(tokens (B, max_new), sum_logprobs (B,), lengths (B,)) of the best
+        hypothesis per row, in new tensors: the best finished one (ranked by
+        the GNMT length-penalized cumulative logprob), else the best alive
+        one (ran out of steps without EOT)."""
+        B, K, V = self.shape
+        eot, alpha = self.opts.eot, self.opts.length_penalty
+        have_finished = self.fin_count > 0
+        best_alive_idx = torch.argmax(length_penalized(self.alive_scores, self.step, alpha), dim=1)
+        best_alive_score = torch.gather(self.alive_scores, 1, best_alive_idx[:, None])[:, 0]
+        best_alive_toks = torch.gather(self.alive_toks, 1, best_alive_idx[:, None, None].expand(B, 1, self.max_new))[:, 0]
+        tokens = torch.where(have_finished[:, None], self.fin_toks[:, 0], best_alive_toks)
+        # Recover the raw (unpenalized) cumulative logprob for finished rows.
+        lengths = (tokens != eot).sum(dim=1) + 1
+        raw_fin = self.fin_scores[:, 0] * (((5.0 + lengths.float()) / 6.0) ** alpha)
+        sum_lp = torch.where(have_finished, raw_fin, best_alive_score)
+        return tokens, sum_lp, lengths
 
 
 def beam_decode(
@@ -186,89 +402,14 @@ def beam_decode(
     opts: SearchOptions,
     group=None,
 ):
-    """Fixed-shape batched beam search.
+    """Fixed-shape batched beam search on the host loop.
 
     Returns (tokens (B, max_new), sum_logprobs (B,), lengths (B,)) for the
-    best hypothesis per batch element (finished preferred, ranked by the GNMT
-    length-penalized cumulative logprob). ``group``: as for
+    best hypothesis per batch element (:meth:`BeamLoop.result`);
+    ``expanded_cache`` is updated in place. ``group``: as for
     :func:`greedy_decode`.
     """
-    _check_topk(opts)
     B, V = init_logits.shape
-    dev = init_logits.device
-    K = opts.beam_size
-    max_new = opts.max_new_tokens
-    eot = opts.eot
-    alpha = opts.length_penalty
-    target_finished = max(K, int(round(K * opts.patience)))
-    suppress = torch.as_tensor(_static_suppress_mask(V, opts), device=dev)
-    first_mask = torch.as_tensor(_first_step_mask(V, opts), device=dev)
-
-    # Beam 0 starts live, the others at NEG_INF, so the first expansion draws
-    # K distinct tokens from the single prompt distribution.
-    alive_scores = torch.tensor([0.0] + [NEG_INF] * (K - 1), device=dev).repeat(B, 1)
-    logprobs = torch.log_softmax(init_logits + suppress + first_mask, dim=-1)
-    logprobs = logprobs[:, None, :].expand(B, K, V)
-    cache = expanded_cache
-    alive_toks = torch.full((B, K, max_new), eot, dtype=torch.long, device=dev)
-    fin_toks = torch.full((B, K, max_new), eot, dtype=torch.long, device=dev)
-    fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-    fin_count = torch.zeros((B,), dtype=torch.long, device=dev)
-    batch_base = torch.arange(B, device=dev)[:, None] * K
-
-    step = 0
-    while step < max_new:
-        # Early exit: enough finished and no alive beam can beat the worst
-        # kept finished hypothesis even with a perfect (0 logprob) future.
-        best_alive = length_penalized(alive_scores.amax(dim=1), step + max_new, alpha)
-        worst_fin = fin_scores.amin(dim=1)
-        saturated = (fin_count >= target_finished) & (best_alive <= worst_fin)
-        if _all_done(saturated, group):
-            break
-
-        cand = alive_scores[:, :, None] + logprobs  # (B, K, V)
-        top_scores, top_idx = _candidate_top_k(cand.reshape(B, K * V), 2 * K)
-        beam_idx = top_idx // V
-        tok_idx = top_idx % V
-        is_eot = tok_idx == eot
-
-        # Finished merge: candidates ending in EOT → top-K finished buffer.
-        eot_pen = torch.where(is_eot, length_penalized(top_scores, step + 1, alpha), NEG_INF)
-        fin_count = fin_count + is_eot.sum(dim=1)
-
-        # Alive selection: best K non-EOT of the 2K candidates.
-        new_scores, pick = _sorted_top_k(torch.where(is_eot, NEG_INF, top_scores), K)
-        new_beam = torch.gather(beam_idx, 1, pick)
-        new_tok = torch.gather(tok_idx, 1, pick)
-
-        # Token history of each EOT candidate = alive_toks[beam] + EOT pad.
-        cand_toks = torch.gather(alive_toks, 1, beam_idx[:, :, None].expand(B, 2 * K, max_new))
-        cand_toks[:, :, step] = eot
-        keep_scores, keep_idx = _sorted_top_k(torch.cat([fin_scores, eot_pen], dim=1), K)
-        all_fin_toks = torch.cat([fin_toks, cand_toks], dim=1)
-        fin_toks = torch.gather(all_fin_toks, 1, keep_idx[:, :, None].expand(B, K, max_new))
-        fin_scores = keep_scores
-
-        alive_toks = torch.gather(alive_toks, 1, new_beam[:, :, None].expand(B, K, max_new))
-        alive_toks[:, :, step] = new_tok
-
-        cache = _gather_cache(cache, (batch_base + new_beam).reshape(-1))
-        logits, cache = step_fn(new_tok.reshape(B * K, 1), cache, prompt_len + step)
-        logprobs = torch.log_softmax(logits[:, -1] + suppress, dim=-1).reshape(B, K, V)
-        alive_scores = new_scores
-        step += 1
-
-    # Prefer the best finished hypothesis; fall back to the best alive one
-    # (ran out of steps without EOT).
-    have_finished = fin_count > 0
-    best_alive_idx = torch.argmax(length_penalized(alive_scores, step, alpha), dim=1)
-    best_alive_score = torch.gather(alive_scores, 1, best_alive_idx[:, None])[:, 0]
-    best_alive_toks = torch.gather(
-        alive_toks, 1, best_alive_idx[:, None, None].expand(B, 1, max_new)
-    )[:, 0]
-    tokens = torch.where(have_finished[:, None], fin_toks[:, 0], best_alive_toks)
-    # Recover the raw (unpenalized) cumulative logprob for finished rows.
-    lengths = (tokens != eot).sum(dim=1) + 1
-    raw_fin = fin_scores[:, 0] * (((5.0 + lengths.float()) / 6.0) ** alpha)
-    sum_lp = torch.where(have_finished, raw_fin, best_alive_score)
-    return tokens, sum_lp, lengths
+    loop = BeamLoop(step_fn, expanded_cache, B, V, prompt_len, opts).start(init_logits)
+    run_host_loop(loop, group)
+    return loop.result()

@@ -14,9 +14,11 @@ casts them, LayerNorms run in fp32, attention logits and softmax in fp32.
 
 Differences in mechanism, not in value:
 - The self-attention KV cache is a per-layer dict of tensors written in place
-  at ``cache_index`` (JAX's ``dynamic_update_slice`` returns a new buffer).
-  The beam search reorders it with ``index_select``, which allocates, so no
-  buffer is shared between beams.
+  at ``cache_index`` (JAX's ``dynamic_update_slice`` returns a new buffer),
+  with ``index_copy_`` along the time axis. ``cache_index`` may be a Python
+  int or a 0-d int64 tensor on the model's device: the decode loop's
+  position lives on the device, so that a step reads nothing back to the
+  host and can be captured into a CUDA graph (``decode/search.py``).
 - The encoder convolutions run as ``unfold`` + ``matmul``: an fp32
   convolution on CUDA would go through cuDNN in TF32 by default.
 - int8 projections with at most 256 rows (every decoder projection in a beam
@@ -47,6 +49,7 @@ does not divide ``n_model`` stays whole, as ``shard_params`` keeps it.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -358,7 +361,7 @@ class MultiHeadAttention(nn.Module):
         *,
         mask: Optional[torch.Tensor] = None,  # additive, broadcastable to (B,H,Tq,Tkv)
         cache: Optional[dict] = None,  # per-layer {"k","v"[,"k_scale","v_scale"]} (B, T, H, ·)
-        cache_index: Optional[int] = None,
+        cache_index: Optional[torch.Tensor] = None,  # (T_q,) int64: the cache slots of the queries
         precomputed_kv=None,
     ):
         head_dim = self.head_dim
@@ -398,19 +401,16 @@ class MultiHeadAttention(nn.Module):
 
         new_cache = None
         if cache is not None:
-            at = slice(cache_index, cache_index + x.shape[1])
             if cache["k"].dtype in (torch.int8, PACKED_INT4):
                 bits = 4 if cache["k"].dtype == PACKED_INT4 else 8
                 qk, kss = store_kv(k, bits)
                 qv, vss = store_kv(v, bits)
-                cache["k"][:, at] = qk
-                cache["v"][:, at] = qv
-                cache["k_scale"][:, at] = kss
-                cache["v_scale"][:, at] = vss
+                for name, val in (("k", qk), ("v", qv), ("k_scale", kss), ("v_scale", vss)):
+                    cache[name].index_copy_(1, cache_index, val)
                 ks, vs = cache["k_scale"], cache["v_scale"]
             else:
-                cache["k"][:, at] = k.to(cache["k"].dtype)
-                cache["v"][:, at] = v.to(cache["v"].dtype)
+                cache["k"].index_copy_(1, cache_index, k.to(cache["k"].dtype))
+                cache["v"].index_copy_(1, cache_index, v.to(cache["v"].dtype))
             new_cache = cache
             k, v = cache["k"], cache["v"]
         if k.dtype == PACKED_INT4:  # int4 cache or cross K/V: unpacked once per use
@@ -577,8 +577,10 @@ class TextDecoder(nn.Module):
             x = x.to(self.dtype)
         return x
 
-    def forward(self, tokens: torch.Tensor, cache: Cache, cache_index: int):
-        """Decode ``tokens`` (B, T) starting at absolute position ``cache_index``.
+    def forward(self, tokens: torch.Tensor, cache: Cache, cache_index: Union[int, torch.Tensor]):
+        """Decode ``tokens`` (B, T) starting at absolute position ``cache_index``
+        (a Python int, or a 0-d int64 tensor on the model's device: then
+        nothing is read back to the host).
 
         Serves prompt ingestion (T = prompt length) and stepping (T = 1).
         Returns (logits (B, T, V) fp32, cache).
@@ -586,21 +588,21 @@ class TextDecoder(nn.Module):
         T = tokens.shape[1]
         emb = self.token_embedding
         x = self._embed(tokens)
-        x = x + self.positional_embedding.to(self.dtype)[cache_index : cache_index + T]
+        positions = cache_index + torch.arange(T, device=tokens.device)
+        x = x + self.positional_embedding.index_select(0, positions).to(self.dtype)
 
         # Causal mask against the static cache: the query at absolute position
         # cache_index + t sees cache slots [0, cache_index + t].
         cache_len = cache["self"][0]["k"].shape[1]
-        q_pos = cache_index + torch.arange(T, device=tokens.device)[:, None]
         k_pos = torch.arange(cache_len, device=tokens.device)[None, :]
-        self_mask = torch.where(k_pos <= q_pos, 0.0, NEG_MASK).to(torch.float32)
+        self_mask = torch.where(k_pos <= positions[:, None], 0.0, NEG_MASK).to(torch.float32)
 
         new_self = []
         for i, block in enumerate(self.layers):
             x, layer_cache = block(
                 x,
                 self_cache=cache["self"][i],
-                cache_index=cache_index,
+                cache_index=positions,
                 cross_kv=cache["cross"][i],
                 self_mask=self_mask,
             )
@@ -660,6 +662,8 @@ class Whisper(nn.Module):
         kw = dict(dtype=dtype, quant_bits=quant_bits, fused_qkv=fused_qkv, group=group, device=device)
         self.encoder = AudioEncoder(config, quantized=q_enc, attn_impl=attn_impl, **kw)
         self.decoder = TextDecoder(config, quantized=q_dec, **kw)
+        # Captured device decode loops by shape key (decode/engine.py), least recently used first.
+        self.decode_loops: OrderedDict = OrderedDict()
 
     @property
     def device(self) -> torch.device:
@@ -687,7 +691,7 @@ class Whisper(nn.Module):
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         return self.encoder(mel)
 
-    def decode_step(self, tokens: torch.Tensor, cache: Cache, cache_index: int):
+    def decode_step(self, tokens: torch.Tensor, cache: Cache, cache_index: Union[int, torch.Tensor]):
         return self.decoder(tokens, cache, cache_index)
 
     def compute_cross_kv(self, audio_states: torch.Tensor):

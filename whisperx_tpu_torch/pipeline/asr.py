@@ -43,7 +43,7 @@ from ..decode.search import SearchOptions
 from ..decode.tokenizer import WhisperTokenizer
 from ..device import DeviceLike, resolve_device
 from ..io.types import SingleSegment, TranscriptionResult
-from ..parallel.mesh import axis_size, mesh_device, shard_batch
+from ..parallel.mesh import axis_index, axis_size, mesh_device, shard_batch
 from ..utils.telemetry import PipelineTelemetry
 from ..vad.model import EnergyVAD, VadPipeline, load_vad_model
 
@@ -128,6 +128,19 @@ class WhisperPipeline:
 
     def _data_granule(self) -> int:
         return axis_size(self.mesh, "data") if self.mesh is not None else 1
+
+    def _generator(self, seed: int) -> torch.Generator:
+        """A generator on the model's device for one sampled decode, seeded
+        with the integer the JAX package gives ``jax.random.PRNGKey``. Under
+        a mesh whose data axis has 2 or more ranks, the rank's data
+        coordinate is folded in (``hash((seed, coordinate))``): each data
+        rank draws its own rows, as the JAX package's one key over the
+        global batch does, while the ranks of one model group, which share
+        the coordinate, draw the same tokens. Without such a mesh the seed
+        is used as it is."""
+        if self._data_granule() > 1:
+            seed = hash((seed, axis_index(self.mesh, "data"))) & 0x7FFFFFFF
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def _gathered(self, result):
         """A batch's result with every data rank's rows (``DecodeResult.
@@ -284,10 +297,14 @@ class WhisperPipeline:
         with self.telemetry.stage("asr_decode", audio_seconds=total_audio_s):
             in_flight = None
             for mel, n_valid in self._feature_batches(audio_dev, vad_segments, batch_size):
+                # A sampled first pass draws as the JAX package's PRNGKey(0) does
+                # (whisperx_tpu/decode/search.py:greedy_decode): the same seed
+                # for every batch and every call.
                 result = self._gathered(engine.generate(
                     mel, options=search_opts,
                     initial_prompt=self.options.initial_prompt,
                     prefix=self.options.prefix,
+                    generator=self._generator(0) if search_opts.temperature > 0 else None,
                     sync=False,
                 ))
                 if in_flight is not None:
@@ -335,7 +352,10 @@ class WhisperPipeline:
         silent (<|nospeech|> prob above threshold AND low logprob) end up
         with empty text. Each retry batch samples from a ``torch.Generator``
         on the model's device, seeded with the integer the JAX package gives
-        ``jax.random.PRNGKey``; the samples themselves differ from JAX's.
+        ``jax.random.PRNGKey`` (:meth:`_generator`: under a mesh the data
+        coordinate is folded in, so that copies of a chunk on different data
+        ranks stay independent samples); the samples themselves differ from
+        JAX's.
         """
         from ..utils import compression_ratio
 
@@ -366,12 +386,11 @@ class WhisperPipeline:
             new_lps: List[float] = []
             done = 0
             for mel, n_valid in self._feature_batches(audio, retry_segments, batch_size):
-                gen = torch.Generator(device=self.device).manual_seed(hash((t_i, done)) & 0x7FFFFFFF)
                 result = self._gathered(engine.generate(
                     mel, options=fb_opts,
                     initial_prompt=opts.initial_prompt,
                     prefix=opts.prefix,
-                    generator=gen,
+                    generator=self._generator(hash((t_i, done)) & 0x7FFFFFFF),
                     sync=False,
                 ))
                 new_texts.extend(engine.decode_text(result)[:n_valid])
