@@ -13,7 +13,10 @@ Phases:
      shapes (plus edge shapes), and time the kernel, the plain version and
      one PyTorch library call (the yardstick) with cold caches; the flash
      forward's lse output and the two flash backward kernels at the
-     training shape (large-v2 encoder, batch 2);
+     training shape (large-v2 encoder, batch 2); the CTC alignment kernel
+     (csrc/ctc_align.cu, trellis + walk) at the alignment path's shapes,
+     at a ragged batch and with its decision bits in a scratch buffer,
+     beside its dependency bound;
   3. on small models, check that the card gives the CPU's results: decode
      tokens (kernels against plain versions) and fp32 alignment segments,
      words and timestamps; then the flash route's bf16 emissions against the
@@ -36,18 +39,24 @@ Phases:
      each arm also runs the host loop on the same inputs (tokens, sum
      log-probs and lengths equal), and the kernel arm's generate(sync=False)
      returns before the loop ends, with no read of the card between the
-     launch and the fetch;
+     launch and the fetch; then a sampled arm on the same model (greedy,
+     batch 8 x 1, 112 tokens, temperatures 0.2 and 1.0, the kernel arm's
+     routes): one kept sampling loop on the card for both temperatures,
+     the device loop equal to the host loop, distinct candidates for the
+     copies of one chunk, generate(sync=False) returning at launch;
   5. drive the alignment path: wav2vec2 base (published widths, random
      weights from seed 0, bf16) aligning bench.py's fixed transcript to 8 x
      30 s of int16 audio through align_begin(...).finish(), with the "xla"
-     and the flash encoder attention;
+     and the flash encoder attention; one launch of the CTC kernel a batch;
   6. drive the production pipeline through the user entry points (bench.py's
      BENCH_PIPELINE configuration): a 6-minute WAV file of bench.py's tone
      bursts → load_audio → SpeechBandVAD cut & merge → phase 4's large-v2
      model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
      .finish() with phase 5's wav2vec2 base and bench.py's transcript per
-     chunk; once with the JAX package's defaults and once with
-     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash;
+     chunk; once with the JAX package's defaults, once with
+     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash, and once with the
+     defaults and enable_fallback=True (sampled retry batches on the
+     device loop);
   7. drive the command line as a user runs ``python -m whisperx_tpu_torch
      <wav> --diarize``: ``cli.cli`` in-process on checkpoints written from
      seeds in their published layouts (large-v2 HF directory with fp16
@@ -90,8 +99,9 @@ tokens and the int8 wav2vec2's alignment, card against CPU.
 Every kernel's launch count is zeroed just before each run of a path and
 read just after: the wrapper's count plus, for each device-loop launch,
 (launches in the captured step) x (steps the loop's device counter reports).
-Phases 4, 6, 7 and 9 decode on the device loop; phase 9 also holds it equal
-to the host loop on the same inputs; phase 10 (b) (a model split over gloo)
+Phases 4, 6, 7 and 9 decode on the device loop, sampled decodes (phase 4's
+sampled arm, phase 6's fallback) included; phases 4 and 9 also hold it
+equal to the host loop on the same inputs; phase 10 (b) (a model split over gloo)
 runs the host loop.
 
 Prints the card's name and power limit, one line per check, a ``kernels``
@@ -115,7 +125,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet)
-KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel", "graph_loop")
+KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel", "graph_loop", "ctc_align")
 # bench.py's alignment transcript (bench.py:277-285): ~70 words per 30 s chunk.
 _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
@@ -510,12 +520,15 @@ def profiled(torch, fn, iters: int = 1) -> dict:
 
 
 def zero_launches() -> None:
-    """Zero every kernel's launch count: the wrappers' counters and the
-    launches inside device-loop graphs (``ops/graph_loop.py``)."""
-    from whisperx_tpu_torch.ops import graph_loop
+    """Zero every kernel's launch count: the wrappers' counters (the CTC
+    kernel's too, which ``read_launches`` leaves out: the alignment's phases
+    read ``ctc.launches`` themselves) and the launches inside device-loop
+    graphs (``ops/graph_loop.py``)."""
+    from whisperx_tpu_torch.ops import ctc, graph_loop
 
     for mod in graph_loop.COUNTERS.values():
         mod.launches = 0
+    ctc.launches = 0
     graph_loop.reset_counts()
 
 
@@ -1120,6 +1133,126 @@ def log_mel_phase(torch, card: str) -> dict:
         "eager_ms": eager_ms,
         "bound_ms_kernel_algorithm": algo_bms,
         "unit": "one call, 8 x 480000 int16 samples, n_mels=80 (tile kernel + clip epilogue)",
+    }
+
+
+def ctc_phase(torch, card: str) -> dict:
+    """csrc/ctc_align.cu against its plain version on the card: the trellis
+    (ctc_trellis_batch) and the five outputs of the fused walk
+    (ctc_align_batch_device) at the alignment path's shapes (phase 5's
+    batch: 8 rows of bench.py's transcript, one token a character, N
+    bucketed by 64; 1,499 frames, 1,479 valid; V 32), at a ragged batch and
+    at a shape whose decision bits exceed shared memory (the scratch
+    branch). Bit for bit, probs to 1e-6 relative (expf against torch.exp).
+    Times the kernel, the plain version (two Python loops over T), the
+    bytes bound and the dependency bound (T barriered steps of an empty
+    loop body); no PyTorch call computes forced alignment."""
+    from whisperx_tpu_torch.align.alignment import _preprocess_segment
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
+    from whisperx_tpu_torch.ops import ctc
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    V = WAV2VEC2_BASE.vocab_size
+    chars, _, _ = _preprocess_segment(ALIGN_TEXT, {c: i for i, c in enumerate(ALIGN_CHARS)}, False)
+    ids = [ALIGN_CHARS.index(c) for c in chars]
+    t_path, T = align_frames(WAV2VEC2_BASE.conv_layers, align_transcript(8))
+    N = max(64, -(-len(ids) // 64) * 64)
+
+    def operands(T, N, t_lens, n_lens):
+        B = len(t_lens)
+        lp = torch.log_softmax(torch.randn((B, T, V), device="cuda", generator=gen) * 3, dim=-1)
+        tok = torch.randint(1, V, (B, N), device="cuda", generator=gen)
+        for b, n in enumerate(n_lens):
+            tok[b, :n] = torch.tensor((ids * (n // len(ids) + 1))[:n])  # the transcript's characters
+        return lp, tok, torch.tensor(t_lens, device="cuda"), torch.tensor(n_lens, device="cuda")
+
+    cases = [
+        ("alignment path", T, N, t_path, [len(ids)] * 8),
+        ("ragged: full, short, unalignable (t_len < n_len), one token, none", T, N, [T, 1200, 300, t_path[0], 17],
+         [len(ids), N, len(ids), 1, 0]),
+        ("decision bits beyond shared memory (scratch)", T, 1280, [T, 1400], [1200, 1280]),
+    ]
+    path_err = 0.0
+    for what, T_, N_, t_lens, n_lens in cases:
+        args = operands(T_, N_, t_lens, n_lens)
+        plan = ctc.launch_plan(T_, N_, V)
+        trellis = ctc.ctc_trellis_batch(*args)
+        got = ctc.ctc_align_batch_device(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(trellis, ctc.ctc_trellis_batch_plain(*args)):
+            raise AssertionError(f"ctc {what}: the kernel's trellis differs from the plain version's")
+        want = ctc.ctc_align_batch_device_plain(*args)
+        for name, g, w in zip(("token_idx", "probs", "active", "success", "t_start"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"ctc {what}: {name} {g.dtype} {tuple(g.shape)} != plain {w.dtype} {tuple(w.shape)}")
+            if name != "probs" and not torch.equal(g, w):
+                raise AssertionError(f"ctc {what}: {name} differs at {int((g != w).sum())} positions")
+        err = max_err_within(torch, f"ctc {what} probs", got[1], want[1], 0.0, 1e-6)
+        if what == "alignment path":
+            path_err = err
+        if (N_ == 1280) == plan.bits_in_smem:
+            raise AssertionError(f"ctc {what}: plan {plan}")
+        log(
+            f"ctc {what} B={len(t_lens)} T={T_} N={N_} V={V}: trellis, token_idx, active, success "
+            f"{got[3].tolist()}, t_start bit-equal to the plain version; probs max abs err {err:.3g} (rtol 1e-6); "
+            f"{plan.threads} threads, decision bits in {'shared memory' if plan.bits_in_smem else 'a scratch buffer'}, "
+            f"{plan.smem_bytes} B of shared memory: ok"
+        )
+
+    B = 8
+    sets = [operands(T, N, t_path, [len(ids)] * B) for _ in range(3)]
+
+    def kernel():
+        for a in sets:
+            ctc.ctc_align_batch_device(*a)
+
+    def plain():
+        for a in sets:
+            ctc.ctc_align_batch_device_plain(*a)
+
+    def trellis_only():  # the kernel's trellis mode: the recurrence without the bits and the walk
+        for a in sets:
+            ctc.ctc_trellis_batch(*a)
+
+    ms = graph_ms(torch, kernel, 20) / 3
+    trellis_ms = graph_ms(torch, trellis_only, 20) / 3
+    eager_ms = time_ms(torch, kernel, 20) / 3
+    plain_ms = graph_ms(torch, plain, 2) / 3
+    plain_eager_ms = time_ms(torch, plain, 1) / 3
+    plan = ctc.launch_plan(T, N, V)
+    dep_ms = ctc.barrier_steps_ms(B, T, plan.threads)
+    # Each input read once, each output written once.
+    nbytes = B * T * V * 4 + B * N * 8 + 2 * B * 8 + B * T * (8 + 4 + 1) + B * (1 + 8)
+    flops = 3 * B * T * N  # two adds and a compare a cell
+    bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+    log(
+        f"ctc timing [{card}], alignment path B={B} T={T} N={N} V={V}, device time (CUDA graph replay): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (eager from Python {plain_eager_ms:.1f} ms), library none, bound "
+        f"{bms:.6f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); dependency bound {dep_ms:.4f} ms "
+        f"({T} barriered steps of an empty loop body, {plan.threads} threads, {B} CTAs): the "
+        f"{'dependency' if dep_ms > bms else by} bound governs; the trellis mode alone (writing the whole "
+        f"trellis, no walk) {trellis_ms:.4f} ms; eager calls from Python {eager_ms:.4f} ms"
+    )
+    return {
+        "name": "ctc_align",
+        "route": "cuda",
+        "design": "one CTA a segment: the trellis row double-buffered in shared memory, one barrier a step, the "
+                  "walk's decisions as warp-ballot bits; one thread walks them, the CTA writes the outputs",
+        "source": "whisperx_tpu_torch/csrc/ctc_align.cu",
+        "replaces": "whisperx_tpu/ops/ctc.py:188 (ctc_align_batch_device: lax.scan trellis :65, vmapped lax.scan walk "
+                    ":183; not a Pallas kernel)",
+        "launches": None,
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": None,
+        "eager_ms": eager_ms,
+        "plain_eager_ms": plain_eager_ms,
+        "dependency_bound_ms": dep_ms,
+        "trellis_mode_ms": trellis_ms,
+        "unit": f"one call, alignment path batch B={B} T={T} N={N} V={V} (trellis + start row + walk)",
     }
 
 
@@ -1730,6 +1863,115 @@ def main_path_phase(torch, card: str, model) -> dict:
     return runs["kernel"]["launches"], profiles["kernel"], loops
 
 
+SAMPLED_TEMPERATURES = (0.2, 1.0)
+BEST_OF = 5  # a retry batch's copies of one chunk (TranscriptionOptions.best_of)
+
+
+def sampled_path_phase(torch, card: str, model) -> dict:
+    """Phase 4's sampled arm, on phase 4's model (large-v2, int8 weights +
+    fused QKV, int8 KV) with the kernel arm's routes: greedy sampling at batch
+    8 x 1, 112 tokens with EOT banned, at each of SAMPLED_TEMPERATURES, on a
+    batch laid out as the fallback's retries are (the first chunk BEST_OF
+    times, then three copies of another). Each temperature: one device-loop
+    launch through generate (both temperatures share one kept loop), the
+    BEST_OF copies decoded to distinct tokens, then the stages with the
+    device loop and the host loop on the same inputs and seed (tokens, sum
+    log-probs and lengths bit-equal), and generate(sync=False)'s return
+    against the first read's wait with no read of the card between the
+    launch and the fetch."""
+    from whisperx_tpu_torch.audio import N_SAMPLES, pcm16
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.search import greedy_decode
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.ops import attention, graph_loop, mel
+
+    cfg = model.config
+    batch, max_new, L = 8, 112, cfg.n_text_layer
+    engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    base = engine.build_options(beam_size=1, max_new_tokens=max_new, kv_cache_dtype="int8")
+    base = dataclasses.replace(base, banned_tokens=base.banned_tokens + (base.eot,), cross_attn="pallas")
+    attention.set_attn_impl(model, "flash")
+    rng = np.random.default_rng(1)
+    chunks = pcm16((rng.standard_normal((2, N_SAMPLES)) * 0.1).astype(np.float32))
+    audio = np.concatenate([np.repeat(chunks[:1], BEST_OF, axis=0), np.repeat(chunks[1:], batch - BEST_OF, axis=0)])
+    mel_b = mel.log_mel_kernel(audio, n_mels=cfg.n_mels).to(torch.bfloat16)
+    want = {"int8_matmul": 6 * L * (1 + max_new), "cross_attention_decode": L * (1 + max_new),
+            "flash_self_attention": cfg.n_audio_layer, "log_mel": 0}
+    out = {}
+    for t_i, temp in enumerate(SAMPLED_TEMPERATURES):
+        o = dataclasses.replace(base, temperature=temp)
+        if not engine.uses_device_loop(o):
+            raise AssertionError(f"sampled arm T={temp}: the device loop is not chosen")
+        seed = 1000 + t_i
+        engine.generate(mel_b, options=o, generator=torch.Generator().manual_seed(seed))  # the capture (first temperature)
+        torch.cuda.synchronize()
+        zero_launches()
+        res = engine.generate(mel_b, options=o, generator=torch.Generator().manual_seed(seed))
+        launches, loop_graphs = read_launches(), graph_loop.launches
+        if launches != want or loop_graphs != 1:
+            raise AssertionError(f"sampled arm T={temp}: launches {launches}, {loop_graphs} loop graphs; expected {want}, 1")
+        if not (res.lengths == max_new + 1).all() or not np.isfinite(res.sum_logprobs).all():
+            raise AssertionError(f"sampled arm T={temp}: lengths {res.lengths}, sum_logprobs {res.sum_logprobs}")
+        copies = {tuple(r) for r in res.tokens[:BEST_OF].tolist()}
+        if len(copies) != BEST_OF:
+            raise AssertionError(f"sampled arm T={temp}: {BEST_OF} copies of one chunk gave {len(copies)} distinct candidates")
+        greedy_keys = [k for k in model.decode_loops if k[0] == "greedy"]
+        if len(greedy_keys) != 1:
+            raise AssertionError(f"sampled arm T={temp}: {len(greedy_keys)} sampling loops kept, expected one for every temperature")
+
+        with torch.inference_mode():
+            stamps = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            states = engine._encode(mel_b)
+            prompt = engine.build_prompt(batch)
+            key = ("greedy", batch, prompt.shape[1], engine._loop_options(o), "pallas")
+            logits, cache, _ = engine._prompt_cache(
+                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl="pallas",
+                cross=engine._loop_cross(key),
+            )
+            mark()
+            device = engine._device_loop(key, logits, cache, temp, torch.Generator().manual_seed(seed))
+            mark()
+            host = greedy_decode(engine._step_fn(cache["cross"]), logits, cache["self"], prompt.shape[1], o,
+                                 torch.Generator().manual_seed(seed))
+            mark()
+        same_loops(torch, f"sampled arm T={temp}", device, host)
+        if not np.array_equal(device[0].cpu().numpy(), res.tokens):
+            raise AssertionError(f"sampled arm T={temp}: the staged device loop differs from generate's")
+        dev_ms, host_ms = (1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:]))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = engine.generate(mel_b, options=o, generator=torch.Generator().manual_seed(seed), sync=False)
+        t1 = time.perf_counter()
+        done = torch.cuda.Event()
+        done.record()
+        busy_at_return = not done.query()
+        pending.fetch()
+        t2 = time.perf_counter()
+        if not busy_at_return or not np.array_equal(pending.tokens, res.tokens):
+            raise AssertionError(f"sampled arm T={temp}: generate(sync=False) returned after the loop, or other tokens")
+        reads = reads_between_launch_and_fetch(torch, engine, mel_b, o, torch.Generator().manual_seed(seed))
+        if reads["local_scalar_dense"] or reads["syncs"]:
+            raise AssertionError(f"sampled arm T={temp}: the host read the card between launch and fetch: {reads}")
+        out[temp] = {"device_ms_per_step": dev_ms / max_new, "host_ms_per_step": host_ms / max_new,
+                     "return_ms": (t1 - t0) * 1e3, "wait_ms": (t2 - t1) * 1e3, "launches": loop_graphs}
+        log(
+            f"sampled arm T={temp} (greedy, batch {batch} x 1, {max_new} tokens, EOT banned, kernel arm) [{card}]: "
+            f"one WHILE-graph launch, launches {launches}; the {BEST_OF} copies of one chunk gave {len(copies)} distinct "
+            f"candidates; device loop {dev_ms:.1f} ms ({dev_ms / max_new:.2f} ms/step), host loop {host_ms:.1f} ms "
+            f"({host_ms / max_new:.2f} ms/step), tokens, sum_logprobs and lengths equal between the two loops; "
+            f"generate(sync=False) returned in {(t1 - t0) * 1e3:.2f} ms with the loop still running, the first read "
+            f"waited {(t2 - t1) * 1e3:.2f} ms; between the launch and the fetch {reads['local_scalar_dense']} "
+            f"aten::_local_scalar_dense, {len(reads['syncs'])} synchronizing calls: ok"
+        )
+    return out
+
+
 def state_bytes(loop) -> int:
     """Bytes of a search loop's static state: its tensors, the self cache
     and its reorder scratch (the cross K/V are held beside it in
@@ -1778,8 +2020,9 @@ def same_loops(torch, what: str, device, host) -> None:
         raise AssertionError(f"{what}: the device loop differs from the host loop (elements differing: {diff})")
 
 
-def reads_between_launch_and_fetch(torch, engine, mel_b, opts) -> dict:
-    """``generate(mel_b, sync=False)`` and the fetch, with the host's reads of
+def reads_between_launch_and_fetch(torch, engine, mel_b, opts, generator=None) -> dict:
+    """``generate(mel_b, sync=False)`` (drawing from ``generator`` when
+    sampling) and the fetch, with the host's reads of
     the card after the loop's WHILE-graph launch counted two ways: the
     ``aten::_local_scalar_dense`` calls between the launch and the fetch
     (torch.profiler's host events only: no CUPTI tracing over the graph, see
@@ -1808,7 +2051,7 @@ def reads_between_launch_and_fetch(torch, engine, mel_b, opts) -> dict:
                 profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof:
             warnings.simplefilter("always")
             try:
-                pending = engine.generate(mel_b, options=opts, sync=False)
+                pending = engine.generate(mel_b, options=opts, generator=generator, sync=False)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             with record_function("fetch"):
@@ -1838,10 +2081,11 @@ def reads_between_launch_and_fetch(torch, engine, mel_b, opts) -> dict:
     }
 
 
-def loop_entry(loops: dict) -> dict:
+def loop_entry(loops: dict, sampled: dict, fallback: dict) -> dict:
     """The ``kernels`` line's entry of the device loop (``csrc/graph_loop.cu``):
     its ms a step against the host loop's (its plain version), in phase 4's
-    kernel arm."""
+    kernel arm; beside it the sampled arm's (phase 4) and the launches of
+    phase 6's fallback arm."""
     k = loops["kernel"]
     return {
         "name": "decode_while_loop",
@@ -1864,6 +2108,12 @@ def loop_entry(loops: dict) -> dict:
         "span_ms": k["span_ms_per_step"],
         "unit": "one beam step of large-v2, batch 8 x beam 5, int8 weights and KV, kernel arm (host clock around the "
                 "whole loop / steps); the plain version is the host loop on the same inputs",
+        "launches_sampled": sum(v["launches"] for v in sampled.values()),
+        "sampled": {str(t): v for t, v in sampled.items()},
+        "sampled_unit": "one greedy sampling step of large-v2, batch 8 x 1, int8 weights and KV, kernel arm",
+        "launches_fallback": fallback["launches"]["decode_while_loop"],
+        "fallback_retry_batches": fallback["retry_batches"],
+        "fallback_peak_gib": fallback["peak_gib"],
     }
 
 
@@ -1997,7 +2247,8 @@ def align_path_phase(torch, card: str):
     """wav2vec2 base (published widths, depth not cut), random weights from
     seed 0, bf16, max_batch 8: bench.py's alignment of its fixed transcript
     to 8 x 30 s of int16 audio (bench.py:257-289). Returns the flash
-    launches counted in the last flash run, and the align model."""
+    launches counted in the last flash run, the CTC kernel's launches in the
+    last run, and the align model."""
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import N_SAMPLES
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
@@ -2018,31 +2269,33 @@ def align_path_phase(torch, card: str):
     attention.set_attn_impl(am.model, "flash")
     run()  # one-time set-up (cuBLAS handles, pinned buffers), outside the counted runs
     want = {"xla": 0, "flash": am.model.config.num_layers}  # one batch: one launch per encoder layer
-    words, flash_launches = {}, None
+    words, flash_launches, ctc_launches = {}, None, None
     for impl in ("xla", "flash", "flash", "xla"):  # in turns: two runs each
         attention.set_attn_impl(am.model, impl)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_attn.launches = 0
+        flash_attn.launches = ctc.launches = 0
         t0 = time.perf_counter()
         res = run()
         wall = time.perf_counter() - t0
-        launched = flash_attn.launches
+        launched, ctc_launches = flash_attn.launches, ctc.launches
         segs = res["segments"]
         if len(segs) != batch or not all(s["words"] and all("start" in w and "end" in w for w in s["words"]) for s in segs):
             raise AssertionError(f"align path {impl}: not every segment aligned: {[len(s['words']) for s in segs]}")
-        if launched != want[impl]:
-            raise AssertionError(f"align path {impl}: flash launched {launched} times, expected {want[impl]}")
+        if launched != want[impl] or ctc_launches != 1:
+            raise AssertionError(f"align path {impl}: flash launched {launched} times, expected {want[impl]}; "
+                                 f"ctc_align {ctc_launches} times, expected 1 (one batch)")
         words[impl] = res["word_segments"]
         if impl == "flash":
             flash_launches = launched
         log(
             f"align path attn={impl} [{card}]: {wall * 1e3:.1f} ms for {audio_s:.1f} audio-s, "
             f"{audio_s / wall:.2f} audio-s/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"{len(res['word_segments'])} words, flash launches {launched}: ok"
+            f"{len(res['word_segments'])} words, flash launches {launched}, ctc_align launches {ctc_launches}: ok"
         )
     same = float(np.mean([a == b for a, b in zip(words["xla"], words["flash"])]))
     log(f"align path word timestamps identical between xla and flash: {same:.3f} of {len(words['xla'])} words (random weights)")
+    log(same_alignment_as_plain(torch, f"align path (attention {impl})", run) + ": ok")
 
     # Stage split: the same run with a sync after each device stage.
     stages: dict = {}
@@ -2058,10 +2311,15 @@ def align_path_phase(torch, card: str):
 
         return wrapper
 
-    originals = (alignment._emissions, ctc.ctc_trellis_batch, ctc.ctc_backtrack_device)
+    shapes = []
+
+    def ctc_call(lp, tokens, *a, **kw):
+        shapes.append((*lp.shape, tokens.shape[1]))
+        return ctc.ctc_align_batch_device(lp, tokens, *a, **kw)
+
+    originals = (alignment._emissions, alignment.ctc_align_batch_device)
     alignment._emissions = timed("emissions", originals[0])
-    ctc.ctc_trellis_batch = timed("trellis", originals[1])
-    ctc.ctc_backtrack_device = timed("backtrack", originals[2])
+    alignment.ctc_align_batch_device = timed("ctc", ctc_call)
     try:
         for impl in ("xla", "flash"):
             attention.set_attn_impl(am.model, impl)
@@ -2074,12 +2332,91 @@ def align_path_phase(torch, card: str):
             launch_ms = (t1 - t0) * 1e3 - sum(stages.values())
             log(
                 f"align stages attn={impl} [{card}]: emissions (wav2vec2 + log-softmax) {stages['emissions']:.1f} ms, "
-                f"trellis {stages['trellis']:.1f} ms, backtrack {stages['backtrack']:.1f} ms, host prep and launch "
+                f"trellis + backtrack (ctc_align kernel) {stages['ctc']:.2f} ms, host prep and launch "
                 f"{launch_ms:.1f} ms, fetch + host aggregation {(t2 - t1) * 1e3:.1f} ms"
             )
     finally:
-        alignment._emissions, ctc.ctc_trellis_batch, ctc.ctc_backtrack_device = originals
-    return flash_launches, am
+        alignment._emissions, alignment.ctc_align_batch_device = originals
+    log(f"align path ctc_align shapes (B, T, V, N) {sorted(set(shapes))}")
+    return flash_launches, ctc_launches, am
+
+
+class CtcCalls:
+    """Records each call of the alignment's CTC entry point
+    (``align/alignment.py``'s ``ctc_align_batch_device``, the kernel on the
+    card) while active: its inputs (the emissions among them) and its
+    outputs, cloned. ``check`` then runs the plain version on the recorded
+    inputs and holds the kernel's outputs to it: token indices, active
+    steps, success and start rows bit for bit, probs to 1e-6 relative.
+    Equal path arrays give equal word timestamps (the host aggregation reads
+    no probs for them)."""
+
+    def __init__(self, torch):
+        from whisperx_tpu_torch.align import alignment
+
+        self.torch, self.alignment, self.calls = torch, alignment, []
+        self.kernel = alignment.ctc_align_batch_device
+
+    def __enter__(self):
+        def recorded(*a, **kw):
+            out = self.kernel(*a, **kw)
+            self.calls.append(([x.clone() for x in a], kw.get("blank", 0), [o.clone() for o in out]))
+            return out
+
+        self.alignment.ctc_align_batch_device = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.alignment.ctc_align_batch_device = self.kernel
+
+    def check(self, what: str) -> int:
+        from whisperx_tpu_torch.ops import ctc
+
+        for args, blank, got in self.calls:
+            want = ctc.ctc_align_batch_device_plain(*args, blank=blank)
+            for name, g, w in zip(("token_idx", "probs", "active", "success", "t_start"), got, want):
+                if name == "probs":
+                    max_err_within(self.torch, f"{what}: ctc probs", g, w, 0.0, 1e-6)
+                elif not self.torch.equal(g, w):
+                    raise AssertionError(f"{what}: the kernel's {name} differs from the plain version's on the same emissions")
+        return len(self.calls)
+
+    def plain_run(self, run):
+        """``run()`` again with the plain version in place of the kernel, each
+        call on the emissions recorded for it (the same order of batches)."""
+        from whisperx_tpu_torch.ops import ctc
+
+        recorded = iter(self.calls)
+
+        def plain(lp, tokens, t_len, n_len, blank=0):
+            args, _, _ = next(recorded)
+            if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(args, (lp, tokens, t_len, n_len))):
+                raise AssertionError("plain alignment run: the batches differ from the recorded run's")
+            return ctc.ctc_align_batch_device_plain(*args, blank=blank)
+
+        self.alignment.ctc_align_batch_device = plain
+        try:
+            return run()
+        finally:
+            self.alignment.ctc_align_batch_device = self.kernel
+
+
+def word_times(result) -> list:
+    return [(w["word"], w.get("start"), w.get("end")) for w in result["word_segments"]]
+
+
+def same_alignment_as_plain(torch, what: str, run) -> str:
+    """``run()`` (an alignment through align_begin(...).finish()) with the
+    CTC kernel, recording its calls, then with the plain version on the
+    recorded emissions: the path arrays equal (``CtcCalls.check``) and the
+    word timestamps equal."""
+    with CtcCalls(torch) as calls:
+        got = run()
+    n = calls.check(what)
+    ref = calls.plain_run(run)
+    if word_times(got) != word_times(ref) or not got["word_segments"]:
+        raise AssertionError(f"{what}: word timestamps differ between the CTC kernel and the plain version")
+    return f"{what}: {n} ctc_align batches, paths and {len(got['word_segments'])} word timestamps equal to the plain version's on the same emissions"
 
 
 # ---- phase 6: the production pipeline --------------------------------------
@@ -2091,15 +2428,20 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     at onset 0.5 / offset 0.363, batches of 8, int16 uploads, beam 5, 112
     tokens with EOT suppressed, int8 KV cache) → align_begin(...).finish()
     with each chunk's text replaced by bench.py's transcript (bench.py:180).
-    Two runs: the JAX package's defaults, then the kernel arm
-    (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash, set for the run only).
-    Returns the kernel arm's launches."""
+    Three runs: the JAX package's defaults, the kernel arm
+    (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash, set for the run only),
+    and the defaults with enable_fallback=True at temperatures (0.0,
+    *SAMPLED_TEMPERATURES): on random weights every chunk fails the
+    log-prob gate, so each temperature re-decodes BEST_OF sampled copies of
+    each chunk in retry batches of 8, each one device-loop launch of one kept
+    sampling loop. Returns the kernel arm's launches and the fallback arm's
+    counts."""
     from whisperx_tpu_torch import native
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, graph_loop
+    from whisperx_tpu_torch.ops import attention, ctc, graph_loop
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.utils import telemetry
     from whisperx_tpu_torch.vad.model import SpeechBandVAD, VadPipeline
@@ -2119,6 +2461,20 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
         language="en",
         kv_cache_dtype="int8",
     )
+    fallback = WhisperPipeline(
+        engine=pipe.engine, vad=pipe.vad_model, vad_params=pipe._vad_params,
+        options=TranscriptionOptions(beam_size=beam, max_new_tokens=max_new, suppress_tokens=(-1, tok.eot),
+                                     enable_fallback=True, temperatures=(0.0, *SAMPLED_TEMPERATURES), best_of=BEST_OF),
+        tokenizer=tok, language="en", kv_cache_dtype="int8",
+    )
+    retries = []  # the temperature of each sampled decode batch
+    generate = WhisperEngine.generate
+
+    def counted_generate(self, mel, **kw):
+        if kw["options"].temperature > 0:
+            retries.append(kw["options"].temperature)
+        return generate(self, mel, **kw)
+
     meta = {"language": "en", "dictionary": align_model.dictionary, "type": "torch"}
     audio = pipeline_audio(PIPELINE_MINUTES)
     audio_s = len(audio) / 16000
@@ -2127,28 +2483,32 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     t0 = time.perf_counter()
     ready = native.available()
     log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
-    arms = {"default": {}, "kernel": {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}}
+    arms = {"default": ({}, pipe), "kernel": ({"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}, pipe),
+            "fallback": ({}, fallback)}
     L, runs = cfg.n_text_layer, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pipeline.wav")
         audio_io.write_wav(path, audio)
-        for arm, env in arms.items():
+        for arm, (env, p) in arms.items():
             os.environ.update(env)
+            WhisperEngine.generate = counted_generate
+            retries.clear()
             try:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                pipe.telemetry.stages.clear()
+                p.telemetry.stages.clear()
                 telemetry.GLOBAL.stages.clear()
                 zero_launches()
                 t0 = time.perf_counter()
-                result = pipe.transcribe(path, batch_size=batch)
+                result = p.transcribe(path, batch_size=batch)
                 decoder = audio_io.LAST_DECODER
                 t1 = time.perf_counter()
                 segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
                 aligned = alignment.align_begin(segs, align_model, meta, path).finish()
                 t2 = time.perf_counter()
-                launches, loop_graphs = read_launches(), graph_loop.launches
+                launches, loop_graphs, ctc_launches = read_launches(), graph_loop.launches, ctc.launches
             finally:
+                WhisperEngine.generate = generate
                 for knob in env:
                     os.environ.pop(knob, None)
             chunks = result["segments"]
@@ -2162,29 +2522,43 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
             ):
                 raise AssertionError(f"pipeline {arm}: not every chunk aligned: {[len(s['words']) for s in aligned['segments']]}")
             kernel = arm == "kernel"
+            # Each retry batch holds BEST_OF copies of the failed chunks, padded to 8 rows.
+            n_retry = len(SAMPLED_TEMPERATURES) * -(-len(chunks) * BEST_OF // batch) if arm == "fallback" else 0
+            if len(retries) != n_retry:
+                raise AssertionError(f"pipeline {arm}: {len(retries)} sampled decode batches {retries}, expected {n_retry}")
             want = {
-                "int8_matmul": 6 * L * (1 + max_new) * n_batches,
+                "int8_matmul": 6 * L * (1 + max_new) * (n_batches + n_retry),
                 "cross_attention_decode": L * (1 + max_new) * n_batches if kernel else 0,
                 "flash_self_attention": (cfg.n_audio_layer + align_model.model.config.num_layers) * n_batches if kernel else 0,
                 "log_mel": 0,
             }
-            if launches != want or loop_graphs != n_batches:
-                raise AssertionError(f"pipeline {arm}: launches {launches}, {loop_graphs} loop graphs; expected {want}, {n_batches}")
-            stages = {**pipe.telemetry.report(), **telemetry.GLOBAL.report()}
-            runs[arm] = {"vad": [(s["start"], s["end"]) for s in chunks], "launches": {**launches, "decode_while_loop": loop_graphs}}
+            if launches != want or loop_graphs != n_batches + n_retry or ctc_launches != n_batches:
+                raise AssertionError(
+                    f"pipeline {arm}: launches {launches}, {loop_graphs} loop graphs, {ctc_launches} ctc_align; expected "
+                    f"{want}, {n_batches + n_retry}, {n_batches}"
+                )
+            stages = {**p.telemetry.report(), **telemetry.GLOBAL.report()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[arm] = {"vad": [(s["start"], s["end"]) for s in chunks], "segments": chunks, "retry_batches": n_retry, "peak_gib": peak,
+                         "launches": {**launches, "decode_while_loop": loop_graphs, "ctc_align": ctc_launches}}
             log(
                 f"pipeline {arm} arm [{card}]: {audio_s:.1f} s WAV (decoded by {decoder}) -> {len(chunks)} chunks, "
                 f"{n_batches} decode batches of {batch} (last {len(chunks) - (n_batches - 1) * batch} rows), {n_batches} "
                 f"align batches; transcribe {(t1 - t0) * 1e3:.1f} ms, align {(t2 - t1) * 1e3:.1f} ms, end to end "
                 f"{audio_s / (t2 - t0):.2f} audio-s/s; stages "
                 + ", ".join(f"{k} {stages[k]['seconds'] * 1e3:.1f} ms" for k in ("vad", "asr_decode", "align"))
-                + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, one WHILE-graph "
-                f"launch a decode batch: ok"
+                + f"; peak {peak:.2f} GiB; launches {launches}, {loop_graphs} WHILE-graph launches ({n_batches} beam "
+                f"batches, {n_retry} sampled retry batches at temperatures {sorted(set(retries))}), ctc_align "
+                f"{ctc_launches} (one an align batch); {held_loops(model)}: ok"
             )
-    if runs["default"]["vad"] != runs["kernel"]["vad"]:
-        raise AssertionError("pipeline: the two arms' VAD segments differ")
-    log(f"pipeline: both arms cut the same {len(runs['kernel']['vad'])} VAD segments: ok")
-    return runs["kernel"]["launches"]
+    kernel_segs = [dict(s, text=ALIGN_TEXT) for s in runs["kernel"]["segments"]]
+    log(same_alignment_as_plain(torch, "pipeline chunks", lambda: alignment.align_begin(
+        [dict(s) for s in kernel_segs], align_model, meta, audio).finish()) + ": ok")
+    if not runs["default"]["vad"] == runs["kernel"]["vad"] == runs["fallback"]["vad"]:
+        raise AssertionError("pipeline: the arms' VAD segments differ")
+    log(f"pipeline: the three arms cut the same {len(runs['kernel']['vad'])} VAD segments: ok")
+    fb = runs["fallback"]
+    return runs["kernel"]["launches"], {k: fb[k] for k in ("retry_batches", "peak_gib", "launches")}
 
 
 def small_train_phase(torch) -> None:
@@ -2261,17 +2635,18 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     ``tmp`` for phase 9. Returns the launches, the two HF directories, the
     int8 model's weight bytes and load_model's time."""
     from whisperx_tpu_torch import cli, native
+    from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.diarize import embed, segmentation
     from whisperx_tpu_torch.io import get_writer
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE, get_whisper_config
-    from whisperx_tpu_torch.ops import graph_loop
+    from whisperx_tpu_torch.ops import ctc, graph_loop
 
     cfg = get_whisper_config("large-v2")
     steps, L, batch = cfg.n_text_ctx // 2, cfg.n_text_layer, 8  # decode/engine.py's default horizon
     times: dict = {}
-    seen: dict = {"generate": 0, "pool_decodes": 0}
+    seen: dict = {"generate": 0, "pool_decodes": 0, "align_batches": 0}
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -2344,6 +2719,7 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
         (segmentation, "binarize", timed("binarize", segmentation.binarize)),
         (WhisperEngine, "generate", counted("generate", WhisperEngine.generate)),
         (native.IngestPool, "get", counted("pool_decodes", native.IngestPool.get)),
+        (alignment, "_fused_align_fwd", counted("align_batches", alignment._fused_align_fwd)),
     ]
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
@@ -2354,9 +2730,10 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t0 = time.perf_counter()
-        cli.cli(argv)
+        with CtcCalls(torch) as ctc_calls:
+            cli.cli(argv)
         wall = time.perf_counter() - t0
-        launches, loop_graphs = read_launches(), graph_loop.launches
+        launches, loop_graphs, ctc_launches = read_launches(), graph_loop.launches, ctc.launches
     finally:
         for obj, name, fn in originals:
             setattr(obj, name, fn)
@@ -2379,14 +2756,15 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     # stages reuse the waveform; load_audio's own routes are never taken.
     if seen["pool_decodes"] != 1 or audio_io.LAST_DECODER is not None:
         raise AssertionError(f"cli: {seen['pool_decodes']} pool decodes, load_audio route {audio_io.LAST_DECODER}")
-    if launches != want or loop_graphs != n_batches:
+    if launches != want or loop_graphs != n_batches or ctc_launches != seen["align_batches"] or not ctc_launches:
         raise AssertionError(
-            f"cli: launches {launches}, {loop_graphs} loop graphs; expected {want}, {n_batches} ({n_batches} decode "
-            f"batches of {steps} steps)"
+            f"cli: launches {launches}, {loop_graphs} loop graphs, {ctc_launches} ctc_align; expected {want}, {n_batches} "
+            f"({n_batches} decode batches of {steps} steps), {seen['align_batches']} (one an align batch)"
         )
     segs = result["segments"]
     if not segs or any(s["end"] - s["start"] > 30.0 for s in segs):
         raise AssertionError(f"cli: segments empty or longer than 30 s: {[(s['start'], s['end']) for s in segs]}")
+    ctc_checked = ctc_calls.check("cli")
     speakers = [s.get("speaker") for s in segs]
     if not set(speakers) <= {"SPEAKER_00", "SPEAKER_01"} or None in speakers:
         raise AssertionError(f"cli: a segment without a speaker of the two: {sorted(set(map(str, speakers)))}")
@@ -2416,10 +2794,12 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
         f"{seen['freed_to']:.2f} GiB allocated once that stage dropped its model; the WAV decoded once "
         f"by AudioPrefetcher's native pool (load_audio's routes not taken: LAST_DECODER None); "
         f"{len(seen['turns'])} speaker turns of {turn_speakers}; {len(segs)} segments, speakers "
-        f"{sorted(set(speakers))}, six files; launches {launches}, one WHILE-graph launch a decode batch; "
+        f"{sorted(set(speakers))}, six files; launches {launches}, one WHILE-graph launch a decode batch, "
+        f"ctc_align {ctc_launches} (one an align batch; the {ctc_checked} batches' paths equal to the plain "
+        f"version's on the same emissions, so the word timestamps are); "
         f"python -m whisperx_tpu_torch --help rc 0: ok"
     )
-    return {"launches": {**launches, "decode_while_loop": loop_graphs}, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir,
+    return {"launches": {**launches, "decode_while_loop": loop_graphs, "ctc_align": ctc_launches}, "whisper_dir": whisper_dir, "w2v_dir": w2v_dir,
             "wespeaker": wespeaker, "pyannet": pyannet,
             "weights": seen["weights"], "load_model_ms": ms["load_model"]}
 
@@ -3276,6 +3656,7 @@ def main() -> int:
 
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     kernels += flash_bwd_phase(torch, card, kernels[2])
+    ctc_entry = ctc_phase(torch, card)
     small_reference_phase(torch)
     small_int4_phase(torch)
     small_align_phase(torch, card)
@@ -3285,9 +3666,10 @@ def main() -> int:
     small_train_phase(torch)
     model = large_v2(torch)
     launches, profile, loops = main_path_phase(torch, card, model)  # the decode path's kernel arm
-    kernels.append(loop_entry(loops))
-    flash_align, align_model = align_path_phase(torch, card)
-    pipeline_launches = pipeline_phase(torch, card, model, align_model)  # its kernel arm
+    sampled = sampled_path_phase(torch, card, model)
+    flash_align, ctc_align, align_model = align_path_phase(torch, card)
+    pipeline_launches, fallback = pipeline_phase(torch, card, model, align_model)  # its kernel arm, its fallback arm
+    kernels.append(loop_entry(loops, sampled, fallback))
     del model, align_model
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(torch, card, tmp)
@@ -3310,6 +3692,13 @@ def main() -> int:
         k["launches_train_xla"] = trained["xla"]["launches"].get(k["name"], 0)
         k["launches_int4"] = int4_launches[k["name"]]  # phase 9's arm (b)
         k["launches_parallel"] = parallel_launches.get(k["name"], 0)  # phase 10 (b), rank 0
+    # The CTC kernel: phase 5's run (the alignment path), phase 6's kernel and
+    # fallback arms, phase 7's CLI (one launch an align batch in each);
+    # phases 9 and 10 align too, but their counts are not read.
+    ctc_entry.update(launches=ctc_align, launches_pipeline=pipeline_launches["ctc_align"],
+                     launches_fallback=fallback["launches"]["ctc_align"], launches_cli=cli_launches["ctc_align"],
+                     launches_int4=None, launches_parallel=None)
+    kernels.append(ctc_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

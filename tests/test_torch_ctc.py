@@ -172,3 +172,136 @@ def test_unknown_backend_raises():
     tokens, t_len, n_len = torch.tensor([[1, 2]]), torch.tensor([10]), torch.tensor([2])
     with pytest.raises(ValueError, match="unknown CTC trellis backend"):
         tc.ctc_align_batch_device(logp, tokens, t_len, n_len, blank=0, backend="pallas")
+
+
+@pytest.mark.parametrize("N", [40, 70])
+def test_unalignable_row_and_ragged_columns_match_jax(N):
+    """A row with fewer frames than tokens (it cannot align) beside rows that
+    can, at an N + 1 that is not a multiple of 32 (the kernel's ballot words
+    end inside a warp): every output of the fused walk equals the JAX
+    package's, and the paths too."""
+    rng = np.random.default_rng(N)
+    B, T, V = 4, 96, 32
+    logp = _logp(rng, (B, T, V))
+    token_lists = [list(rng.integers(1, V, N)), list(rng.integers(1, V, N // 2)), list(rng.integers(1, V, 7)), [3]]
+    t_lens = [N - 5, 96, 60, 1]  # row 0: t_len < n_len
+    tok, n_len = _padded(token_lists, N)
+    want = jc.ctc_align_batch_device(jnp.asarray(logp), jnp.asarray(tok), jnp.asarray(t_lens, jnp.int32), jnp.asarray(n_len))
+    got = tc.ctc_align_batch_device(torch.from_numpy(logp), torch.from_numpy(tok), torch.tensor(t_lens), torch.from_numpy(n_len))
+    for name, w, g in zip(("token_idx", "probs", "active", "success", "t_start"), want, got):
+        if name == "probs":
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert got[3].tolist() == [False, True, True, True]
+    paths = tc.align_tokens_batch(logp, token_lists, t_lens)
+    jpaths = jc.align_tokens_batch(logp, token_lists, t_lens)
+    assert [p is None for p in paths] == [p is None for p in jpaths] == [True, False, False, False]
+    for g, w in zip(paths[1:], jpaths[1:]):
+        assert [(p.token_index, p.time_index) for p in g] == [(p.token_index, p.time_index) for p in w]
+
+
+def kernel_algorithm(logp, tok, t_len, n_len, blank=0):
+    """``csrc/ctc_align.cu``'s algorithm in numpy fp32, step for step: the
+    trellis rows with the decision bits ``advance > stay`` (ties keep stay),
+    column n_len's running argmax over rows <= t_len, the walk over the
+    bits writing the pointer before each step, then the epilogue (at j = 0
+    its own decision on column 0). Returns the kernel's five outputs."""
+    B, T, V = logp.shape
+    N = tok.shape[1]
+    col0 = np.zeros((B, T + 1), np.float32)
+    col0[:, 1:] = tc._first_column(torch.from_numpy(logp), torch.from_numpy(t_len), torch.from_numpy(n_len), blank).numpy()
+    tok_idx = np.zeros((B, T), np.int64)
+    probs = np.zeros((B, T), np.float32)
+    active = np.zeros((B, T), bool)
+    success = np.zeros(B, bool)
+    t_start = np.zeros(B, np.int64)
+    for b in range(B):
+        nl, tl = int(n_len[b]), int(t_len[b])
+        prev = np.full(N + 1, -np.inf, np.float32)
+        prev[0] = col0[b, 0]
+        bits = np.zeros((T, N + 1), bool)
+        best, best_r = (col0[b, 0] if nl == 0 else np.float32(-np.inf)), 0
+        for t in range(T):
+            e = logp[b, t]
+            stay = prev[1:] + e[blank]
+            advance = prev[:-1] + e[tok[b]]
+            bits[t, 1:] = advance > stay
+            nxt = np.empty_like(prev)
+            nxt[0] = col0[b, t + 1]
+            nxt[1:] = np.where(bits[t, 1:], advance, stay)
+            if t + 1 <= tl and nxt[nl] > best:
+                best, best_r = nxt[nl], t + 1
+            prev = nxt
+        j = nl
+        for k in range(T):
+            t = T - k
+            tok_idx[b, k] = j
+            if t <= best_r and j > 0 and bits[t - 1, j]:
+                j -= 1
+        success[b], t_start[b] = j == 0, best_r
+        for k in range(T):
+            r, j = T - 1 - k, int(tok_idx[b, k])
+            jm1 = max(j - 1, 0)
+            e = logp[b, r]
+            take = col0[b, r] + e[tok[b, 0]] > col0[b, r] + e[blank] if j == 0 else bits[r, j]
+            tok_idx[b, k] = jm1
+            probs[b, k] = np.exp(e[tok[b, jm1]] if take else e[blank])
+            active[b, k] = r + 1 <= best_r and j > 0
+    return tok_idx, probs, active, success, t_start
+
+
+@pytest.mark.parametrize("n_zero", [False, True])
+def test_kernel_algorithm_equals_the_plain_version(batch, n_zero):
+    """The kernel's algorithm gives the plain version's outputs at every
+    position, inactive ones included (t > t_start, the pointer at 0), which
+    ``align/alignment.py:_fused_align_fwd`` packs whole; with n_zero a row
+    has no token, so the walk stays at column 0 from its first step."""
+    logp, token_lists, t_lens = batch
+    if n_zero:
+        token_lists = [[]] + token_lists[1:]
+    tok, n_len = _padded(token_lists, 128)
+    tok, n_len, t_len = tok.astype(np.int64), n_len.astype(np.int64), np.asarray(t_lens, np.int64)
+    got = kernel_algorithm(logp, tok, t_len, n_len)
+    want = tc.ctc_align_batch_device_plain(torch.from_numpy(logp), torch.from_numpy(tok), torch.from_numpy(t_len), torch.from_numpy(n_len))
+    for name, g, w in zip(("token_idx", "probs", "active", "success", "t_start"), got, want):
+        if name == "probs":
+            np.testing.assert_allclose(g, w.numpy(), rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    if n_zero:  # without tokens the row aligns trivially, with no active step
+        assert got[3][0] and not got[2][0].any() and (got[0][0] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "T,N,V,in_smem",
+    [(1499, 448, 32, True), (1499, 64, 32, True), (1499, 1024, 32, True), (1499, 1280, 32, False), (120, 128, 12, True)],
+)
+def test_launch_plan(T, N, V, in_smem):
+    """The kernel's plan: threads cover the N + 1 columns in warps (at most
+    1024), the emission chunk stays within 32 KB, and the decision bits,
+    T x ceil((N + 1) / 32) words, sit in shared memory exactly when the whole
+    layout fits in the 227 KB a CTA can use (else a scratch buffer)."""
+    plan = tc.launch_plan(T, N, V)
+    words = -(-(N + 1) // 32)
+    assert plan.words == words and plan.bits_in_smem == in_smem
+    assert plan.threads % 32 == 0 and plan.threads <= 1024 and (plan.threads >= N + 1 or plan.threads == 1024)
+    assert plan.chunk * V * 4 <= 32768
+    base = 4 * (2 * (N + 1) + plan.chunk * (V + 1) + N + 4)
+    assert plan.smem_bytes == base + (4 * T * words if in_smem else 0) <= tc.SMEM_LIMIT
+    assert not tc.launch_plan(T, N, V, align=False).bits_in_smem
+    if N == 448:
+        assert 4 * T * words == 89_940  # the ~90 KB of decision bits at the alignment path's shapes
+
+
+def test_cpu_tensors_take_the_plain_version(batch):
+    """On a CPU tensor the wrappers run the plain versions and launch no
+    kernel."""
+    logp, token_lists, t_lens = batch
+    tok, n_len = _padded(token_lists, 128)
+    args = (torch.from_numpy(logp), torch.from_numpy(tok), torch.tensor(t_lens), torch.from_numpy(n_len))
+    before = tc.launches
+    assert torch.equal(tc.ctc_trellis_batch(*args), tc.ctc_trellis_batch_plain(*args))
+    for g, w in zip(tc.ctc_align_batch_device(*args), tc.ctc_align_batch_device_plain(*args)):
+        assert torch.equal(g, w)
+    assert tc.launches == before

@@ -10,7 +10,7 @@ import torch
 
 from whisperx_tpu_torch.audio import log_mel_spectrogram
 from whisperx_tpu_torch.models.whisper import flat_cross_kv, pack_int4, unpack_int4
-from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm, mel
+from whisperx_tpu_torch.ops import cross_attn, ctc, flash_attn, int8_mm, mel
 
 torch.set_num_threads(2)
 
@@ -372,3 +372,88 @@ def test_device_loop_equals_host_loop(gen, monkeypatch, beam, cross):
     want = engine.generate(mel, options=opts)
     assert graph_loop.launches == 1
     assert (got.tokens == want.tokens).all() and (got._stats == want._stats).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.2, 1.0])
+def test_sampled_device_loop_equals_host_loop(gen, monkeypatch, temperature):
+    """A sampled decode (temperature > 0) runs on the device loop: its
+    counter-based Gumbel-max draw gives the host loop's tokens and
+    statistics bit for bit from the same seed; one kept loop serves every
+    temperature (a static input, not part of the loop's key); rows draw
+    their own numbers, so copies of one input decode to distinct tokens."""
+    import dataclasses
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.ops import graph_loop
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    model = whisper_from_jax(params, cfg, device="cuda")
+    engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    base = engine.build_options(beam_size=1, max_new_tokens=24, kv_cache_dtype="int8")
+    mel = torch.randn((1, cfg.n_mels, 3000), device="cuda", generator=gen).expand(4, -1, -1).contiguous()
+    graph_loop.reset_counts()
+    got = {}
+    for temp in (temperature, 0.5):
+        opts = dataclasses.replace(base, temperature=temp)
+        assert engine.uses_device_loop(opts)
+        got[temp] = engine.generate(mel, options=opts, generator=torch.Generator().manual_seed(7))
+    assert graph_loop.launches == 2 and len(engine.model.decode_loops) == 1
+    assert len({tuple(r) for r in got[temperature].tokens.tolist()}) > 1  # copies of one input, distinct draws
+    monkeypatch.setattr(WhisperEngine, "uses_device_loop", lambda self, opts: False)  # the host loop on the card
+    opts = dataclasses.replace(base, temperature=temperature)
+    want = engine.generate(mel, options=opts, generator=torch.Generator().manual_seed(7))
+    assert graph_loop.launches == 2
+    assert (got[temperature].tokens == want.tokens).all() and (got[temperature]._stats == want._stats).all()
+
+
+def ctc_operands(gen, T, V, N, t_lens, n_lens):
+    """Log-softmax emissions (B, T, V) peaked enough that paths move, token
+    ids in [1, V), and the lengths, all on the card."""
+    B = len(t_lens)
+    logp = torch.log_softmax(torch.randn((B, T, V), device="cuda", generator=gen) * 3, dim=-1)
+    tokens = torch.randint(1, V, (B, N), device="cuda", generator=gen)
+    return logp, tokens, torch.tensor(t_lens, device="cuda"), torch.tensor(n_lens, device="cuda")
+
+
+CTC_CASES = [
+    # The alignment path's batch: 8 rows of 1,479 valid frames, bench.py's
+    # ~400-character transcript, N bucketed to 448.
+    (1499, 32, 448, [1479] * 8, [398] * 8),
+    # Ragged: a full row, a short one, one that cannot align (t_len <
+    # n_len), one token, no token; N + 1 not a multiple of 32.
+    (1499, 32, 448, [1499, 1200, 300, 1479, 17], [400, 448, 400, 1, 0]),
+    # Decision bits over the 227 KB of shared memory: the scratch branch.
+    (1499, 32, 1280, [1499, 1400], [1200, 1280]),
+    (40, 12, 1, [40, 3], [1, 1]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,N,t_lens,n_lens", CTC_CASES)
+def test_ctc_kernel_matches_plain(gen, T, V, N, t_lens, n_lens):
+    """csrc/ctc_align.cu against its plain version on the same card: the
+    trellis, token indices, active steps, success and start rows bit for
+    bit, probs to 1e-6 relative (expf against torch.exp); one launch a call."""
+    logp, tokens, t_len, n_len = ctc_operands(gen, T, V, N, t_lens, n_lens)
+    before = ctc.launches
+    trellis = ctc.ctc_trellis_batch(logp, tokens, t_len, n_len)
+    got = ctc.ctc_align_batch_device(logp, tokens, t_len, n_len)
+    torch.cuda.synchronize()
+    assert ctc.launches == before + 2
+    assert ctc.launch_plan(T, N, V).bits_in_smem == (N < 1024)
+    assert torch.equal(trellis, ctc.ctc_trellis_batch_plain(logp, tokens, t_len, n_len))
+    want = ctc.ctc_align_batch_device_plain(logp, tokens, t_len, n_len)
+    for name, g, w in zip(("token_idx", "probs", "active", "success", "t_start"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "probs":
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), name
+    if len(t_lens) == 5:  # the row with fewer frames than tokens fails; the one without tokens succeeds
+        assert not got[3][2] and got[3][4]

@@ -3,6 +3,8 @@ synthetic step function with a small vocabulary: hypotheses finish at
 different lengths, two tokens always tie exactly (tie order decides which
 candidates are kept), patience and length penalty are away from 1."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,6 +90,97 @@ def test_sampling_follows_its_generator_and_the_masks():
     assert not torch.isin(first, torch.tensor([5, 9])).any()
     assert not (first[:, 0] == 7).any()  # the blank token is masked at step 0
     assert any(not torch.equal(first, run(seed)) for seed in (1, 2, 3))
+
+
+def _draw_inputs(seed=11, step=3, B=4, V=16):
+    return (torch.tensor(seed), torch.tensor(step), torch.arange(B), torch.arange(V))
+
+
+def test_draw_is_a_pure_function_of_seed_step_row_and_vocab():
+    """The sampled draw's lanes depend on (seed, step, row, vocabulary index)
+    and on nothing else: the same inputs give the same bits, and a change
+    to any one of the four changes them. Lanes are 32-bit values held in
+    int64, and the noise's uniforms never reach 0 or 1."""
+    seed, step, rows, vocab = _draw_inputs()
+    bits = tsearch.draw_bits(seed, step, rows, vocab)
+    assert bits.dtype == torch.int64 and bits.shape == (4, 16)
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2**32
+    assert torch.equal(bits, tsearch.draw_bits(*_draw_inputs()))
+    assert not torch.equal(bits, tsearch.draw_bits(torch.tensor(12), step, rows, vocab))
+    assert not torch.equal(bits, tsearch.draw_bits(seed, torch.tensor(4), rows, vocab))
+    assert (bits[1:] != bits[:-1]).all()  # row r against row r + 1, at every vocabulary index
+    assert (bits[:, 1:] != bits[:, :-1]).all()  # index v against v + 1, on every row
+    shifted = tsearch.draw_bits(seed, step, rows + 1, vocab)
+    assert torch.equal(shifted[:-1], bits[1:]) and not torch.equal(shifted, bits)
+    # The generator's seed, folded to 32 bits; 0 without one (PRNGKey(0)).
+    assert tsearch.seed_key(torch.Generator().manual_seed(5)) == 5 and tsearch.seed_key(None) == 0
+    assert tsearch.seed_key(torch.Generator().manual_seed(2**40 + 3)) == (2**8) ^ 3
+    g = tsearch.gumbel_noise(seed, step, torch.arange(64), torch.arange(4096))
+    assert torch.isfinite(g).all() and g.dtype == torch.float32
+
+
+def test_draw_follows_softmax_of_logits_over_temperature():
+    """20,000 draws on an 8-token vocabulary (2,500 steps x 8 rows, one
+    seed): the frequencies of argmax(logits / T + g) match softmax(logits /
+    T) by a chi-square test (7 degrees of freedom, p = 0.001: 24.32), as
+    the JAX package's jax.random.categorical, the same method, does."""
+    import jax
+
+    logits = torch.tensor([2.0, 1.0, 0.5, 0.0, -0.5, -1.0, 1.5, 0.25])
+    temperature = 0.7
+    p = torch.softmax(logits / temperature, dim=-1).double().numpy()
+    rows, vocab, seed = torch.arange(8), torch.arange(8), torch.tensor(tsearch.seed_key(torch.Generator().manual_seed(3)))
+    toks = torch.cat([
+        torch.argmax(logits / temperature + tsearch.gumbel_noise(seed, torch.tensor(s), rows, vocab), dim=-1)
+        for s in range(2500)
+    ])
+    jtoks = np.asarray(jax.random.categorical(jax.random.PRNGKey(3), jnp.asarray(logits.numpy()) / temperature, shape=(20000,)))
+    for drawn in (toks.numpy(), jtoks):
+        counts = np.bincount(drawn, minlength=8)
+        chi2 = float((((counts - 20000 * p) ** 2) / (20000 * p)).sum())
+        assert chi2 < 24.32, (counts, 20000 * p)
+
+
+def test_no_suppressed_or_banned_token_is_drawn():
+    """At a high temperature, over many rows and steps, the draw never
+    picks a suppressed (NEG_INF) or banned token, nor the blank or EOT at
+    the first step."""
+    _, tstep = _step_fns(1, eot_bias=-3.0)
+    rng = np.random.default_rng(0)
+    init = torch.from_numpy((rng.standard_normal((64, V)) * 0.01).astype(np.float32))
+    opts = dataclasses.replace(_opts(tsearch, beam_size=1, temperature=5.0), max_new_tokens=40)
+    for seed in range(3):
+        tokens, _, _ = tsearch.greedy_decode(
+            tstep, init, [{"h": torch.zeros((64, DH))}], 4, opts, torch.Generator().manual_seed(seed)
+        )
+        assert not torch.isin(tokens, torch.tensor([5, 9])).any()
+        assert not torch.isin(tokens[:, 0], torch.tensor([7, EOT])).any()
+        assert len(torch.unique(tokens)) > 40  # the draw does reach most of the vocabulary
+
+
+def test_greedy_loop_step_by_step_equals_greedy_decode():
+    """A sampling GreedyLoop driven one body() at a time, its temperature
+    and seed written by start(), gives greedy_decode's tokens and
+    statistics from the same seed; another seed or temperature on the same
+    loop gives other tokens."""
+    _, tstep = _step_fns(2)
+    init = torch.from_numpy(_tables(2)[2])
+    opts = _opts(tsearch, beam_size=1, temperature=1.0)
+    want = tsearch.greedy_decode(tstep, init, [{"h": torch.zeros((B, DH))}], 4, dataclasses.replace(opts, temperature=0.8),
+                                 torch.Generator().manual_seed(9))
+    loop = tsearch.GreedyLoop(tstep, [{"h": torch.zeros((B, DH))}], B, V, 4, opts)
+
+    def run(temperature, seed):
+        loop.cache[0]["h"].zero_()
+        loop.start(init, temperature=temperature, generator=torch.Generator().manual_seed(seed))
+        while bool(loop.cont):
+            loop.body()
+        return loop.result()
+
+    got = run(0.8, 9)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(run(0.8, 10)[0], got[0]) and not torch.equal(run(1.6, 9)[0], got[0])
 
 
 def test_synthetic_search_finishes_early_and_ties():

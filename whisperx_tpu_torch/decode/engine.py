@@ -12,6 +12,7 @@ The weights live in the model, so no call takes a parameter tree.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import weakref
 from typing import Optional, Sequence
@@ -193,21 +194,26 @@ class WhisperEngine:
     def uses_device_loop(self, opts: SearchOptions) -> bool:
         """Which loop runs a decode. The device loop (one CUDA graph launch
         whose WHILE node tests the exit on the card, ``ops/graph_loop.py``)
-        when all of these hold:
+        when both of these hold:
 
         - the model is on a CUDA device;
-        - ``temperature == 0``: torch's graph-safe Philox gives every
-          iteration of a WHILE body the same offset, so each step of a
-          sampled loop would draw the same uniforms (JAX splits its key
-          each step);
         - the model is whole (``tp_group is None``): gloo's collectives
           cannot be captured, and NCCL's inside a conditional body are not
           verified.
 
-        Otherwise the host loop (``search.run_host_loop``), which drives the
-        same step.
+        Sampled decodes (temperature > 0) run there too: the draw is a
+        counter-based function of the step (``search.draw_bits``). Otherwise
+        the host loop (``search.run_host_loop``), which drives the same
+        step.
         """
-        return self.device.type == "cuda" and opts.temperature == 0.0 and self.model.tp_group is None
+        return self.device.type == "cuda" and self.model.tp_group is None
+
+    @staticmethod
+    def _loop_options(opts: SearchOptions) -> SearchOptions:
+        """The options a device loop is kept under: whether it samples, not
+        at which temperature (1.0 stands for every temperature above 0),
+        since the temperature is a static input written at each launch."""
+        return dataclasses.replace(opts, temperature=float(opts.temperature > 0))
 
     def _loop_cross(self, key: tuple) -> Optional[list]:
         """The cross K/V buffers of the device loop kept for ``key`` (see
@@ -215,15 +221,17 @@ class WhisperEngine:
         entry = self.model.decode_loops.get(key)
         return None if entry is None else entry[1]
 
-    def _device_loop(self, key: tuple, init_logits, cache):
-        """Run the loop of ``key`` = (kind, B, prompt length, options, cross
-        impl) as one graph launch and return (tokens, sum_lp, lengths) in new
-        tensors, without reading the card. The graph and its static inputs
-        are kept per key on the model (at most :data:`MAX_DEVICE_LOOPS`). The
-        first batch's cross K/V become the loop's own; later batches write
-        theirs into them (``_prompt_cache(cross=self._loop_cross(key))``).
-        Each launch copies the batch's init logits and prompt-filled self
-        cache into the loop's state."""
+    def _device_loop(self, key: tuple, init_logits, cache, temperature: float = 0.0, generator=None):
+        """Run the loop of ``key`` = (kind, B, prompt length, options (see
+        :meth:`_loop_options`), cross impl) as one graph launch and return
+        (tokens, sum_lp, lengths) in new tensors, without reading the card.
+        The graph and its static inputs are kept per key on the model (at
+        most :data:`MAX_DEVICE_LOOPS`). The first batch's cross K/V become
+        the loop's own; later batches write theirs into them
+        (``_prompt_cache(cross=self._loop_cross(key))``). Each launch copies
+        the batch's init logits and prompt-filled self cache into the loop's
+        state, and for a sampling loop its ``temperature`` and the seed of
+        ``generator``."""
         kind, B, prompt_len, opts, _ = key
         loops = self.model.decode_loops
         entry = loops.get(key)
@@ -248,7 +256,10 @@ class WhisperEngine:
             raise ValueError("the batch's cross K/V must be written into the loop's buffers: _prompt_cache(cross=...)")
         loops.move_to_end(key)
         loop, _, graph = entry
-        loop.start(init_logits, cache["self"])
+        if kind == "beam":
+            loop.start(init_logits, cache["self"])
+        else:
+            loop.start(init_logits, cache["self"], temperature=temperature, generator=generator)
         graph.launch()
         return loop.result()
 
@@ -261,7 +272,7 @@ class WhisperEngine:
         cross_impl = self._cross_impl(opts)
         key = None
         if self.uses_device_loop(opts):
-            key = (kind, prompt_tokens.shape[0], prompt_tokens.shape[1], opts, cross_impl)
+            key = (kind, prompt_tokens.shape[0], prompt_tokens.shape[1], self._loop_options(opts), cross_impl)
         init_logits, cache, no_speech = self._prompt_cache(
             self._encode(mel),
             prompt_tokens,
@@ -279,7 +290,7 @@ class WhisperEngine:
         init_logits, cache, no_speech, key = self._prepare("greedy", mel, prompt_tokens, opts)
         P = prompt_tokens.shape[1]
         if key is not None:
-            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache)
+            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache, opts.temperature, generator)
         else:
             tokens, sum_lp, lengths = greedy_decode(
                 self._step_fn(cache["cross"]), init_logits, cache["self"], P, opts, generator,

@@ -15,7 +15,7 @@ counter are 0-d device tensors), ending with the JAX ``cond`` written as
 tensor code into the 0-d bool ``cont``. Two loops repeat that body:
 
 - :func:`run_host_loop` reads ``cont`` on the host before each step (the
-  CPU, sampling, and a model split over a tensor-parallel group);
+  CPU, and a model split over a tensor-parallel group);
 - ``ops/graph_loop.py`` captures the body once into a CUDA graph and runs it
   as the body of a conditional WHILE node, which tests ``cont`` on the card
   (``decode/engine.py`` says which one runs).
@@ -23,6 +23,14 @@ tensor code into the 0-d bool ``cont``. Two loops repeat that body:
 Under tensor parallelism every rank of the model group runs the loop, and
 each step's collectives wait for all of them, so the ranks must leave it at
 the same step: :func:`run_host_loop` takes that decision for the whole group.
+
+Sampling (temperature > 0) is a Gumbel-max draw, the method of the JAX
+package's ``jax.random.categorical`` (not its bits): ``argmax(logits / T +
+g)``, ``g = -log(-log(u))``, where ``u`` is a pure function of (seed, step,
+row, vocabulary index) computed by tensor code (:func:`draw_bits`). The
+step is the loop's 0-d device counter and the seed and temperature are 0-d
+tensors of the loop's state, so a replayed graph draws new numbers every
+iteration with no input from the host, and the host loop draws the same.
 
 Tie order: ``lax.top_k`` puts the lower index first among equal values and
 ``torch.topk`` promises no order, so every selection whose kept set or order
@@ -66,6 +74,47 @@ class SearchOptions:
     # Candidate top-k: "auto" and "exact" are the exact top-k ("approx" is a
     # TPU-only knob and is not ported).
     topk: str = "auto"
+
+
+# The draw's 32-bit lanes are held in int64: every multiplier is below 2**31
+# and each product is masked back to 32 bits, so no intermediate overflows
+# and the CPU and the card compute the same bits.
+_LANE = 0xFFFFFFFF
+_MIX = 0x45D9F3B  # odd: multiplying by it is a bijection of the lane
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of 32-bit lanes: two rounds of xor-shift and multiply."""
+    x = ((x ^ (x >> 16)) * _MIX) & _LANE
+    x = ((x ^ (x >> 16)) * _MIX) & _LANE
+    return x ^ (x >> 16)
+
+
+def draw_bits(seed: torch.Tensor, step: torch.Tensor, rows: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
+    """(B, V) 32-bit lanes (int64), a pure function of the 0-d ``seed`` (a
+    32-bit key, :func:`seed_key`) and ``step``, the (B,) row indices and the
+    (V,) vocabulary indices. Each stage mixes one more input into the
+    lane, so for fixed others a change of any one input changes the lane."""
+    h = _mix32(_mix32(seed & _LANE) ^ (step & _LANE))
+    h = _mix32(h ^ rows)
+    return _mix32(h[:, None] ^ _mix32(vocab))
+
+
+def gumbel_noise(seed: torch.Tensor, step: torch.Tensor, rows: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
+    """(B, V) float32 Gumbel noise ``-log(-log(u))``, ``u = (k + 0.5) /
+    2**24`` from the top 24 bits k of :func:`draw_bits` (never 0 or 1; in
+    float64, where k + 0.5 is exact)."""
+    u = ((draw_bits(seed, step, rows, vocab) >> 8).double() + 0.5) * 2.0**-24
+    return (-torch.log(-torch.log(u))).float()
+
+
+def seed_key(generator: Optional[torch.Generator]) -> int:
+    """A sampled loop's seed: the generator's initial seed folded to 32 bits,
+    read on the host before the loop starts; 0 without a generator (the JAX
+    package's ``PRNGKey(0)``). The draw does not advance the generator: the
+    same seed gives the same tokens."""
+    seed = generator.initial_seed() if generator is not None else 0
+    return (seed ^ (seed >> 32)) & _LANE
 
 
 def _static_suppress_mask(n_vocab: int, opts: SearchOptions) -> np.ndarray:
@@ -190,7 +239,9 @@ class GreedyLoop(_Loop):
     ``step_fn(tokens (B, 1), self_cache, pos) -> (logits (B, 1, V),
     self_cache)``, ``pos`` a 0-d int64 tensor; the cross K/V are closed over
     by ``step_fn``. ``cache``: the (B, ...) self-cache buffers the loop
-    owns. Sampling (temperature > 0) draws from ``generator``.
+    owns. The loop samples when ``opts.temperature > 0``: its temperature
+    and seed (``seed_key(generator)``) are 0-d tensors that :meth:`start`
+    writes, so one loop serves every temperature and seed.
     """
 
     def __init__(self, step_fn, cache, batch: int, vocab: int, prompt_len: int, opts: SearchOptions, generator=None):
@@ -198,15 +249,26 @@ class GreedyLoop(_Loop):
         dev, B = self.device, batch
         self.generator = generator
         self.sample = opts.temperature > 0
+        self.temperature = torch.ones((), dtype=torch.float32, device=dev)
+        self.seed = torch.zeros((), dtype=torch.long, device=dev)
+        self.rows = torch.arange(B, device=dev)
+        self.vocab = torch.arange(vocab, device=dev)
         self.logits = torch.zeros((B, vocab), dtype=torch.float32, device=dev)
         self.finished = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.tokens = torch.zeros((B, self.max_new), dtype=torch.long, device=dev)
         self.sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
 
-    def start(self, init_logits: torch.Tensor, prompt_cache: Optional[list] = None) -> "GreedyLoop":
+    def start(
+        self, init_logits: torch.Tensor, prompt_cache: Optional[list] = None, *, temperature=None, generator=None
+    ) -> "GreedyLoop":
         """The initial state: ``init_logits`` (B, V) after the prompt and,
-        where given, the prompt-filled (B, ...) cache copied in."""
+        where given, the prompt-filled (B, ...) cache copied in; a sampling
+        loop's temperature (``opts.temperature`` by default) and seed (from
+        ``generator``, else the loop's own)."""
         self._load_cache(prompt_cache)
+        if self.sample:
+            self.temperature.fill_(self.opts.temperature if temperature is None else temperature)
+            self.seed.fill_(seed_key(generator if generator is not None else self.generator))
         self.logits.copy_(init_logits)
         self.finished.fill_(False)
         self.tokens.fill_(self.opts.eot)
@@ -225,8 +287,8 @@ class GreedyLoop(_Loop):
         logits = torch.where(self.step == 0, logits + self.first_mask, logits)
         logprobs = torch.log_softmax(logits, dim=-1)
         if self.sample:
-            probs = torch.softmax(logits / o.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
+            noise = gumbel_noise(self.seed, self.step, self.rows, self.vocab)
+            tok = torch.argmax(logits / self.temperature + noise, dim=-1)
         else:
             tok = torch.argmax(logits, dim=-1)
         lp = torch.gather(logprobs, 1, tok[:, None])[:, 0]
@@ -261,8 +323,9 @@ def greedy_decode(
     the cross K/V are closed over by ``step_fn``; ``init_cache`` is updated
     in place. Returns (tokens (B, max_new), sum_logprobs (B,), lengths (B,));
     token buffers are padded with EOT after finish. Sampling (temperature >
-    0) draws from ``generator``. ``group``: the tensor-parallel group whose
-    ranks run this loop together (:func:`run_host_loop`).
+    0) draws from ``generator``'s seed (:func:`seed_key`). ``group``: the
+    tensor-parallel group whose ranks run this loop together
+    (:func:`run_host_loop`).
     """
     B, V = init_logits.shape
     loop = GreedyLoop(step_fn, init_cache, B, V, prompt_len, opts, generator).start(init_logits)

@@ -6,16 +6,26 @@ whisperx/alignment.py:359-421): trellis (T+1, N+1) with
 first column whose last N rows are +inf (forcing full token consumption), and
 a greedy stay/change backtrack from the argmax of the final column.
 
-The JAX package runs the time recurrence as one ``lax.scan``; here it is a
-Python loop over T of three in-place tensor ops on a preallocated
-(B, T+1, N+1) buffer, vectorised over the batch. The device backtrack
-precomputes every stay/change decision at once, so its sequential walk over T
-is three small ops a step with no host sync. The JAX package has no Pallas
-trellis (``ctc.py:203-209``), so neither has the port.
+The JAX package runs the time recurrence and the walk as one compiled
+program (a ``lax.scan`` trellis and a vmapped ``lax.scan`` walk). On a CUDA
+tensor :func:`ctc_align_batch_device` and :func:`ctc_trellis_batch` launch
+the hand-written Hopper kernel ``csrc/ctc_align.cu`` once a call (or
+raise): one CTA a segment, the trellis row in shared memory, the walk's
+decisions as ballot bits. On a CPU tensor they run the plain versions,
+:func:`ctc_trellis_batch_plain` (a Python loop over T of three in-place
+tensor ops on a preallocated (B, T+1, N+1) buffer, vectorised over the
+batch) and :func:`ctc_align_batch_device_plain` (that trellis, then
+:func:`ctc_backtrack_device`, which precomputes every stay/change decision
+and walks T small steps with no host sync). Column 0 of the trellis is the
+same torch code on both routes (:func:`_first_column`), so the kernel's
+trellis equals the plain version's bit for bit on one device. The JAX
+package has no Pallas trellis (``ctc.py:203-209``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from dataclasses import dataclass
 from typing import List, Optional
@@ -23,7 +33,144 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import _build
+
 INF = float("inf")
+
+
+# Kernel launches since the last reset (chip_smoke.py zeroes and reads it):
+# one a call of ctc_align_batch_device or ctc_trellis_batch on a CUDA tensor.
+launches = 0
+
+SMEM_LIMIT = 232_448  # shared memory one CTA can use on Hopper (227 KB)
+MAX_CHUNK_ROWS = 64  # emission rows the kernel stages in shared memory at a time
+CHUNK_FLOATS = 8192  # ... and at most this many of their floats (32 KB)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/ctc_align.cu`` runs one call: ``threads`` a CTA (one CTA a
+    segment), emission rows staged ``chunk`` at a time, ``smem_bytes`` of
+    dynamic shared memory, and whether the decision bits fit there
+    (``bits_in_smem``; else a (B, T, words) scratch buffer holds them)."""
+
+    threads: int
+    chunk: int
+    smem_bytes: int
+    bits_in_smem: bool
+    words: int  # 32-bit words of decision bits a trellis row
+
+
+def launch_plan(T: int, N: int, V: int, align: bool = True) -> LaunchPlan:
+    """The kernel's launch plan for (B, T, V) emissions and N token columns;
+    the layout is the one ``csrc/ctc_align.cu:smem_words`` counts."""
+    n1 = N + 1
+    threads = min(1024, max(128, -(-n1 // 32) * 32))
+    chunk = max(1, min(MAX_CHUNK_ROWS, CHUNK_FLOATS // V))
+    words = -(-n1 // 32)
+    base = 4 * (2 * n1 + chunk * (V + 1) + N + 4)
+    if base > SMEM_LIMIT:
+        raise ValueError(
+            f"ctc_align: {N} token columns need {base} bytes of shared memory for two trellis rows and the "
+            f"token ids, over the {SMEM_LIMIT} a CTA can use"
+        )
+    bits_in_smem = align and base + 4 * T * words <= SMEM_LIMIT
+    return LaunchPlan(threads, chunk, base + (4 * T * words if bits_in_smem else 0), bits_in_smem, words)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ctc_align")
+    lib.ctc_align.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+    lib.ctc_align.restype = ctypes.c_int
+    lib.ctc_barrier_steps.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.ctc_barrier_steps.restype = ctypes.c_int
+    return lib
+
+
+def _first_column(lp: torch.Tensor, t_len: torch.Tensor, n_len: torch.Tensor, blank: int) -> torch.Tensor:
+    """Rows 1..T of the trellis's column 0, (B, T): the cumsum of blank, with
+    the last n_len rows set to +inf (the full-consumption forcing trick)."""
+    T = lp.shape[1]
+    dev = lp.device
+    csum = torch.cumsum(lp[:, :, blank], dim=1)
+    rows = torch.arange(1, T + 1, device=dev)[None, :]
+    return torch.where(rows > (t_len - n_len)[:, None].to(dev), INF, csum)
+
+
+def _check(log_probs: torch.Tensor, tokens: torch.Tensor, t_len: torch.Tensor, n_len: torch.Tensor, blank: int) -> None:
+    if log_probs.ndim != 3 or tokens.ndim != 2 or tokens.shape[0] != log_probs.shape[0]:
+        raise ValueError(f"ctc: log_probs {tuple(log_probs.shape)} must be (B, T, V), tokens {tuple(tokens.shape)} (B, N)")
+    if t_len.shape != (log_probs.shape[0],) or n_len.shape != (log_probs.shape[0],):
+        raise ValueError(f"ctc: t_len {tuple(t_len.shape)} and n_len {tuple(n_len.shape)} must be (B,)")
+    if not 0 <= blank < log_probs.shape[2]:
+        raise ValueError(f"ctc: blank {blank} outside the vocabulary of {log_probs.shape[2]}")
+
+
+def _launch(log_probs, tokens, t_len, n_len, blank: int, align: bool):
+    """One launch of ``csrc/ctc_align.cu`` on CUDA tensors: the trellis
+    (trellis mode) or (token_idx, probs, active, success, t_start)."""
+    global launches
+    _check(log_probs, tokens, t_len, n_len, blank)
+    dev = log_probs.device
+    lp = log_probs.float().contiguous()
+    B, T, V = lp.shape
+    N = tokens.shape[1]
+    if align and N < 1:
+        raise ValueError("ctc_align_batch_device: tokens must have at least one column")
+    tokens = tokens.to(dev, torch.long).contiguous()
+    t_len = t_len.to(dev, torch.long).contiguous()
+    n_len = n_len.to(dev, torch.long).contiguous()
+    col0 = torch.zeros((B, T + 1), dtype=torch.float32, device=dev)
+    col0[:, 1:] = _first_column(lp, t_len, n_len, blank)
+    plan = launch_plan(T, N, V, align)
+    trellis = outs = scratch = None
+    if align:
+        outs = (
+            torch.empty((B, T), dtype=torch.long, device=dev),
+            torch.empty((B, T), dtype=torch.float32, device=dev),
+            torch.empty((B, T), dtype=torch.bool, device=dev),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+            torch.empty((B,), dtype=torch.long, device=dev),
+        )
+        if not plan.bits_in_smem:
+            scratch = torch.empty((B, T, plan.words), dtype=torch.int32, device=dev)
+    else:
+        trellis = torch.empty((B, T + 1, N + 1), dtype=torch.float32, device=dev)
+    ptrs = [None if x is None else x.data_ptr() for x in (trellis, *(outs or (None,) * 5), scratch)]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.ctc_align(
+            lp.data_ptr(), tokens.data_ptr(), t_len.data_ptr(), n_len.data_ptr(), col0.data_ptr(), *ptrs,
+            B, T, N, V, blank, plan.threads, plan.chunk, plan.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, code, "ctc_align")
+    launches += 1
+    return outs if align else trellis
+
+
+def barrier_steps_ms(B: int, T: int, threads: int, iters: int = 20, device="cuda") -> float:
+    """Device ms of ``B`` CTAs of ``threads`` threads each running T
+    barriered steps of an empty loop body (one shared-memory round trip a
+    step): the kernel's dependency bound at T rows (chip_smoke.py)."""
+    lib = _lib()
+    dev = torch.device(device)
+    out = torch.empty((B, threads), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+
+    def run():
+        _build.check(lib, lib.ctc_barrier_steps(B, T, threads, out.data_ptr(), stream.cuda_stream), "ctc_barrier_steps")
+
+    with torch.cuda.device(dev):
+        run()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(iters):
+            run()
+        end.record(stream)
+        end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def ctc_trellis_batch(
@@ -33,7 +180,22 @@ def ctc_trellis_batch(
     n_len: torch.Tensor,  # (B,) true token counts
     blank: int = 0,
 ) -> torch.Tensor:
-    """Compute (B, T+1, N+1) alignment trellises for a padded segment batch."""
+    """Compute (B, T+1, N+1) alignment trellises for a padded segment batch:
+    one kernel launch on a CUDA tensor, :func:`ctc_trellis_batch_plain`
+    elsewhere."""
+    if log_probs.is_cuda:
+        return _launch(log_probs, tokens, t_len, n_len, blank, align=False)
+    return ctc_trellis_batch_plain(log_probs, tokens, t_len, n_len, blank)
+
+
+def ctc_trellis_batch_plain(
+    log_probs: torch.Tensor,  # (B, T, V) log-softmax emissions
+    tokens: torch.Tensor,  # (B, N) int, padded with any valid id
+    t_len: torch.Tensor,  # (B,) true frame counts
+    n_len: torch.Tensor,  # (B,) true token counts
+    blank: int = 0,
+) -> torch.Tensor:
+    """The plain version of :func:`ctc_trellis_batch` (any device)."""
     B, T, _ = log_probs.shape
     N = tokens.shape[1]
     dev = log_probs.device
@@ -42,11 +204,7 @@ def ctc_trellis_batch(
     tok_em = torch.gather(lp, 2, tokens.long()[:, None, :].expand(B, T, N))  # (B, T, N)
 
     trellis = torch.empty((B, T + 1, N + 1), dtype=torch.float32, device=dev)
-    # Column 0: row 0 is 0; rows 1..T are the cumsum of blank, with the last
-    # n_len rows set to +inf (the full-consumption forcing trick).
-    csum = torch.cumsum(blank_em, dim=1)
-    rows = torch.arange(1, T + 1, device=dev)[None, :]
-    trellis[:, 1:, 0] = torch.where(rows > (t_len - n_len)[:, None].to(dev), INF, csum)
+    trellis[:, 1:, 0] = _first_column(lp, t_len, n_len, blank)
     trellis[:, 0, 0] = 0.0
     trellis[:, 0, 1:] = -INF
     for t in range(T):
@@ -218,7 +376,9 @@ def ctc_align_batch_device(
     blank: int = 0,
     backend: str = "scan",
 ):
-    """Fused trellis + backtrack, entirely on the device (no host sync).
+    """Fused trellis + backtrack, entirely on the device (no host sync): one
+    launch of ``csrc/ctc_align.cu`` on a CUDA tensor,
+    :func:`ctc_align_batch_device_plain` elsewhere.
 
     Returns (token_idx, probs, active, success, t_start) as
     :func:`ctc_backtrack_device` does. ``backend`` "scan" is the only
@@ -229,7 +389,15 @@ def ctc_align_batch_device(
             f"unknown CTC trellis backend {backend!r}: 'scan' is the only "
             "implementation (the r2 Pallas trellis was deleted)"
         )
-    trellis = ctc_trellis_batch(log_probs, tokens, t_len, n_len, blank=blank)
+    if log_probs.is_cuda:
+        return _launch(log_probs, tokens, t_len, n_len, blank, align=True)
+    return ctc_align_batch_device_plain(log_probs, tokens, t_len, n_len, blank)
+
+
+def ctc_align_batch_device_plain(log_probs, tokens, t_len, n_len, blank: int = 0):
+    """The plain version of :func:`ctc_align_batch_device` (any device): the
+    plain trellis, then the vectorised walk."""
+    trellis = ctc_trellis_batch_plain(log_probs, tokens, t_len, n_len, blank=blank)
     return ctc_backtrack_device(trellis, log_probs, tokens, t_len, n_len, blank=blank)
 
 
