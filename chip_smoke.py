@@ -1136,6 +1136,60 @@ def log_mel_phase(torch, card: str) -> dict:
     }
 
 
+CTC_BARRIERED_MS = "0.6969"  # csrc/ctc_align.cu at the alignment path's shapes before its redesign (one barrier a step; final run)
+
+
+def ctc_alignment_case():
+    """Phase 5's CTC shapes: bench.py's transcript as wav2vec2 base's
+    character ids, its frame count T for 8 x 30 s and the 8 rows' valid
+    frames, and N (the ids bucketed by 64). Returns (ids, V, T, N, t_lens)."""
+    from whisperx_tpu_torch.align.alignment import _preprocess_segment
+    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
+
+    chars, _, _ = _preprocess_segment(ALIGN_TEXT, {c: i for i, c in enumerate(ALIGN_CHARS)}, False)
+    ids = [ALIGN_CHARS.index(c) for c in chars]
+    t_lens, T = align_frames(WAV2VEC2_BASE.conv_layers, align_transcript(8))
+    return ids, WAV2VEC2_BASE.vocab_size, T, max(64, -(-len(ids) // 64) * 64), t_lens
+
+
+def ctc_operands(torch, gen, ids, V, T, N, t_lens, n_lens):
+    """Log-softmax emissions (B, T, V) on the card, token ids with the
+    transcript's characters in each row's first n_len columns (random ids
+    after them), and the lengths."""
+    B = len(t_lens)
+    lp = torch.log_softmax(torch.randn((B, T, V), device="cuda", generator=gen) * 3, dim=-1)
+    tok = torch.randint(1, V, (B, N), device="cuda", generator=gen)
+    for b, n in enumerate(n_lens):
+        tok[b, :n] = torch.tensor((ids * (n // len(ids) + 1))[:n])
+    return lp, tok, torch.tensor(t_lens, device="cuda"), torch.tensor(n_lens, device="cuda")
+
+
+def ctc_trap(what: str) -> int:
+    """A child process of ctc_phase (``python3 chip_smoke.py --ctc-trap
+    token|blank``): one launch of csrc/ctc_align.cu with a token id outside
+    the vocabulary, or a blank log-prob above 0, which must fail at the
+    synchronization (the kernel's __trap). Exits 0 when it did."""
+    import torch
+
+    from whisperx_tpu_torch.ops import ctc
+
+    ids, V, T, N, t_lens = ctc_alignment_case()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lp, tok, t_len, n_len = ctc_operands(torch, gen, ids, V, T, N, t_lens[:2], [len(ids)] * 2)
+    if what == "token":
+        tok[1, 7] = V
+    else:
+        lp[1, 100, 0] = 0.5
+    try:
+        ctc.ctc_align_batch_device(lp, tok, t_len, n_len)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the launch error of a trap, whatever torch names it
+        print(f"ctc trap ({what}): the launch failed as it must: {type(e).__name__}: {str(e).splitlines()[0]}", flush=True)
+        os._exit(0)  # the context is lost: no teardown through it
+    print(f"ctc trap ({what}): the launch did not fail", flush=True)
+    return 1
+
+
 def ctc_phase(torch, card: str) -> dict:
     """csrc/ctc_align.cu against its plain version on the card: the trellis
     (ctc_trellis_batch) and the five outputs of the fused walk
@@ -1143,39 +1197,24 @@ def ctc_phase(torch, card: str) -> dict:
     batch: 8 rows of bench.py's transcript, one token a character, N
     bucketed by 64; 1,499 frames, 1,479 valid; V 32), at a ragged batch and
     at a shape whose decision bits exceed shared memory (the scratch
-    branch). Bit for bit, probs to 1e-6 relative (expf against torch.exp).
-    Times the kernel, the plain version (two Python loops over T), the
-    bytes bound and the dependency bound (T barriered steps of an empty
-    loop body); no PyTorch call computes forced alignment."""
-    from whisperx_tpu_torch.align.alignment import _preprocess_segment
-    from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
+    branch), at a vocabulary of 3,500 ids (a one-stage emission ring) and
+    at N 2,100 (two computing warps and their mailbox). Bit for bit, probs to 1e-6 relative (expf against torch.exp).
+    Two child processes launch it with a token id outside the vocabulary and
+    with a blank log-prob above 0: both must see the launch fail (the
+    kernel's trap), and this process's context must stay sound. Times the
+    kernel, its trellis mode, the plain version (two Python loops over T),
+    the bytes bound, the function's dependency bound (T dependent steps of
+    one warp: a shuffle, an add, a compare-select) and the barriered design's
+    floor (T barriered steps of a CTA); no PyTorch call computes forced
+    alignment."""
     from whisperx_tpu_torch.ops import ctc
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    V = WAV2VEC2_BASE.vocab_size
-    chars, _, _ = _preprocess_segment(ALIGN_TEXT, {c: i for i, c in enumerate(ALIGN_CHARS)}, False)
-    ids = [ALIGN_CHARS.index(c) for c in chars]
-    t_path, T = align_frames(WAV2VEC2_BASE.conv_layers, align_transcript(8))
-    N = max(64, -(-len(ids) // 64) * 64)
+    ids, V, T, N, t_path = ctc_alignment_case()
 
-    def operands(T, N, t_lens, n_lens):
-        B = len(t_lens)
-        lp = torch.log_softmax(torch.randn((B, T, V), device="cuda", generator=gen) * 3, dim=-1)
-        tok = torch.randint(1, V, (B, N), device="cuda", generator=gen)
-        for b, n in enumerate(n_lens):
-            tok[b, :n] = torch.tensor((ids * (n // len(ids) + 1))[:n])  # the transcript's characters
-        return lp, tok, torch.tensor(t_lens, device="cuda"), torch.tensor(n_lens, device="cuda")
-
-    cases = [
-        ("alignment path", T, N, t_path, [len(ids)] * 8),
-        ("ragged: full, short, unalignable (t_len < n_len), one token, none", T, N, [T, 1200, 300, t_path[0], 17],
-         [len(ids), N, len(ids), 1, 0]),
-        ("decision bits beyond shared memory (scratch)", T, 1280, [T, 1400], [1200, 1280]),
-    ]
-    path_err = 0.0
-    for what, T_, N_, t_lens, n_lens in cases:
-        args = operands(T_, N_, t_lens, n_lens)
-        plan = ctc.launch_plan(T_, N_, V)
+    def check(what, args):
+        T_, V_, N_ = *args[0].shape[1:], args[1].shape[1]
+        plan = ctc.launch_plan(T_, N_, V_)
         trellis = ctc.ctc_trellis_batch(*args)
         got = ctc.ctc_align_batch_device(*args)
         torch.cuda.synchronize()
@@ -1188,19 +1227,40 @@ def ctc_phase(torch, card: str) -> dict:
             if name != "probs" and not torch.equal(g, w):
                 raise AssertionError(f"ctc {what}: {name} differs at {int((g != w).sum())} positions")
         err = max_err_within(torch, f"ctc {what} probs", got[1], want[1], 0.0, 1e-6)
-        if what == "alignment path":
-            path_err = err
-        if (N_ == 1280) == plan.bits_in_smem:
+        if plan.bits_in_smem != (N_ < 1024) or (V_ > 1000) != (plan.stages == 1) or (N_ > 2048) != (plan.warps > 1):
             raise AssertionError(f"ctc {what}: plan {plan}")
         log(
-            f"ctc {what} B={len(t_lens)} T={T_} N={N_} V={V}: trellis, token_idx, active, success "
+            f"ctc {what} B={args[0].shape[0]} T={T_} N={N_} V={V_}: trellis, token_idx, active, success "
             f"{got[3].tolist()}, t_start bit-equal to the plain version; probs max abs err {err:.3g} (rtol 1e-6); "
-            f"{plan.threads} threads, decision bits in {'shared memory' if plan.bits_in_smem else 'a scratch buffer'}, "
-            f"{plan.smem_bytes} B of shared memory: ok"
+            f"{plan.warps} warp(s) of {plan.slots} columns a lane in a CTA of {plan.threads} threads, a ring of "
+            f"{plan.stages} stage(s) of {plan.rows} rows, decision bits in "
+            f"{'shared memory' if plan.bits_in_smem else 'a scratch buffer'}, {plan.smem_bytes} B of shared memory: ok"
         )
+        return err
 
-    B = 8
-    sets = [operands(T, N, t_path, [len(ids)] * B) for _ in range(3)]
+    cases = [
+        ("alignment path", T, V, N, t_path, [len(ids)] * 8),
+        ("ragged: full, short, unalignable (t_len < n_len), one token, none", T, V, N,
+         [T, 1200, 300, t_path[0], 17], [len(ids), N, len(ids), 1, 0]),
+        ("decision bits beyond shared memory (scratch)", T, V, 1280, [T, 1400], [1200, 1280]),
+        ("a vocabulary of 3,500 ids (one ring stage)", T, 3500, 128, [T, 1200], [128, 90]),
+        ("N above 2,048 (two warps, a mailbox)", T, V, 2100, [T, T, 1400], [2100, 1300, 700]),
+    ]
+    errs = [check(what, ctc_operands(torch, gen, ids, V_, T_, N_, t_lens, n_lens))
+            for what, T_, V_, N_, t_lens, n_lens in cases]
+    path_err = errs[0]
+
+    for what in ("token", "blank"):  # the kernel's traps, each in a process of its own
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--ctc-trap", what], capture_output=True,
+                               text=True, timeout=300)
+        out = (child.stdout.strip().splitlines() or [""])[-1]
+        if child.returncode != 0 or "failed as it must" not in out:
+            raise AssertionError(f"ctc trap ({what}): exit {child.returncode}, {out!r}; stderr {child.stderr[-2000:]!r}")
+        log(out)
+    check("after the traps' child processes", ctc_operands(torch, gen, ids, V, T, N, t_path[:2], [len(ids)] * 2))
+
+    B = len(t_path)
+    sets = [ctc_operands(torch, gen, ids, V, T, N, t_path, [len(ids)] * B) for _ in range(3)]
 
     def kernel():
         for a in sets:
@@ -1219,25 +1279,31 @@ def ctc_phase(torch, card: str) -> dict:
     eager_ms = time_ms(torch, kernel, 20) / 3
     plain_ms = graph_ms(torch, plain, 2) / 3
     plain_eager_ms = time_ms(torch, plain, 1) / 3
-    plan = ctc.launch_plan(T, N, V)
-    dep_ms = ctc.barrier_steps_ms(B, T, plan.threads)
+    shuffle_ms = ctc.shuffle_steps_ms(B, T)
+    barrier_ms = ctc.barrier_steps_ms(B, T, 480)  # the barriered design's CTA at N 448
     # Each input read once, each output written once.
     nbytes = B * T * V * 4 + B * N * 8 + 2 * B * 8 + B * T * (8 + 4 + 1) + B * (1 + 8)
     flops = 3 * B * T * N  # two adds and a compare a cell
-    bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+    bytes_ms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+    bms, by = (shuffle_ms, "operations") if shuffle_ms > bytes_ms else (bytes_ms, by)
+    plan = ctc.launch_plan(T, N, V)
     log(
         f"ctc timing [{card}], alignment path B={B} T={T} N={N} V={V}, device time (CUDA graph replay): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (eager from Python {plain_eager_ms:.1f} ms), library none, bound "
-        f"{bms:.6f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); dependency bound {dep_ms:.4f} ms "
-        f"({T} barriered steps of an empty loop body, {plan.threads} threads, {B} CTAs): the "
-        f"{'dependency' if dep_ms > bms else by} bound governs; the trellis mode alone (writing the whole "
-        f"trellis, no walk) {trellis_ms:.4f} ms; eager calls from Python {eager_ms:.4f} ms"
+        f"{ms:.4f} ms [barriered design, final run: {CTC_BARRIERED_MS}], trellis mode {trellis_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms "
+        f"(eager from Python {plain_eager_ms:.1f} ms), library none; bytes bound {bytes_ms:.6f} ms "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); dependency bound {shuffle_ms:.4f} ms ({T} dependent "
+        f"steps of one warp: shuffle, add, compare-select; {B} warps), which governs; the barriered design's floor "
+        f"{barrier_ms:.4f} ms ({T} barriered steps of 480 threads); kernel / dependency bound "
+        f"{ms / shuffle_ms:.2f}; {plan.slots} columns a lane; eager calls from Python {eager_ms:.4f} ms"
     )
     return {
         "name": "ctc_align",
         "route": "cuda",
-        "design": "one CTA a segment: the trellis row double-buffered in shared memory, one barrier a step, the "
-                  "walk's decisions as warp-ballot bits; one thread walks them, the CTA writes the outputs",
+        "design": "one warp a segment: the trellis row in registers (16 contiguous columns a lane, one shuffle a "
+                  "step, no barrier in a chunk), max and sign-bit decisions, emissions filled a chunk ahead by the "
+                  "CTA's other warps into a column-major shared-memory ring (4-row loads), packed decision bits, a "
+                  "32-step block walk on bit masks, the outputs written by the CTA",
         "source": "whisperx_tpu_torch/csrc/ctc_align.cu",
         "replaces": "whisperx_tpu/ops/ctc.py:188 (ctc_align_batch_device: lax.scan trellis :65, vmapped lax.scan walk "
                     ":183; not a Pallas kernel)",
@@ -1250,9 +1316,12 @@ def ctc_phase(torch, card: str) -> dict:
         "library_ms": None,
         "eager_ms": eager_ms,
         "plain_eager_ms": plain_eager_ms,
-        "dependency_bound_ms": dep_ms,
+        "bytes_bound_ms": bytes_ms,
+        "shuffle_probe_ms": shuffle_ms,
+        "barrier_probe_ms": barrier_ms,
         "trellis_mode_ms": trellis_ms,
-        "unit": f"one call, alignment path batch B={B} T={T} N={N} V={V} (trellis + start row + walk)",
+        "unit": f"one call, alignment path batch B={B} T={T} N={N} V={V} (trellis + start row + walk); bound: T "
+                "dependent shuffle steps (ctc_shuffle_steps)",
     }
 
 
@@ -2160,8 +2229,11 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
     captured step traced: the step's CUDA graph (``DeviceLoop._graph``, the
     child of the WHILE body) replayed alone ``replays`` times from the loop's
     start under torch.profiler, a synchronize and ``pause_s`` of sleep after
-    each. The kernels split into the replays at the ``replays - 1`` widest
-    gaps between them: the pause leaves the card idle for far longer than
+    each, after one more replay in the same trace that is left out (CUPTI
+    dropped a few kernel events at the start of a trace: 188 of 192
+    ``int8_mm`` events in the first replay of one run). The kernels split
+    into the replays at the ``replays`` widest gaps between them: the pause
+    leaves the card idle for far longer than
     any gap inside a step (traced steps hold gaps of a few ms, which a bare
     host round trip of tens of µs does not outlast), and each cut must be at
     least half the pause. Per step:
@@ -2191,7 +2263,7 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
         graph._graph.replay()  # instantiates the step graph: outside the trace
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(replays):
+            for _ in range(replays + 1):  # the first: the trace's own start, left out
                 graph._graph.replay()
                 torch.cuda.synchronize()
                 time.sleep(pause_s)
@@ -2200,13 +2272,13 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     )
     out = {"wall_ms_per_step": wall_ms / steps, "steps": steps}
-    if len(kernels) < replays:
-        log(f"device loop cross={arm} [{card}]: the profiler saw {len(kernels)} kernels in {replays} step replays; "
+    if len(kernels) < replays + 1:
+        log(f"device loop cross={arm} [{card}]: the profiler saw {len(kernels)} kernels in {replays + 1} step replays; "
             f"idle share not measured")
         return {**out, "idle_share": None, "busy_ms_per_step": None, "span_ms_per_step": None}
-    gaps = sorted(range(1, len(kernels)), key=lambda i: kernels[i][0] - kernels[i - 1][1])[len(kernels) - replays:]
+    gaps = sorted(range(1, len(kernels)), key=lambda i: kernels[i][0] - kernels[i - 1][1])[len(kernels) - 1 - replays:]
     cuts = [0, *sorted(gaps), len(kernels)]
-    per_step = [kernels[a:b] for a, b in zip(cuts, cuts[1:])]
+    left_out, *per_step = [kernels[a:b] for a, b in zip(cuts, cuts[1:])]
     cut_us = min((kernels[i][0] - kernels[i - 1][1] for i in gaps), default=pause_s * 1e6)
     inner_us, at, before, after = max(
         ((ks[i][0] - ks[i - 1][1], i, ks[i - 1][2], ks[i][2]) for ks in per_step for i in range(1, len(ks))),
@@ -2231,11 +2303,13 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
     idle = 1 - busy_ms / span_ms
     log(
         f"device loop cross={arm} [{card}]: one WHILE-graph launch, {steps} steps in {wall_ms:.2f} ms "
-        f"({wall_ms / steps:.3f} ms/step, CUDA events); its captured step replayed alone {replays} times under "
+        f"({wall_ms / steps:.3f} ms/step, CUDA events); its captured step replayed alone {replays} times (after one "
+        f"left out) under "
         f"torch.profiler: device busy {busy_ms:.3f} ms a step over a span of {span_ms:.3f} ms from its first kernel "
-        f"to its last ({len(kernels) / replays:.0f} kernels a step, {widest}, narrowest cut between replays "
+        f"to its last ({sum(map(len, per_step)) / replays:.0f} kernels a step, {widest}, narrowest cut between replays "
         f"{cut_us:.1f} us), idle share {idle:.3f}; the port's kernel events "
-        f"in every step {counts[0]} == the captured step's launches: ok"
+        f"in every step {counts[0]} == the captured step's launches: ok; in the replay left out "
+        f"{ {name: sum(dev in k for _, _, k in left_out) for name, dev in STEP_KERNELS.items()} }"
     )
     return {**out, "idle_share": idle, "busy_ms_per_step": busy_ms, "span_ms_per_step": span_ms}
 
@@ -3631,6 +3705,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 10's two ranks
         return parallel_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--ctc-trap"]:  # one of phase 2's trap children
+        return ctc_trap(sys.argv[2])
     from whisperx_tpu_torch.ops import _build
 
     # Stated references: fp32 products in full fp32 (no TF32) on the card.

@@ -431,6 +431,14 @@ CTC_CASES = [
     # Decision bits over the 227 KB of shared memory: the scratch branch.
     (1499, 32, 1280, [1499, 1400], [1200, 1280]),
     (40, 12, 1, [40, 3], [1, 1]),
+    # A wider vocabulary (ring rows of 66 floats) and T shorter than one ring chunk.
+    (1499, 64, 448, [1499, 1300, 900], [448, 300, 17]),
+    (20, 32, 40, [20, 20, 9], [12, 40, 5]),
+    # A vocabulary as wide as the CJK wav2vec2 models' (thousands of ids):
+    # a ring of one stage of 8 rows, two CTA barriers a chunk.
+    (1499, 3500, 128, [1499, 1200], [128, 90]),
+    # N above 2,048: two warps of 64 slots, the boundary column through the mailbox.
+    (1499, 32, 2100, [1499, 1499, 1400], [2100, 1300, 700]),
 ]
 
 
@@ -457,3 +465,11 @@ def test_ctc_kernel_matches_plain(gen, T, V, N, t_lens, n_lens):
             assert torch.equal(g, w), name
     if len(t_lens) == 5:  # the row with fewer frames than tokens fails; the one without tokens succeeds
         assert not got[3][2] and got[3][4]
+
+
+@pytest.mark.cuda
+def test_ctc_shuffle_probe_runs(gen):
+    """The dependency-bound probe of csrc/ctc_align.cu (T dependent steps of
+    one warp: a shuffle, an add, a compare-select) runs and takes time."""
+    ms = ctc.shuffle_steps_ms(8, 1499, iters=3)
+    assert ms > 0

@@ -10,15 +10,18 @@ The JAX package runs the time recurrence and the walk as one compiled
 program (a ``lax.scan`` trellis and a vmapped ``lax.scan`` walk). On a CUDA
 tensor :func:`ctc_align_batch_device` and :func:`ctc_trellis_batch` launch
 the hand-written Hopper kernel ``csrc/ctc_align.cu`` once a call (or
-raise): one CTA a segment, the trellis row in shared memory, the walk's
-decisions as ballot bits. On a CPU tensor they run the plain versions,
-:func:`ctc_trellis_batch_plain` (a Python loop over T of three in-place
-tensor ops on a preallocated (B, T+1, N+1) buffer, vectorised over the
-batch) and :func:`ctc_align_batch_device_plain` (that trellis, then
-:func:`ctc_backtrack_device`, which precomputes every stay/change decision
-and walks T small steps with no host sync). Column 0 of the trellis is the
-same torch code on both routes (:func:`_first_column`), so the kernel's
-trellis equals the plain version's bit for bit on one device. The JAX
+raise): one warp a segment holding the trellis row in registers, the
+CTA's other warps filling a shared-memory ring of emission rows a chunk
+ahead, the walk's decisions as packed bits. On a CPU tensor they run the
+plain versions, :func:`ctc_trellis_batch_plain` (a Python loop over T of
+three in-place tensor ops on a preallocated (B, T+1, N+1) buffer,
+vectorised over the batch) and :func:`ctc_align_batch_device_plain` (that
+trellis, then :func:`ctc_backtrack_device`, which precomputes every
+stay/change decision and walks T small steps with no host sync). Column 0
+of the trellis is the same torch code on both routes (:func:`_first_column`),
+so the kernel's trellis equals the plain version's bit for bit on one
+device (as numbers where the inputs hold -0.0, which the kernel reads as
++0.0). The JAX
 package has no Pallas trellis (``ctc.py:203-209``).
 """
 
@@ -43,49 +46,118 @@ INF = float("inf")
 launches = 0
 
 SMEM_LIMIT = 232_448  # shared memory one CTA can use on Hopper (227 KB)
-MAX_CHUNK_ROWS = 64  # emission rows the kernel stages in shared memory at a time
-CHUNK_FLOATS = 8192  # ... and at most this many of their floats (32 KB)
+MAX_CHUNK_ROWS = 32  # emission rows a stage of the kernel's ring holds at most
+STAGE_BYTES = 32_768  # ... and the bytes a stage takes where the vocabulary lets it
+SLOT_LADDER = (8, 16, 32, 64)  # trellis columns a lane holds in registers (the kernel's K)
+EPILOGUE_WARPS = 8  # warps a CTA has at least (they fill the emission ring, then all write the outputs)
+MAX_WARPS = 11  # computing warps at 64 slots a lane (the registers of 384 threads, one warp to fill the ring)
+MAILBOX = 64  # rows a warp's mailbox holds (64-slot plans with several warps)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """How ``csrc/ctc_align.cu`` runs one call: ``threads`` a CTA (one CTA a
-    segment), emission rows staged ``chunk`` at a time, ``smem_bytes`` of
-    dynamic shared memory, and whether the decision bits fit there
-    (``bits_in_smem``; else a (B, T, words) scratch buffer holds them)."""
+    """How ``csrc/ctc_align.cu`` runs one call: one CTA a segment of
+    ``threads`` threads, of which ``warps`` warps hold the trellis row in
+    registers, ``slots`` columns a lane (32 x slots x warps >= N; several
+    warps only at 64 slots), while the others fill a ring of ``stages``
+    stages of ``rows`` emission rows; ``smem_bytes`` of dynamic shared
+    memory, and whether the decision bits fit there (``bits_in_smem``; else
+    a (B, bit_rows(T), words) scratch buffer holds them)."""
 
+    slots: int
+    warps: int
     threads: int
-    chunk: int
+    rows: int
+    stages: int
     smem_bytes: int
     bits_in_smem: bool
-    words: int  # 32-bit words of decision bits a trellis row
+    words: int  # 32-bit words of decision bits a trellis row: slots x warps
+
+
+def row_pitch(rows: int, slots: int) -> int:
+    """A ring column's pitch in floats (``csrc/ctc_align.cu:row_pitch``)."""
+    if slots == SLOT_LADDER[-1]:
+        return rows | 1
+    return rows + 4 + (4 if (rows // 4) % 2 else 0)
+
+
+def bit_rows(T: int) -> int:
+    """Rows of decision bits the kernel writes: T, to a whole 4-row load."""
+    return -(-T // 4) * 4
+
+
+def _ring_rows(V: int, slots: int):
+    """Rows a ring stage holds: the most (up to 32, a multiple of the 4 rows a
+    load reads below 64 slots) whose stage fits in 32 KB, else in half of a
+    CTA's shared memory, else in all of it; None when not even one load's
+    rows fit."""
+    step = 4 if slots < SLOT_LADDER[-1] else 1
+    for budget in (STAGE_BYTES, SMEM_LIMIT // 2, SMEM_LIMIT):
+        for rows in range(MAX_CHUNK_ROWS, step - 1, -step):
+            if 4 * (V + 3) * row_pitch(rows, slots) <= budget:
+                return rows
+    return None
 
 
 def launch_plan(T: int, N: int, V: int, align: bool = True) -> LaunchPlan:
-    """The kernel's launch plan for (B, T, V) emissions and N token columns;
-    the layout is the one ``csrc/ctc_align.cu:smem_words`` counts."""
-    n1 = N + 1
-    threads = min(1024, max(128, -(-n1 // 32) * 32))
-    chunk = max(1, min(MAX_CHUNK_ROWS, CHUNK_FLOATS // V))
-    words = -(-n1 // 32)
-    base = 4 * (2 * n1 + chunk * (V + 1) + N + 4)
-    if base > SMEM_LIMIT:
+    """The kernel's launch plan for (B, T, V) emissions and N token columns:
+    the fewest slots a lane with which one warp covers the N columns (64
+    slots and several warps beyond 2,048, or when a vocabulary is too wide
+    for a ring of 4-row loads); the layout is the one
+    ``csrc/ctc_align.cu:layout`` counts."""
+    slots = next((k for k in SLOT_LADDER if 32 * k >= N), SLOT_LADDER[-1])
+    if _ring_rows(V, slots) is None:
+        slots = SLOT_LADDER[-1]
+    return plan_for(T, N, V, align, slots, max(1, -(-N // (32 * slots))))
+
+
+def plan_for(T: int, N: int, V: int, align: bool, slots: int, warps: int) -> LaunchPlan:
+    """The launch plan at a given number of slots a lane and computing warps
+    (several warps only at 64 slots, as the kernel takes them)."""
+    if slots not in SLOT_LADDER or warps < 1 or (warps > 1 and slots != SLOT_LADDER[-1]):
+        raise ValueError(f"ctc_align: no kernel runs {warps} warps of {slots} columns a lane")
+    if warps > MAX_WARPS or 32 * slots * warps < N:
         raise ValueError(
-            f"ctc_align: {N} token columns need {base} bytes of shared memory for two trellis rows and the "
-            f"token ids, over the {SMEM_LIMIT} a CTA can use"
+            f"ctc_align: {N} token columns need {warps} warps of {slots} columns a lane, over the {MAX_WARPS} "
+            "whose registers a CTA can hold"
         )
-    bits_in_smem = align and base + 4 * T * words <= SMEM_LIMIT
-    return LaunchPlan(threads, chunk, base + (4 * T * words if bits_in_smem else 0), bits_in_smem, words)
+    rows = _ring_rows(V, slots)
+    if rows is None:
+        raise ValueError(f"ctc_align: a ring of {V}-float emission rows does not fit in a CTA's shared memory")
+    threads = 32 * max(warps + 1, EPILOGUE_WARPS)
+    words = slots * warps
+
+    def base(stages: int) -> int:  # words up to and with t_start
+        ring = stages * (V + 3) * row_pitch(rows, slots)
+        return ring + ring % 2 + (2 * warps * MAILBOX if warps > 1 else 0) + 1
+
+    stages = 2 if 4 * base(2) <= SMEM_LIMIT else 1
+    if 4 * base(stages) > SMEM_LIMIT:
+        raise ValueError(
+            f"ctc_align: an emission row of {V} floats needs {4 * base(stages)} bytes of shared memory, over the "
+            f"{SMEM_LIMIT} a CTA can use"
+        )
+    bits_at = -(-base(stages) // 4) * 4
+    bits = bit_rows(T) * words
+    bits_in_smem = align and 4 * (bits_at + bits) <= SMEM_LIMIT
+    smem_bytes = 4 * (bits_at + bits) if bits_in_smem else 4 * base(stages)
+    return LaunchPlan(slots, warps, threads, rows, stages, smem_bytes, bits_in_smem, words)
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument types on a built ``csrc/ctc_align.cu``."""
+    lib.ctc_align.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p]
+    lib.ctc_align.restype = ctypes.c_int
+    lib.ctc_barrier_steps.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.ctc_barrier_steps.restype = ctypes.c_int
+    lib.ctc_shuffle_steps.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.ctc_shuffle_steps.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("ctc_align")
-    lib.ctc_align.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
-    lib.ctc_align.restype = ctypes.c_int
-    lib.ctc_barrier_steps.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    lib.ctc_barrier_steps.restype = ctypes.c_int
-    return lib
+    return declare(_build.load("ctc_align"))
 
 
 def _first_column(lp: torch.Tensor, t_len: torch.Tensor, n_len: torch.Tensor, blank: int) -> torch.Tensor:
@@ -134,7 +206,7 @@ def _launch(log_probs, tokens, t_len, n_len, blank: int, align: bool):
             torch.empty((B,), dtype=torch.long, device=dev),
         )
         if not plan.bits_in_smem:
-            scratch = torch.empty((B, T, plan.words), dtype=torch.int32, device=dev)
+            scratch = torch.empty((B, bit_rows(T), plan.words), dtype=torch.int32, device=dev)
     else:
         trellis = torch.empty((B, T + 1, N + 1), dtype=torch.float32, device=dev)
     ptrs = [None if x is None else x.data_ptr() for x in (trellis, *(outs or (None,) * 5), scratch)]
@@ -142,7 +214,7 @@ def _launch(log_probs, tokens, t_len, n_len, blank: int, align: bool):
     with torch.cuda.device(dev):
         code = lib.ctc_align(
             lp.data_ptr(), tokens.data_ptr(), t_len.data_ptr(), n_len.data_ptr(), col0.data_ptr(), *ptrs,
-            B, T, N, V, blank, plan.threads, plan.chunk, plan.smem_bytes,
+            B, T, N, V, blank, plan.slots, plan.warps, plan.threads, plan.rows, plan.stages, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "ctc_align")
@@ -150,20 +222,10 @@ def _launch(log_probs, tokens, t_len, n_len, blank: int, align: bool):
     return outs if align else trellis
 
 
-def barrier_steps_ms(B: int, T: int, threads: int, iters: int = 20, device="cuda") -> float:
-    """Device ms of ``B`` CTAs of ``threads`` threads each running T
-    barriered steps of an empty loop body (one shared-memory round trip a
-    step): the kernel's dependency bound at T rows (chip_smoke.py)."""
-    lib = _lib()
-    dev = torch.device(device)
-    out = torch.empty((B, threads), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev)
-
-    def run():
-        _build.check(lib, lib.ctc_barrier_steps(B, T, threads, out.data_ptr(), stream.cuda_stream), "ctc_barrier_steps")
-
+def _probe_ms(run, iters: int, dev) -> float:
     with torch.cuda.device(dev):
         run()
+        stream = torch.cuda.current_stream(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record(stream)
         for _ in range(iters):
@@ -171,6 +233,35 @@ def barrier_steps_ms(B: int, T: int, threads: int, iters: int = 20, device="cuda
         end.record(stream)
         end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def barrier_steps_ms(B: int, T: int, threads: int, iters: int = 20, device="cuda") -> float:
+    """Device ms of ``B`` CTAs of ``threads`` threads each running T
+    barriered steps of an empty loop body (one shared-memory round trip a
+    step): the floor of the kernel's barriered design before its redesign,
+    one barrier of a CTA a step (chip_smoke.py)."""
+    lib = _lib()
+    dev = torch.device(device)
+    out = torch.empty((B, threads), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _probe_ms(
+        lambda: _build.check(lib, lib.ctc_barrier_steps(B, T, threads, out.data_ptr(), stream), "ctc_barrier_steps"),
+        iters, dev,
+    )
+
+
+def shuffle_steps_ms(B: int, T: int, iters: int = 20, device="cuda") -> float:
+    """Device ms of ``B`` warps each running T dependent steps of one
+    ``__shfl_up_sync``, one fp32 add and one compare-select: the trellis
+    recurrence's dependency bound at T rows (chip_smoke.py)."""
+    lib = _lib()
+    dev = torch.device(device)
+    out = torch.empty((B, 32), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _probe_ms(
+        lambda: _build.check(lib, lib.ctc_shuffle_steps(B, T, out.data_ptr(), stream), "ctc_shuffle_steps"),
+        iters, dev,
+    )
 
 
 def ctc_trellis_batch(
@@ -383,6 +474,12 @@ def ctc_align_batch_device(
     Returns (token_idx, probs, active, success, t_start) as
     :func:`ctc_backtrack_device` does. ``backend`` "scan" is the only
     trellis implementation; anything else raises, as in the JAX package.
+
+    On a CUDA tensor the emissions must be log-probabilities in their blank
+    column (at most 0, as log-softmax gives): a blank log-prob above 0, like
+    a token id outside the vocabulary, fails the launch (the kernel traps,
+    and the process's CUDA context is lost). The plain version takes any
+    finite values.
     """
     if backend != "scan":
         raise ValueError(
@@ -416,7 +513,8 @@ def align_tokens_batch(
     default) or "host" (numpy reference walk, $WHISPERX_CTC_BACKTRACK).
     ``device`` is where the trellis runs: a tensor's own device by default,
     the CPU for numpy input. Returns a list (one per segment) of path lists
-    (or None on failure).
+    (or None on failure). On the card the "device" walk needs blank
+    log-probs of at most 0 (:func:`ctc_align_batch_device`).
     """
     backtrack_impl = backtrack_impl or os.environ.get("WHISPERX_CTC_BACKTRACK", "device")
     lp = torch.as_tensor(log_probs)
