@@ -2110,8 +2110,9 @@ def reads_between_launch_and_fetch(torch, engine, mel_b, opts, generator=None) -
 
     def marked(self):
         with record_function("graph_loop.launch"):
-            launch(self)
+            span = launch(self)
         torch.cuda.set_sync_debug_mode("warn")
+        return span
 
     graph_loop.DeviceLoop.launch = marked
     try:

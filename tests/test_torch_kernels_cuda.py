@@ -412,6 +412,48 @@ def test_sampled_device_loop_equals_host_loop(gen, monkeypatch, temperature):
     assert (got[temperature].tokens == want.tokens).all() and (got[temperature]._stats == want._stats).all()
 
 
+@pytest.mark.cuda
+def test_device_loop_span_counts_the_steps_and_the_trace_brackets_each_launch(gen):
+    """Each launch's ``decode.loop`` span counts the steps the card ran (the
+    steps arrive with the batch's result, no read of their own) and times
+    the launch with device events; a profiler's trace of two launches holds
+    the loop graph's outer kernels, ``loop_enter`` and ``loop_exit``, once a
+    launch, on the device's clock around the WHILE body it cannot see."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.utils import telemetry
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    engine = WhisperEngine(whisper_from_jax(params, cfg, device="cuda"), WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    opts = engine.build_options(beam_size=5, max_new_tokens=24, kv_cache_dtype="int8")
+    mels = [torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen) for _ in range(2)]
+    engine.generate(mels[0], options=opts)  # the capture
+    ((_, _, graph),) = engine.model.decode_loops.values()
+    torch.cuda.synchronize()
+    before = int(graph.steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = [engine.generate(mel, options=opts, sync=False) for mel in mels]
+        assert all("steps" not in r.loop_span.counts for r in results)  # nothing read back yet
+        for r in results:
+            r.fetch()
+        torch.cuda.synchronize()
+    steps = [r.loop_span.counts["steps"] for r in results]
+    assert sum(steps) == int(graph.steps) - before and min(steps) >= 1
+    assert steps == [int(r._stats[3, 0]) for r in results] and (results[0]._stats[3] == steps[0]).all()
+    log = {s.span_id: s for s in telemetry.spans()}
+    assert all(log[r.loop_span.span_id].device_ms > 0 for r in results)
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("loop_enter" in n for n in kernels) == 2 and sum("loop_exit" in n for n in kernels) == 2
+
+
 def ctc_operands(gen, T, V, N, t_lens, n_lens):
     """Log-softmax emissions (B, T, V) peaked enough that paths move, token
     ids in [1, V), and the lengths, all on the card."""

@@ -218,20 +218,28 @@ def _emissions(model: Wav2Vec2ForCTC, wavs: torch.Tensor, sample_lens: torch.Ten
 
 
 @torch.inference_mode()
-def _fused_align_fwd(model: Wav2Vec2ForCTC, wavs: torch.Tensor, tok_pack: torch.Tensor, blank: int):
+def _fused_align_fwd(model: Wav2Vec2ForCTC, wavs: torch.Tensor, tok_pack: torch.Tensor, blank: int, rows_valid: int):
     """Waveforms → wav2vec2 emissions → CTC trellis → device backtrack, all
     on the device, into ONE (3, B, T'+1) float32 pack: plane 0 the token path
     index, plane 1 the probs, plane 2 the active mask, and a trailing column
     [success, t_len, 0]. ``tok_pack`` (B, N+2) = [tokens | sample_len |
-    n_len]. Nothing is read back here."""
+    n_len]. Nothing is read back here. Two device spans time it,
+    ``align.emissions`` and ``align.ctc`` (counts ``rows`` and
+    ``rows_valid``, the rows that hold a segment)."""
     tokens = tok_pack[:, :-2]
     sample_lens = tok_pack[:, -2]
     n_len = tok_pack[:, -1]
+    counts = {"rows": wavs.shape[0], "rows_valid": rows_valid}
+    emissions = telemetry.begin("align.emissions", device=wavs.device, **counts)
     logp, t_len = _emissions(model, wavs, sample_lens)
+    ctc = telemetry.begin("align.ctc", device=wavs.device, **counts)
+    telemetry.end(emissions, at=ctc)
     tok_idx, probs, active, success, _ = ctc_align_batch_device(logp, tokens, t_len, n_len, blank=blank)
     pack = torch.stack([tok_idx.float(), probs, active.float()])  # (3, B, T')
     tail = torch.stack([success.float(), t_len.float(), torch.zeros_like(probs[:, 0])])  # (3, B)
-    return torch.cat([pack, tail[:, :, None]], dim=2)
+    out = torch.cat([pack, tail[:, :, None]], dim=2)
+    telemetry.end(ctc)
+    return out
 
 
 def _ladder_rows(n: int, max_batch: int, mesh=None) -> int:
@@ -346,8 +354,14 @@ def align_begin(
     """Launch alignment device work; see AlignJob for the overlap contract.
 
     ``device`` (``None`` means the card) must be where ``model`` lives.
+    The request's root telemetry span is ``align`` (count ``audio_s``, the
+    audio's length), open until ``finish()`` ends: under it each batch's
+    ``align.emissions`` and ``align.ctc`` (device), each ``align.fetch``
+    (the host's wait for a batch's pack) and the ``align.aggregate`` spans
+    (host: the packs into paths, then the words and sentences).
     """
     t0 = time.perf_counter()
+    root = telemetry.begin("align", root=True)
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"align: the align model lives on {model.device}, but {dev} was asked for")
@@ -355,6 +369,7 @@ def align_begin(
         audio = load_audio(audio)
     audio = np.asarray(audio, dtype=np.float32).reshape(-1)
     max_duration = len(audio) / SAMPLE_RATE
+    root.counts["audio_s"] = max_duration
 
     # Device uploads in int16 PCM: half the bytes per align batch (bit-exact
     # for s16le-decoded audio; WHISPERX_WAV_INT16=0 opts out).
@@ -431,7 +446,13 @@ def align_begin(
 
         def consume(pending):
             idx, out = pending
-            pack = out.cpu().numpy()  # (3, B, T'+1): ONE device→host fetch
+            with telemetry.span("align.fetch"):
+                pack = out.cpu().numpy()  # (3, B, T'+1): ONE device→host fetch
+            telemetry.resolve()  # the batch has ended: read its events
+            with telemetry.span("align.aggregate"):
+                _paths(idx, pack)
+
+        def _paths(idx, pack):
             tok_idx = pack[0, :, :-1].astype(np.int32)
             probs = pack[1, :, :-1]
             active = pack[2, :, :-1] != 0.0
@@ -468,14 +489,15 @@ def align_begin(
                 tok_pack[row, N] = len(slices[k])
                 tok_pack[row, N + 1] = len(token_lists[k])
             tok_pack[:, N] = np.maximum(tok_pack[:, N], 400)  # avoid zero-length conv edge on pad rows
-            fwd = functools.partial(_fused_align_fwd, model.model, blank=model.blank_id)
-            out = _run_rows(model, fwd, wavs, tok_pack, dim=1)
-            pendings.append((idx, out))
-            # Bound the launch window: each pending batch keeps its upload
-            # alive on the device. Consuming the oldest blocks on a batch
-            # launched WHISPERX_ALIGN_INFLIGHT batches ago.
-            while len(pendings) > max_inflight:
-                consume(pendings.pop(0))
+            fwd = functools.partial(_fused_align_fwd, model.model, blank=model.blank_id, rows_valid=len(idx))
+            with telemetry.within(root):
+                out = _run_rows(model, fwd, wavs, tok_pack, dim=1)
+                pendings.append((idx, out))
+                # Bound the launch window: each pending batch keeps its upload
+                # alive on the device. Consuming the oldest blocks on a batch
+                # launched WHISPERX_ALIGN_INFLIGHT batches ago.
+                while len(pendings) > max_inflight:
+                    consume(pendings.pop(0))
 
     # Telemetry counts only time inside align's own phases: the begin span
     # plus the finish span, not the caller's work in between.
@@ -483,14 +505,23 @@ def align_begin(
 
     def _finish() -> AlignedTranscriptionResult:
         tf = time.perf_counter()
-        if host_backtrack is not None:
-            host_backtrack()
-        for pending in pendings:
-            consume(pending)
-        return _aggregate_result(
-            transcript, paths_by_sdx, frames_by_sdx, max_duration, charwise, interpolate_method,
-            return_char_alignments, begin_s, tf,
+        with telemetry.within(root):
+            if host_backtrack is not None:
+                host_backtrack()
+            for pending in pendings:
+                consume(pending)
+            with telemetry.span("align.aggregate"):
+                result = _aggregate_result(
+                    transcript, paths_by_sdx, frames_by_sdx, max_duration, charwise, interpolate_method,
+                    return_char_alignments,
+                )
+        telemetry.GLOBAL.record(
+            "align",
+            seconds=begin_s + (time.perf_counter() - tf),
+            audio_seconds=sum(max(0.0, float(s["end"]) - float(s["start"])) for s in transcript),
+            span=root,
         )
+        return result
 
     return AlignJob(_finish)
 
@@ -503,8 +534,6 @@ def _aggregate_result(
     charwise,
     interpolate_method,
     return_char_alignments,
-    begin_s,
-    tf,
 ) -> AlignedTranscriptionResult:
     """Pass 3: char → word → sentence aggregation (host-only, numpy)."""
     aligned_segments: List[SingleAlignedSegment] = []
@@ -647,10 +676,4 @@ def _aggregate_result(
     word_segments = []
     for segment in aligned_segments:
         word_segments += segment["words"]
-
-    telemetry.GLOBAL.record(
-        "align",
-        seconds=begin_s + (time.perf_counter() - tf),
-        audio_seconds=sum(max(0.0, float(s["end"]) - float(s["start"])) for s in transcript),
-    )
     return {"segments": aligned_segments, "word_segments": word_segments}

@@ -6,16 +6,19 @@
 // ends by writing the loop's condition, a bool on the device. This file
 // builds the graph that repeats it:
 //
-//   set_condition(cont) -> WHILE(handle) { step (child graph) -> set_condition(cont) }
+//   loop_enter(cont) -> WHILE(handle) { step (child graph) -> set_condition(cont) } -> loop_exit
 //
-// The first set_condition tests the condition before the first step, as
-// lax.while_loop tests cond before its first body. The conditional node
+// loop_enter tests the condition before the first step, as lax.while_loop
+// tests cond before its first body. The conditional node
 // (CUDA 12.4 and later: cudaGraphCondTypeWhile) runs its body while the
 // handle is non-zero, and the kernel at the end of the body sets the handle
 // from the flag the step just wrote and adds one to a step counter (the
 // caller's launch counts: launches in one step x steps run). One launch of
 // the instantiated graph runs the whole loop; the host reads nothing until
-// the caller reads the loop's outputs.
+// the caller reads the loop's outputs. loop_exit does nothing: with
+// loop_enter it brackets the loop with one kernel on each side, outside the
+// conditional body, so that a profiler's trace holds the loop's start and
+// end on the device's clock (CUPTI records no kernel of a WHILE body).
 
 #include <cuda_runtime.h>
 
@@ -23,18 +26,24 @@ namespace {
 
 #if CUDART_VERSION >= 12040
 
-// One thread: the handle takes the flag's value; `steps`, where given, counts
-// the steps run.
-__global__ void set_condition(cudaGraphConditionalHandle handle, const bool* cont, long long* steps) {
-  if (steps != nullptr) ++*steps;
+// One thread each. loop_enter: the handle takes the flag's value.
+// set_condition: the same at the end of a step, which it counts in `steps`.
+__global__ void loop_enter(cudaGraphConditionalHandle handle, const bool* cont) {
   cudaGraphSetConditional(handle, *cont ? 1u : 0u);
 }
 
-cudaError_t add_set_condition(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps, size_t n_deps,
-                              cudaGraphConditionalHandle* handle, const bool** cont, long long** steps) {
-  void* args[] = {handle, cont, steps};
+__global__ void set_condition(cudaGraphConditionalHandle handle, const bool* cont, long long* steps) {
+  ++*steps;
+  cudaGraphSetConditional(handle, *cont ? 1u : 0u);
+}
+
+__global__ void loop_exit() {}
+
+// A one-thread kernel node running `func` on `args` after `deps`.
+cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps, size_t n_deps,
+                       void* func, void** args) {
   cudaKernelNodeParams p = {};
-  p.func = reinterpret_cast<void*>(set_condition);
+  p.func = func;
   p.gridDim = dim3(1);
   p.blockDim = dim3(1);
   p.sharedMemBytes = 0;
@@ -56,9 +65,11 @@ cudaError_t build(cudaGraph_t outer, cudaGraph_t step, const bool* cont, long lo
   cudaGraphConditionalHandle handle;
   cudaError_t e = cudaGraphConditionalHandleCreate(&handle, outer, 0, 0);
   if (e != cudaSuccess) return e;
-  cudaGraphNode_t first, loop, child, last;
-  long long* no_count = nullptr;
-  if ((e = add_set_condition(&first, outer, nullptr, 0, &handle, &cont, &no_count)) != cudaSuccess) return e;
+  cudaGraphNode_t first, loop, child, last, tail;
+  void* enter_args[] = {&handle, &cont};
+  void* step_args[] = {&handle, &cont, &steps};
+  if ((e = add_kernel(&first, outer, nullptr, 0, reinterpret_cast<void*>(loop_enter), enter_args)) != cudaSuccess)
+    return e;
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
@@ -67,7 +78,9 @@ cudaError_t build(cudaGraph_t outer, cudaGraph_t step, const bool* cont, long lo
   if ((e = add_node(&loop, outer, &first, 1, &params)) != cudaSuccess) return e;
   cudaGraph_t body = params.conditional.phGraph_out[0];
   if ((e = cudaGraphAddChildGraphNode(&child, body, nullptr, 0, step)) != cudaSuccess) return e;
-  return add_set_condition(&last, body, &child, 1, &handle, &cont, &steps);
+  if ((e = add_kernel(&last, body, &child, 1, reinterpret_cast<void*>(set_condition), step_args)) != cudaSuccess)
+    return e;
+  return add_kernel(&tail, outer, &loop, 1, reinterpret_cast<void*>(loop_exit), nullptr);
 }
 
 #endif

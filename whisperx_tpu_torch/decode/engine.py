@@ -22,8 +22,9 @@ import torch
 
 from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
 from ..ops.graph_loop import DeviceLoop
-from ..parallel.mesh import gather_rows
-from .search import BeamLoop, GreedyLoop, SearchOptions, beam_decode, greedy_decode
+from ..parallel.mesh import axis_index, gather_rows
+from ..utils import telemetry
+from .search import BeamLoop, GreedyLoop, LoopResult, SearchOptions, beam_decode, greedy_decode
 from .tokenizer import WhisperTokenizer
 
 # Captured device loops kept per model (``Whisper.decode_loops``), the least
@@ -39,25 +40,35 @@ def _host(x) -> np.ndarray:
 
 class DecodeResult:
     """Decode outputs: ``tokens`` (B, max_new) int32 and the per-row
-    statistics packed as one (3, B) float32 buffer.
+    statistics packed as one (4, B) float32 buffer: sum_logprobs, lengths,
+    no_speech and the steps the batch's loop ran (the same in each row).
 
     Either may still be a device tensor (``generate(..., sync=False)``); the
     first read copies it to the host, which waits for the decode to finish.
+    ``loop_span``: the ``decode.loop`` telemetry span of the batch; the
+    first read gives it its ``steps`` where the loop ran on the card.
     """
 
-    def __init__(self, tokens, stats):
+    def __init__(self, tokens, stats, loop_span=None, steps_column: int = 0):
         self._tokens = tokens
-        self._stats = stats  # [sum_logprobs, lengths, no_speech]
+        self._stats = stats  # [sum_logprobs, lengths, no_speech, steps]
+        self.loop_span = loop_span
+        self._steps_column = steps_column  # a row of this process's loop
 
     def fetch(self) -> "DecodeResult":
         """Copy both buffers to the host (once)."""
-        self._tokens, self._stats = _host(self._tokens), _host(self._stats)
+        if isinstance(self._stats, torch.Tensor):
+            self._tokens, self._stats = _host(self._tokens), _host(self._stats)
+            if self.loop_span is not None:
+                self.loop_span.counts.setdefault("steps", int(self._stats[3, self._steps_column]))
+                telemetry.resolve()  # the loop has ended: read its events
         return self
 
     def gathered(self, mesh) -> "DecodeResult":
         """The rows of every rank of the mesh's "data" axis, in rank order
         (a collective: every rank calls it). Call before the first read."""
-        return DecodeResult(gather_rows(mesh, self._tokens), gather_rows(mesh, self._stats, dim=1))
+        return DecodeResult(gather_rows(mesh, self._tokens), gather_rows(mesh, self._stats, dim=1), self.loop_span,
+                            axis_index(mesh, "data") * self._stats.shape[1])
 
     @property
     def tokens(self) -> np.ndarray:
@@ -221,7 +232,7 @@ class WhisperEngine:
         entry = self.model.decode_loops.get(key)
         return None if entry is None else entry[1]
 
-    def _device_loop(self, key: tuple, init_logits, cache, temperature: float = 0.0, generator=None):
+    def _device_loop(self, key: tuple, init_logits, cache, temperature: float = 0.0, generator=None) -> LoopResult:
         """Run the loop of ``key`` = (kind, B, prompt length, options (see
         :meth:`_loop_options`), cross impl) as one graph launch and return
         (tokens, sum_lp, lengths) in new tensors, without reading the card.
@@ -260,8 +271,7 @@ class WhisperEngine:
             loop.start(init_logits, cache["self"])
         else:
             loop.start(init_logits, cache["self"], temperature=temperature, generator=generator)
-        graph.launch()
-        return loop.result()
+        return loop.result(graph.launch())
 
     # ---- end-to-end decode --------------------------------------------------
 
@@ -284,37 +294,39 @@ class WhisperEngine:
         return init_logits, cache, no_speech, key
 
     @torch.inference_mode()
-    def decode_greedy(self, mel, prompt_tokens, opts: SearchOptions, generator=None):
-        """(B, n_mels, 3000) features + (B, P) prompt → greedy tokens."""
+    def decode_greedy(self, mel, prompt_tokens, opts: SearchOptions, generator=None) -> tuple[LoopResult, torch.Tensor]:
+        """(B, n_mels, 3000) features + (B, P) prompt → (the loop's greedy
+        tokens, sum_lp, lengths; the no-speech probabilities)."""
         prompt_tokens = prompt_tokens.to(self.device)
         init_logits, cache, no_speech, key = self._prepare("greedy", mel, prompt_tokens, opts)
         P = prompt_tokens.shape[1]
         if key is not None:
-            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache, opts.temperature, generator)
+            out = self._device_loop(key, init_logits, cache, opts.temperature, generator)
         else:
-            tokens, sum_lp, lengths = greedy_decode(
+            out = greedy_decode(
                 self._step_fn(cache["cross"]), init_logits, cache["self"], P, opts, generator,
                 group=self.model.tp_group,
             )
-        return tokens, sum_lp, lengths, no_speech
+        return out, no_speech
 
     @torch.inference_mode()
-    def decode_beam(self, mel, prompt_tokens, opts: SearchOptions):
-        """(B, n_mels, 3000) features + (B, P) prompt → beam-searched tokens."""
+    def decode_beam(self, mel, prompt_tokens, opts: SearchOptions) -> tuple[LoopResult, torch.Tensor]:
+        """(B, n_mels, 3000) features + (B, P) prompt → (the loop's
+        beam-searched tokens, sum_lp, lengths; the no-speech probabilities)."""
         K = opts.beam_size
         prompt_tokens = prompt_tokens.to(self.device)
         init_logits, cache, no_speech, key = self._prepare("beam", mel, prompt_tokens, opts)
         P = prompt_tokens.shape[1]
         if key is not None:
-            tokens, sum_lp, lengths = self._device_loop(key, init_logits, cache)
+            out = self._device_loop(key, init_logits, cache)
         else:
             # Replicate only the prompt-filled self cache per beam: (B, ...)
             # → (B*K, ...). Cross K/V stay per batch element.
             expanded = [{n: buf.repeat_interleave(K, dim=0) for n, buf in layer.items()} for layer in cache["self"]]
-            tokens, sum_lp, lengths = beam_decode(
+            out = beam_decode(
                 self._step_fn(cache["cross"]), init_logits, expanded, P, opts, group=self.model.tp_group,
             )
-        return tokens, sum_lp, lengths, no_speech
+        return out, no_speech
 
     @torch.inference_mode()
     def language_logits(self, mel):
@@ -445,12 +457,13 @@ class WhisperEngine:
             mel.shape[0], initial_prompt=initial_prompt, prefix_tokens=self.prefix_tokens(prefix)
         )
         if opts.beam_size > 1 and opts.temperature == 0.0:
-            tokens, sum_lp, lengths, no_speech = self.decode_beam(mel, prompt, opts)
+            out, no_speech = self.decode_beam(mel, prompt, opts)
         else:
-            tokens, sum_lp, lengths, no_speech = self.decode_greedy(mel, prompt, opts, generator)
+            out, no_speech = self.decode_greedy(mel, prompt, opts, generator)
+        tokens, sum_lp, lengths = out
         # One buffer for the per-row scalars: one copy to the host later.
-        stats = torch.stack([sum_lp.float(), lengths.float(), no_speech.float()])
-        result = DecodeResult(tokens.to(torch.int32), stats)
+        stats = torch.stack([sum_lp.float(), lengths.float(), no_speech.float(), out.steps.expand_as(sum_lp)])
+        result = DecodeResult(tokens.to(torch.int32), stats, out.span)
         return result.fetch() if sync else result
 
     def decode_text(self, result: DecodeResult) -> list[str]:

@@ -47,6 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import telemetry
+
 NEG_INF = float(np.finfo(np.float32).min)
 
 
@@ -165,7 +167,19 @@ def _check_topk(opts: SearchOptions) -> None:
         raise ValueError(f"unknown top-k impl {opts.topk!r}: the port has auto|exact")
 
 
-def run_host_loop(loop, group=None) -> None:
+class LoopResult(tuple):
+    """A loop's (tokens (B, max_new), sum_logprobs (B,), lengths (B,)), with
+    ``steps``, the steps it ran (a 0-d float32 tensor on the loop's device,
+    read back with the rest), and ``span``, the ``decode.loop`` telemetry
+    span that timed it (None where none did)."""
+
+    def __new__(cls, tokens, sum_lp, lengths, steps, span=None):
+        out = super().__new__(cls, (tokens, sum_lp, lengths))
+        out.steps, out.span = steps, span
+        return out
+
+
+def run_host_loop(loop, group=None) -> telemetry.Span:
     """Drive ``loop`` (a :class:`GreedyLoop` or :class:`BeamLoop` after
     ``start``) on the host: read its ``cont`` flag, run a step, until the
     flag is false. Under a tensor-parallel ``group`` the flag is all-reduced
@@ -173,15 +187,21 @@ def run_host_loop(loop, group=None) -> None:
     hold the same logits (each is the same fp32 sum after the all-reduces
     and gathers), but the exit does not rest on bit equality, and no rank
     leaves the loop while another starts a step whose collectives would
-    wait for it forever."""
-    while True:
-        flag = loop.cont
-        if group is not None:
-            flag = flag.to(torch.int32)
-            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-        if not bool(flag):
-            return
-        loop.body()
+    wait for it forever. Returns the ``decode.loop`` span that timed it,
+    counting the ``steps`` run."""
+    with telemetry.span("decode.loop", device=loop.device) as span:
+        steps = 0
+        while True:
+            flag = loop.cont
+            if group is not None:
+                flag = flag.to(torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+            if not bool(flag):
+                break
+            loop.body()
+            steps += 1
+        span.counts["steps"] = steps
+    return span
 
 
 def _land(cache: list, new: list) -> None:
@@ -300,12 +320,13 @@ class GreedyLoop(_Loop):
         self.step.add_(1)
         self.cont.copy_(self.cond())
 
-    def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def result(self, span=None) -> LoopResult:
         """(tokens (B, max_new), sum_logprobs (B,), lengths (B,)) in new
-        tensors; token rows are padded with EOT after finish."""
+        tensors; token rows are padded with EOT after finish. ``span``: the
+        span that timed the loop."""
         tokens = self.tokens.clone()
         lengths = (tokens != self.opts.eot).sum(dim=1) + 1  # +1 for the EOT itself
-        return tokens, self.sum_lp.clone(), lengths
+        return LoopResult(tokens, self.sum_lp.clone(), lengths, self.step.float(), span)
 
 
 def greedy_decode(
@@ -329,8 +350,7 @@ def greedy_decode(
     """
     B, V = init_logits.shape
     loop = GreedyLoop(step_fn, init_cache, B, V, prompt_len, opts, generator).start(init_logits)
-    run_host_loop(loop, group)
-    return loop.result()
+    return loop.result(run_host_loop(loop, group))
 
 
 def reorder_cache_(self_cache: list, flat_idx: torch.Tensor, scratch: dict) -> None:
@@ -438,11 +458,12 @@ class BeamLoop(_Loop):
         self.step.add_(1)
         self.cont.copy_(self.cond())
 
-    def result(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def result(self, span=None) -> LoopResult:
         """(tokens (B, max_new), sum_logprobs (B,), lengths (B,)) of the best
         hypothesis per row, in new tensors: the best finished one (ranked by
         the GNMT length-penalized cumulative logprob), else the best alive
-        one (ran out of steps without EOT)."""
+        one (ran out of steps without EOT). ``span``: the span that timed
+        the loop."""
         B, K, V = self.shape
         eot, alpha = self.opts.eot, self.opts.length_penalty
         have_finished = self.fin_count > 0
@@ -454,7 +475,7 @@ class BeamLoop(_Loop):
         lengths = (tokens != eot).sum(dim=1) + 1
         raw_fin = self.fin_scores[:, 0] * (((5.0 + lengths.float()) / 6.0) ** alpha)
         sum_lp = torch.where(have_finished, raw_fin, best_alive_score)
-        return tokens, sum_lp, lengths
+        return LoopResult(tokens, sum_lp, lengths, self.step.float(), span)
 
 
 def beam_decode(
@@ -474,5 +495,4 @@ def beam_decode(
     """
     B, V = init_logits.shape
     loop = BeamLoop(step_fn, expanded_cache, B, V, prompt_len, opts).start(init_logits)
-    run_host_loop(loop, group)
-    return loop.result()
+    return loop.result(run_host_loop(loop, group))

@@ -19,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import telemetry
+
 _HERE = os.path.dirname(__file__)
 _SRC = os.path.join(_HERE, "audio_native.cpp")
 _LIB_PATH = os.path.join(os.path.dirname(_HERE), "_build", "libwhisperx_audio.so")
@@ -59,7 +61,8 @@ def _get_lib():
         if _lib is not None or _build_failed:
             return _lib
         fresh = os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)
-        path = _LIB_PATH if fresh else _build()
+        with telemetry.span("build.load", built=int(not fresh)):
+            path = _LIB_PATH if fresh else _build()
         if path is None:
             _build_failed = True
             return None

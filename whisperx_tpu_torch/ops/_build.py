@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Iterable
 
+from ..utils import telemetry
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -96,12 +98,15 @@ def build(names: Iterable[str]) -> dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed.
-    Every source also exports ``const char* error_string(int)``."""
+    Every source also exports ``const char* error_string(int)``. The first
+    load of each writes a ``build.load`` span (count ``built``: 1 where
+    ``nvcc`` ran)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            with telemetry.span("build.load") as span:
+                span.counts["built"] = len(build([name]))
+                lib = ctypes.CDLL(str(_target(name)))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib

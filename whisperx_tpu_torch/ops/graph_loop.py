@@ -36,6 +36,7 @@ import weakref
 
 import torch
 
+from ..utils import telemetry
 from . import _build, cross_attn, flash_attn, int8_mm, mel
 
 MIN_CUDA = 12040  # conditional WHILE nodes: CUDA 12.4
@@ -108,12 +109,19 @@ class DeviceLoop:
     step), ``steps`` (a 0-d int64 on the card: steps run since the last
     :func:`reset_counts`), ``capture_ms`` (warm-up + capture),
     ``instantiate_ms`` (the WHILE graph's build and instantiation) and
-    ``pool_bytes`` (the captured step's private memory pool)."""
+    ``pool_bytes`` (the captured step's private memory pool); the last three
+    are also the counts of the ``decode.capture`` span the build writes."""
 
     def __init__(self, loop):
         dev = loop.cont.device
         if dev.type != "cuda":
             raise ValueError(f"DeviceLoop runs on a CUDA device, not {dev}: the host loop drives the CPU")
+        with telemetry.span("decode.capture") as span:
+            self._build(loop, dev)
+            span.counts.update(capture_ms=self.capture_ms, instantiate_ms=self.instantiate_ms, pool_bytes=self.pool_bytes)
+        _live.add(self)
+
+    def _build(self, loop, dev) -> None:
         lib = _lib()
         try:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -150,16 +158,21 @@ class DeviceLoop:
             t2 = time.perf_counter()
         self.capture_ms, self.instantiate_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         self._graph, self._exec, self._lib = graph, exec_, lib
-        _live.add(self)
 
-    def launch(self) -> None:
-        """Enqueue the whole loop on torch's current stream."""
+    def launch(self) -> telemetry.Span:
+        """Enqueue the whole loop on torch's current stream. Returns its
+        ``decode.loop`` device span: events recorded on that stream just
+        before and just after the launch (the steps it runs are the loop's
+        ``step`` counter, read back with the batch's result)."""
         global launches
         dev = self.loop.cont.device
+        span = telemetry.begin("decode.loop", device=dev)
         with torch.cuda.device(dev):
             code = self._lib.graph_loop_launch(self._exec, torch.cuda.current_stream(dev).cuda_stream)
+        telemetry.end(span)
         _build.check(self._lib, code, "graph_loop_launch")
         launches += 1
+        return span
 
     def __del__(self):
         # Dropped with its model: wait for a launch still in flight, then

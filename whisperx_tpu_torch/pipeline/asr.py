@@ -44,6 +44,7 @@ from ..decode.tokenizer import WhisperTokenizer
 from ..device import DeviceLike, resolve_device
 from ..io.types import SingleSegment, TranscriptionResult
 from ..parallel.mesh import axis_index, axis_size, mesh_device, shard_batch
+from ..utils import telemetry
 from ..utils.telemetry import PipelineTelemetry
 from ..vad.model import EnergyVAD, VadPipeline, load_vad_model
 
@@ -207,9 +208,10 @@ class WhisperPipeline:
         mel = log_mel_spectrogram(t, n_mels=self.engine.config.n_mels, device=self.device)
         return mel.to(self.model.dtype)
 
-    def _feature_batches(self, audio: np.ndarray, chunks: List[dict], batch_size: int):
-        """Yield (mel_batch (B, n_mels, 3000), n_valid) fixed-shape batches
-        (this rank's B / n_data rows under a mesh).
+    @staticmethod
+    def _wave_batches(audio: np.ndarray, chunks: List[dict], batch_size: int):
+        """Yield (waveforms (batch_size, N_SAMPLES), n_valid) fixed-shape
+        host batches of the chunks, zero-padded.
 
         ``audio`` may be float32 or int16 PCM (see ``_device_audio``): the
         waveform batch is uploaded in the audio's dtype.
@@ -222,7 +224,13 @@ class WhisperPipeline:
                 f2 = int(seg["end"] * SAMPLE_RATE)
                 clip = audio[f1:f2][:N_SAMPLES]
                 wavs[row, : len(clip)] = clip
-            yield self._mel(wavs), len(batch)
+            yield wavs, len(batch)
+
+    def _feature_batches(self, audio: np.ndarray, chunks: List[dict], batch_size: int):
+        """Yield (mel_batch (B, n_mels, 3000), n_valid) fixed-shape batches
+        (this rank's B / n_data rows under a mesh) of :meth:`_wave_batches`."""
+        for wavs, n_valid in self._wave_batches(audio, chunks, batch_size):
+            yield self._mel(wavs), n_valid
 
     # -- public API ------------------------------------------------------------
 
@@ -238,6 +246,19 @@ class WhisperPipeline:
         combined_progress: bool = False,
         verbose: bool = False,
     ) -> TranscriptionResult:
+        """The request's root telemetry span is ``transcribe`` (count
+        ``audio_s``): under it the stages ``vad`` and ``asr_decode``, and in
+        ``asr_decode`` one ``asr.batch`` per decode batch (counts ``rows``,
+        ``rows_valid``) holding ``asr.prepare`` (device: upload, log-mel,
+        encoder, cross K/V and prompt, up to the loop's launch),
+        ``decode.loop``, ``asr.fetch`` (the host's wait for the batch's
+        result) and ``asr.detokenize``."""
+        with telemetry.span("transcribe", root=True) as root:
+            return self._transcribe(audio, batch_size, language, task, chunk_size, print_progress,
+                                    combined_progress, verbose, root)
+
+    def _transcribe(self, audio, batch_size, language, task, chunk_size, print_progress, combined_progress, verbose,
+                    root) -> TranscriptionResult:
         if isinstance(audio, str):
             audio = load_audio(audio)
         audio = np.asarray(audio, dtype=np.float32).reshape(-1)
@@ -246,6 +267,7 @@ class WhisperPipeline:
         granule = self._data_granule()
         batch_size = -(-batch_size // granule) * granule
         total_audio = len(audio) / SAMPLE_RATE
+        root.counts["audio_s"] = total_audio
 
         with self.telemetry.stage("vad", audio_seconds=total_audio):
             vad_segments = self.vad_model(audio, chunk_size=chunk_size)
@@ -273,16 +295,20 @@ class WhisperPipeline:
         no_speech = np.zeros(total)
         done = 0
 
-        def consume(result, n_valid, at):
-            # First host read of the device tensors synchronizes here.
-            batch_texts = engine.decode_text(result)[:n_valid]
-            avg = np.asarray(result.avg_logprobs)
-            nsp = result.no_speech_probs
-            for j, text in enumerate(batch_texts):
-                texts[at + j] = text
-                avg_lps[at + j] = avg[j]
-                if nsp is not None:
-                    no_speech[at + j] = float(nsp[j])
+        def consume(result, n_valid, at, batch):
+            with telemetry.within(batch):
+                with telemetry.span("asr.fetch"):
+                    result.fetch()  # the first host read of the device tensors waits here
+                with telemetry.span("asr.detokenize"):
+                    batch_texts = engine.decode_text(result)[:n_valid]
+                    avg = np.asarray(result.avg_logprobs)
+                    nsp = result.no_speech_probs
+                    for j, text in enumerate(batch_texts):
+                        texts[at + j] = text
+                        avg_lps[at + j] = avg[j]
+                        if nsp is not None:
+                            no_speech[at + j] = float(nsp[j])
+            telemetry.end(batch)
             if print_progress:
                 pct = ((at + n_valid) / total) * 100
                 print(f"Progress: {(pct / 2 if combined_progress else pct):.2f}%...")
@@ -296,21 +322,25 @@ class WhisperPipeline:
         total_audio_s = sum(s["end"] - s["start"] for s in vad_segments)
         with self.telemetry.stage("asr_decode", audio_seconds=total_audio_s):
             in_flight = None
-            for mel, n_valid in self._feature_batches(audio_dev, vad_segments, batch_size):
-                # A sampled first pass draws as the JAX package's PRNGKey(0) does
-                # (whisperx_tpu/decode/search.py:greedy_decode): the same seed
-                # for every batch and every call.
-                result = self._gathered(engine.generate(
-                    mel, options=search_opts,
-                    initial_prompt=self.options.initial_prompt,
-                    prefix=self.options.prefix,
-                    generator=self._generator(0) if search_opts.temperature > 0 else None,
-                    sync=False,
-                ))
+            for wavs, n_valid in self._wave_batches(audio_dev, vad_segments, batch_size):
+                batch = telemetry.begin("asr.batch", rows=batch_size, rows_valid=n_valid)
+                with telemetry.within(batch):
+                    prepare = telemetry.begin("asr.prepare", device=self.device)
+                    # A sampled first pass draws as the JAX package's PRNGKey(0) does
+                    # (whisperx_tpu/decode/search.py:greedy_decode): the same seed
+                    # for every batch and every call.
+                    result = self._gathered(engine.generate(
+                        self._mel(wavs), options=search_opts,
+                        initial_prompt=self.options.initial_prompt,
+                        prefix=self.options.prefix,
+                        generator=self._generator(0) if search_opts.temperature > 0 else None,
+                        sync=False,
+                    ))
+                    telemetry.end(prepare, at=result.loop_span)  # where the loop begins
                 if in_flight is not None:
                     consume(*in_flight)
                     done += in_flight[1]
-                in_flight = (result, n_valid, done)
+                in_flight = (result, n_valid, done, batch)
             if in_flight is not None:
                 consume(*in_flight)
                 done += in_flight[1]
