@@ -53,16 +53,18 @@ Phases:
      bursts → load_audio → SpeechBandVAD cut & merge → phase 4's large-v2
      model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
      .finish() with phase 5's wav2vec2 base and bench.py's transcript per
-     chunk; once with the JAX package's defaults, once with
-     WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash, and once with the
-     defaults and enable_fallback=True (sampled retry batches on the
+     chunk; once with the JAX package's defaults (WHISPERX_CROSS_ATTN=xla),
+     once with WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash, and once
+     with the port's defaults (the cross-attention kernel, "xla" encoder
+     attention) and enable_fallback=True (sampled retry batches on the
      device loop);
   7. drive the command line as a user runs ``python -m whisperx_tpu_torch
      <wav> --diarize``: ``cli.cli`` in-process on checkpoints written from
      seeds in their published layouts (large-v2 HF directory with fp16
      safetensors, wav2vec2 base HF directory, WeSpeaker ResNet34 and
      pyannote PyanNet ``.bin`` files) and a 6-minute two-speaker WAV file:
-     neural VAD, int8 beam-5 decode of 224 tokens (EOT banned), alignment,
+     neural VAD, int8 beam-5 decode of 224 tokens (EOT banned) with the
+     port's defaults (the cross-attention kernel), alignment,
      overlap-aware diarization, six output files; then ``python -m
      whisperx_tpu_torch --help``;
   8. drive the training step: ``train.make_train_step`` on Whisper large-v2
@@ -78,8 +80,9 @@ Phases:
      phase 6's tone bursts (8 chunks, one decode batch), beam 5, 112 tokens
      (EOT banned), then alignment of the chunks and of one 1 s batch (the
      int8 wav2vec2's projections through int8_matmul); arm (a) with the int8
-     KV cache and the JAX package's defaults, arm (b) with the int4 KV
-     cache, the cross-attention kernel (int8 cross K/V) and flash attention;
+     KV cache and the JAX package's defaults (WHISPERX_CROSS_ATTN=xla), arm
+     (b) with the int4 KV cache, the cross-attention kernel (int8 cross K/V)
+     and flash attention;
  10. (run after phase 9, on phase 7's files) drive parallel/ on the one card:
      (a) a world of one over NCCL in this process: ``load_model(...,
      compute_type="int8", mesh=make_mesh())`` transcribes phase 6's WAV,
@@ -2503,9 +2506,11 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     at onset 0.5 / offset 0.363, batches of 8, int16 uploads, beam 5, 112
     tokens with EOT suppressed, int8 KV cache) → align_begin(...).finish()
     with each chunk's text replaced by bench.py's transcript (bench.py:180).
-    Three runs: the JAX package's defaults, the kernel arm
-    (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash, set for the run only),
-    and the defaults with enable_fallback=True at temperatures (0.0,
+    Three runs: the JAX package's defaults (WHISPERX_CROSS_ATTN=xla), the
+    kernel arm (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash), each set
+    for the run only, and the port's defaults (on the card the
+    cross-attention kernel and the "xla" encoder attention) with
+    enable_fallback=True at temperatures (0.0,
     *SAMPLED_TEMPERATURES): on random weights every chunk fails the
     log-prob gate, so each temperature re-decodes BEST_OF sampled copies of
     each chunk in retry batches of 8, each one device-loop launch of one kept
@@ -2558,8 +2563,8 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     t0 = time.perf_counter()
     ready = native.available()
     log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
-    arms = {"default": ({}, pipe), "kernel": ({"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}, pipe),
-            "fallback": ({}, fallback)}
+    arms = {"default": ({"WHISPERX_CROSS_ATTN": "xla"}, pipe),
+            "kernel": ({"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}, pipe), "fallback": ({}, fallback)}
     L, runs = cfg.n_text_layer, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pipeline.wav")
@@ -2603,7 +2608,8 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 raise AssertionError(f"pipeline {arm}: {len(retries)} sampled decode batches {retries}, expected {n_retry}")
             want = {
                 "int8_matmul": 6 * L * (1 + max_new) * (n_batches + n_retry),
-                "cross_attention_decode": L * (1 + max_new) * n_batches if kernel else 0,
+                # The port's default on the card is the kernel: only the JAX package's arm takes the einsum.
+                "cross_attention_decode": L * (1 + max_new) * (n_batches + n_retry) if arm != "default" else 0,
                 "flash_self_attention": (cfg.n_audio_layer + align_model.model.config.num_layers) * n_batches if kernel else 0,
                 "log_mel": 0,
             }
@@ -2705,8 +2711,9 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     ``.bin`` whose classifier bias is +3, so that every class is active and
     the path runs deterministically: neural VAD finds speech everywhere,
     30 s chunks, every (window, class) pair embedded and clustered. int8,
-    batch 8, beam 5, EOT banned (the 224-token default horizon), the JAX
-    package's defaults otherwise (no kernel env knob). The files stay in
+    batch 8, beam 5, EOT banned (the 224-token default horizon), the port's
+    defaults otherwise (no kernel env knob: on the card the cross-attention
+    kernel, the "xla" encoder attention). The files stay in
     ``tmp`` for phase 9. Returns the launches, the two HF directories, the
     int8 model's weight bytes and load_model's time."""
     from whisperx_tpu_torch import cli, native
@@ -2822,7 +2829,8 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     stages = seen["stages"]
 
     n_batches = -(-seen["chunks"] // batch)
-    want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0}
+    want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": L * (1 + steps) * n_batches,
+            "flash_self_attention": 0, "log_mel": 0}
     if written != sorted(f"conversation.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")) or len(written_all) != 6:
         raise AssertionError(f"cli: wrote {written}, then {written_all}")
     if seen["generate"] != n_batches or n_batches < 2:
@@ -2904,7 +2912,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     (one 1 s alignment batch of 4 x 49 frames: every int8 projection of
     wav2vec2 base goes through int8_matmul). Two arms in turns: (a) int4
     weights with the default KV ("auto" → int8) and the JAX package's
-    defaults; (b) int4 weights, kv_cache_dtype="int4",
+    defaults (WHISPERX_CROSS_ATTN=xla); (b) int4 weights, kv_cache_dtype="int4",
     WHISPERX_CROSS_ATTN=pallas (int8 cross K/V for the kernel) and
     WHISPERX_ATTN=flash. Then each arm's beam loop once more, stage by
     stage, on 8 x 30 s of noise. Returns arm (b)'s launches."""
@@ -2978,7 +2986,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     short = [{"start": 25.0 * i + 1.0, "end": 25.0 * i + 1.9, "text": " the quick brown fox"} for i in range(4)]
     n_w2v, L = w2v.config.num_layers, cfg.n_text_layer
     w2v_int8 = 1 + 6 * n_w2v  # feat_projection + 6 projections a layer, in the 1 s batch only
-    arms = {"a": ("int8", {}), "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
+    arms = {"a": ("int8", {"WHISPERX_CROSS_ATTN": "xla"}), "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
     want = {
         "a": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
         "b": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new),

@@ -375,6 +375,41 @@ def test_device_loop_equals_host_loop(gen, monkeypatch, beam, cross):
 
 
 @pytest.mark.cuda
+def test_default_options_take_the_cross_attention_kernel_in_the_device_loop(gen, monkeypatch):
+    """A bf16 int8 Whisper with the default options ("auto") runs its beam
+    loop's cross attention on the kernel: the captured step launches
+    cross_attention_decode once a decoder layer, the ``decode.loop`` span
+    counts as many, and the tokens and statistics are those of an explicit
+    ``cross_attn="pallas"``."""
+    import dataclasses
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+
+    monkeypatch.delenv("WHISPERX_CROSS_ATTN", raising=False)
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
+    engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    opts = engine.build_options(beam_size=5, max_new_tokens=24, kv_cache_dtype="int8")
+    assert opts.cross_attn == "auto" and engine._cross_impl(opts) == "pallas"
+    mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
+    got = engine.generate(mel, options=opts)
+    ((key, (_, cross, graph)),) = model.decode_loops.items()
+    assert key[-1] == "pallas" and all(isinstance(kv, tw.FlatCrossKV) for kv in cross)
+    assert graph.body_launches["cross_attention_decode"] == cfg.n_text_layer
+    assert got.loop_span.counts["cross_attn_per_step"] == cfg.n_text_layer
+    want = engine.generate(mel, options=dataclasses.replace(opts, cross_attn="pallas"))
+    assert len(model.decode_loops) == 2 and want.loop_span.counts["cross_attn_per_step"] == cfg.n_text_layer
+    assert (got.tokens == want.tokens).all() and (got._stats == want._stats).all()
+    einsum = engine.generate(mel, options=dataclasses.replace(opts, cross_attn="xla"))
+    assert einsum.loop_span.counts["cross_attn_per_step"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.2, 1.0])
 def test_sampled_device_loop_equals_host_loop(gen, monkeypatch, temperature):
     """A sampled decode (temperature > 0) runs on the device loop: its

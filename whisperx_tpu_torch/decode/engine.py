@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
+from ..ops.cross_attn import HEAD_DIM
 from ..ops.graph_loop import DeviceLoop
 from ..parallel.mesh import axis_index, gather_rows
 from ..utils import telemetry
@@ -95,6 +96,32 @@ class DecodeResult:
 _KV_BITS = {"model": 0, "int8": 8, "int4": 4}
 
 
+def resolve_cross_impl(pref: str, device, dtype: torch.dtype, kv_bits: int, width: int, n_head: int) -> str:
+    """The decode cross-attention route for a preference of "auto", "xla"
+    (the einsum path) or "pallas" (``ops/cross_attn.py``'s kernel), given a
+    decoder layer's local ``width`` and ``n_head`` (a rank's heads under
+    tensor parallelism). An explicit route is kept. "auto" takes the kernel
+    where it computes the einsum path's function: on a CUDA device, bf16
+    compute (the kernel reads bf16 queries), cross K/V int8 or in the
+    model's dtype (under the kernel an int4 request gets int8 cross K/V),
+    and shapes inside the kernel's contract (heads of 64, an even head
+    count, a width that is a multiple of 128). Elsewhere "auto" is the
+    einsum path, as the JAX package's TPU default is everywhere."""
+    if pref not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown cross_attn {pref!r}: expected auto|xla|pallas")
+    if pref != "auto":
+        return pref
+    kernel = (
+        torch.device(device).type == "cuda"
+        and dtype == torch.bfloat16
+        and kv_bits in (0, 8)
+        and width == n_head * HEAD_DIM
+        and n_head % 2 == 0
+        and width % 128 == 0
+    )
+    return "pallas" if kernel else "xla"
+
+
 class WhisperEngine:
     """Greedy/beam decode over one model and tokenizer, on the model's device."""
 
@@ -112,16 +139,17 @@ class WhisperEngine:
     def _encode(self, mel) -> torch.Tensor:
         return self.model.encode(torch.as_tensor(mel).to(self.device))
 
-    def _cross_impl(self, opts: Optional[SearchOptions]) -> str:
-        """Decode cross-attention impl: WHISPERX_CROSS_ATTN, then the options,
-        then "xla" (the einsum path)."""
+    def _cross_impl(self, opts: SearchOptions) -> str:
+        """Decode cross-attention impl: WHISPERX_CROSS_ATTN ("xla" or
+        "pallas"), then the options; "auto" by :func:`resolve_cross_impl`
+        over the model and the options. On the card that is the kernel (bf16
+        compute, int8 or bf16 cross K/V), where the JAX package's TPU default
+        is the einsum: here the einsum casts each layer's whole K and V to
+        bf16 every step, and the kernel reads them once."""
         env = os.environ.get("WHISPERX_CROSS_ATTN", "")
-        if env in ("pallas", "xla"):
-            return env
-        pref = opts.cross_attn if opts is not None else "auto"
-        if pref not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown cross_attn {pref!r}: expected auto|xla|pallas")
-        return "xla" if pref == "auto" else pref
+        pref = env if env in ("pallas", "xla") else opts.cross_attn
+        attn = self.model.decoder.layers[0].cross_attn
+        return resolve_cross_impl(pref, self.device, self.model.dtype, self._kv_bits(opts), attn.width, attn.n_head)
 
     @staticmethod
     def _kv_bits(opts: SearchOptions) -> int:

@@ -70,8 +70,11 @@ class SearchOptions:
     # "model" keeps KV in the model compute dtype; "int8" and "int4" quantize
     # the self cache and cross K/V per (token, head) (int4 packed along Dh).
     kv_cache_dtype: str = "model"
-    # Decode cross attention: "auto"/"xla" → the einsum path; "pallas" → the
-    # fused kernel (ops/cross_attn.py). WHISPERX_CROSS_ATTN overrides.
+    # Decode cross attention: "xla" → the einsum path; "pallas" → the fused
+    # kernel (ops/cross_attn.py); "auto" → the kernel on the card where it
+    # computes the einsum's function (bf16 compute, int8 or bf16 cross K/V,
+    # the kernel's shapes), else the einsum, the JAX package's TPU default
+    # (decode/engine.py:resolve_cross_impl). WHISPERX_CROSS_ATTN overrides.
     cross_attn: str = "auto"
     # Candidate top-k: "auto" and "exact" are the exact top-k ("approx" is a
     # TPU-only knob and is not ported).

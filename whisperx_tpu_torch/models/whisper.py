@@ -24,7 +24,11 @@ Differences in mechanism, not in value:
 - int8 projections with at most 256 rows (every decoder projection in a beam
   step) go through ``ops/int8_mm.py``, whose wrapper launches the Hopper
   kernel on CUDA tensors; decode-step cross attention over ``FlatCrossKV``
-  goes through ``ops/cross_attn.py``; the encoder's self-attention through
+  goes through ``ops/cross_attn.py``, which the engine builds by default on
+  the card for a bf16 model with int8 or bf16 cross K/V
+  (``decode/engine.py:resolve_cross_impl``; the JAX package's TPU default is
+  the einsum, which here would cast each layer's whole K and V to bf16 every
+  step); the encoder's self-attention through
   ``ops/attention.py:fused_self_attention`` with the module's ``attn_impl``
   ("flash" launches ``ops/flash_attn.py``'s kernel).
 - int4 values (``Dense(quant_bits=4)`` kernels, the int4 KV cache and cross

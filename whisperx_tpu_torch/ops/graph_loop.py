@@ -163,10 +163,12 @@ class DeviceLoop:
         """Enqueue the whole loop on torch's current stream. Returns its
         ``decode.loop`` device span: events recorded on that stream just
         before and just after the launch (the steps it runs are the loop's
-        ``step`` counter, read back with the batch's result)."""
+        ``step`` counter, read back with the batch's result), counting
+        ``cross_attn_per_step``, the captured step's launches of
+        ``cross_attention_decode`` (0 on the einsum route)."""
         global launches
         dev = self.loop.cont.device
-        span = telemetry.begin("decode.loop", device=dev)
+        span = telemetry.begin("decode.loop", device=dev, cross_attn_per_step=self.body_launches["cross_attention_decode"])
         with torch.cuda.device(dev):
             code = self._lib.graph_loop_launch(self._exec, torch.cuda.current_stream(dev).cuda_stream)
         telemetry.end(span)
