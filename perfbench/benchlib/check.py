@@ -15,6 +15,20 @@ is held to ``perfbench/reference/``:
   reference's own beam search of the chunk at the same beam and horizon
   (none where it lies above). A served token that the request suppresses
   counts 1e4 below its position's best;
+- ``score_err``: on the same picks, the mean over the chunks of the
+  absolute difference, in nats, between the program's own summed log-prob
+  of the tokens it served (``FileRecord.scores``: the beam loop's
+  ``sum_logprobs`` of the chunk's row, which the pipeline fetches with
+  every batch) and the reference's teacher-forced summed log-prob of the
+  same tokens, each step normalised over the tokens the request leaves
+  (``reference/tokens.py:allowed``, which is the request's own mask: the
+  non-speech symbols, every token from the end of text on, the language
+  tokens among them, and at the first step the blank; a test holds the
+  two equal). The same tokens are scored on both sides, so a near-tie that
+  sends the beams elsewhere does not move it, as it moves ``beam_deficit``
+  by ~20 nats at any precision: it reads the arithmetic along the path
+  served, and so tells a bfloat16 decoder from an fp8 one, which
+  ``beam_deficit`` cannot;
 - ``word_err``: over the aligned chunks, the median of each chunk's mean
   word error, where a word's error is 1 if its text, start or end differs
   from the reference's (reference emissions at the padded length the
@@ -32,7 +46,9 @@ is held to ``perfbench/reference/``:
 ``judge`` returns each number beside its limit for the result line;
 ``readings`` also gives the control's numbers: the reference one precision
 step lower in the program's place, on the same chunks: its own beam search
-of each chunk, and its own emissions and walk.
+of each chunk (its ``score_err`` compares the control's own summed
+log-prob of its hypothesis with the exact reference's score of the same
+tokens), and its own emissions and walk.
 """
 
 from __future__ import annotations
@@ -157,16 +173,16 @@ class Reference:
                 total[b : b + 8] += torch.maximum(got, lp.amax(dim=-1) - 1e4)
         return total
 
-    def beam(self, model, cross: list) -> torch.Tensor:
+    def beam(self, model, cross: list) -> tuple:
         """The reference's own beam search of each chunk at the
-        configuration's beam and horizon: (B, steps) tokens."""
+        configuration's beam and horizon: (B, steps) tokens and their summed
+        log-prob (B,) as ``model`` scores them."""
         from reference import tokens as rt
 
         w, d = self.cfg["whisper"], self.cfg["decode"]
         V = w["vocab_size"]
-        toks, _ = model.beam_search(cross, rt.prompt(V), d["beam_size"], d["max_new_tokens"],
-                                    lambda logits, first: rt.masked_log_probs(logits, V, first))
-        return toks
+        return model.beam_search(cross, rt.prompt(V), d["beam_size"], d["max_new_tokens"],
+                                 lambda logits, first: rt.masked_log_probs(logits, V, first))
 
     def words(self, precision: str, audio: np.ndarray, chunk: tuple, padded: int, text: str):
         from reference import ctc
@@ -190,27 +206,29 @@ def _word_errs(got, want) -> list:
     return [1.0 if (a[1], a[2]) != (b[1], b[2]) else max(0.0, abs(a[3] - b[3]) - 0.001 - 1e-9) for a, b in zip(got, want)]
 
 
-def _beam_deficits(ref: Reference, files: list, ref_chunks: dict, dec: list, horizon: int, control: dict,
-                   precisions) -> dict:
-    """Each decoder pick's shortfall, in nats, below the reference's own beam
-    search (none above): of the served tokens ("exact") and of the control's
-    own beam search ("control"), both scored by the reference. No pick: one
-    shortfall of 1e4, which fails."""
+def _decoder_readings(ref: Reference, files: list, ref_chunks: dict, dec: list, horizon: int, control: dict,
+                      precisions) -> dict:
+    """Each decoder pick's ``beam_deficit`` and ``score_err`` (see the module
+    docstring) of the served tokens and the program's scores ("exact") and
+    of the control's own beam search and its own scores ("control"). No
+    pick: one reading of 1e4 each, which fails."""
     if not dec:
-        return {p: [1e4] for p in precisions}
+        return {n: {p: [1e4] for p in precisions} for n in ("beam_deficit", "score_err")}
     mels = torch.cat([ref.mels(files[r.index].audio, [ref_chunks[r.index][k]]) for r, k in dec])
     served = torch.tensor([r.tokens[k] if len(r.tokens[k]) == horizon else [0] * horizon for r, k in dec],
                           device=ref.device)
     exact = ref.model("exact")
     cross = ref.cross(exact, mels)
-    best = ref.scores(exact, cross, ref.beam(exact, cross))
+    best = ref.scores(exact, cross, ref.beam(exact, cross)[0])
     got = {"exact": ref.scores(exact, cross, served)}
+    own = {"exact": torch.tensor([r.scores[k] for r, k in dec], dtype=torch.float64)}
     if "control" in precisions:
         low = ref.model(control["whisper"])
-        hyp = ref.beam(low, ref.cross(low, mels))
+        hyp, own["control"] = ref.beam(low, ref.cross(low, mels))
         del low
         got["control"] = ref.scores(exact, cross, hyp)
-    return {p: (best - g).clamp(min=0).tolist() for p, g in got.items()}
+    return {"beam_deficit": {p: (best - g).clamp(min=0).tolist() for p, g in got.items()},
+            "score_err": {p: (own[p].double().cpu() - g.double().cpu()).abs().tolist() for p, g in got.items()}}
 
 
 def readings(cell, seed: int, files: list, records: list, device: str, precisions=("exact",),
@@ -253,9 +271,12 @@ def readings(cell, seed: int, files: list, records: list, device: str, precision
         picks = [(r, k) for r, k in picks if k < len(ref_chunks[r.index])]
         dec = [(r, k) for r, k in dec if k < len(ref_chunks[r.index])]
         ref = Reference(cfg, seed, device)
-        for prec, d in _beam_deficits(ref, files, ref_chunks, dec, horizon, control, precisions).items():
-            out[prec]["beam_deficit"] = float(np.mean(d))
-            detail[prec]["decoder"] = {"chunks": len(d), "deficits": d, "moved": int(sum(x > 0.01 for x in d))}
+        dr = _decoder_readings(ref, files, ref_chunks, dec, horizon, control, precisions)
+        for prec in precisions:
+            d, e = dr["beam_deficit"][prec], dr["score_err"][prec]
+            out[prec]["beam_deficit"], out[prec]["score_err"] = float(np.mean(d)), float(np.mean(e))
+            detail[prec]["decoder"] = {"chunks": len(d), "deficits": d, "moved": int(sum(x > 0.01 for x in d)),
+                                       "score_errs": e}
 
         errs = {p: [] for p in precisions}
         for r, k in picks:

@@ -44,6 +44,7 @@ class FileRecord:
     seconds: float  # audio length
     chunks: list  # (start, end) of each chunk, as transcribe returned them
     tokens: list  # served token ids of each chunk
+    scores: list  # the program's summed log-prob of each chunk's served tokens (its DecodeResult.sum_logprobs)
     words: list  # each chunk's [(word, start, end, score)], None where alignment fell back
     texts: list  # the transcript aligned to each chunk
     batches: int  # decode batches
@@ -93,6 +94,7 @@ def process(system: System, gen: Generator, path: str, index: int, order: int, t
         order=order, index=index, seconds=len(audio) / 16000.0,
         chunks=[(s["start"], s["end"]) for s in segs],
         tokens=[served_ids(s["text"]) for s in segs],
+        scores=system.scores(len(segs)),
         words=words, texts=texts, batches=-(-len(segs) // batch),
         wall={"ingest": t1 - t0, "transcribe": t2 - t1, "align": t3 - t2, "total": t3 - t0},
         stages={k: after.get(k, 0.0) - before.get(k, 0.0) for k in after},

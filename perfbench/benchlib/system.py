@@ -10,7 +10,11 @@ and int8 KV cache for "int8"; bf16 weights and a bf16 cache for "float16"),
 and copies the weights in with a strict ``load_state_dict``.
 
 The timed path of one file is the user's: ``load_audio(path)`` →
-``transcribe(audio, batch_size)`` → ``align(segments, ...)``.
+``transcribe(audio, batch_size)`` → ``align(segments, ...)``. The
+benchmark keeps each decode batch's ``DecodeResult`` of the file in flight
+as the pipeline receives it, so that ``scores`` reads the program's own
+summed log-prob of every chunk from the host copies the pipeline has
+already fetched.
 """
 
 from __future__ import annotations
@@ -98,6 +102,16 @@ class System:
                                          suppress_tokens=suppress),
             tokenizer=tok, language="en", kv_cache_dtype="int8" if ct == "int8" else "model",
         )
+        # transcribe hands each decode batch's DecodeResult, as generate
+        # returns it, to _gathered: keep them for ``scores``.
+        kept = self.decoded = []
+        gathered = self.pipe._gathered
+
+        def gathered_kept(result):
+            kept.append(gathered(result))
+            return kept[-1]
+
+        self.pipe._gathered = gathered_kept
         w2v = Wav2Vec2ForCTC(wav2vec2_config_from_hf(config["wav2vec2"]),
                              dtype=torch.bfloat16 if self.device.type == "cuda" else torch.float32,
                              attn_impl="auto", device=self.device)
@@ -111,7 +125,16 @@ class System:
         return whisperx_tpu_torch.load_audio(path)
 
     def transcribe(self, audio):
+        self.decoded.clear()
         return self.pipe.transcribe(audio, batch_size=self.config["decode"]["batch_size"])
+
+    def scores(self, n_chunks: int) -> list:
+        """The program's summed log-prob of each of the last file's
+        ``n_chunks`` chunks, in chunk order: row k % batch of decode batch
+        k // batch (``DecodeResult.sum_logprobs``, which the pipeline has
+        already copied to the host: no device work, no wait)."""
+        batch = self.config["decode"]["batch_size"]
+        return [float(self.decoded[k // batch].sum_logprobs[k % batch]) for k in range(n_chunks)]
 
     def align(self, segments, audio):
         import whisperx_tpu_torch
@@ -134,6 +157,7 @@ class System:
         import gc
 
         self.pipe = self.align_model = None
+        self.decoded.clear()
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.synchronize()

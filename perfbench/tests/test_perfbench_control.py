@@ -1,7 +1,8 @@
 """On the card, at each cell's own size: the control (the reference one
 precision step lower in the program's place) fails one of the check's
-numbers while the program passes them all, on three seeds; and a decode
-loop whose step leaves its state unchanged comes out not correct.
+numbers (the decoder's, ``score_err``, among them) while the program passes
+them all, on three seeds; and a decode loop whose step leaves its state
+unchanged comes out not correct.
 
     python -m pytest perfbench/tests/test_perfbench_control.py   # on a machine with a card
 """
@@ -24,6 +25,7 @@ def test_control_fails_the_check_and_the_program_passes(card, name):
         r = control.readings(cell, seed, 16.0, card, lambda m: None)  # 16 s: files enough for the whole sample
         assert all(r["program"][k] <= limits[k] for k in limits), r
         assert any(r["control"][k] > limits[k] for k in limits if k in r["control"]), r
+        assert r["control"]["score_err"] > limits["score_err"], r  # the decoder's control fails on the scores
 
 
 @pytest.mark.cuda

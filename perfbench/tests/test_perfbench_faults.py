@@ -98,12 +98,22 @@ def altered_chunk(monkeypatch):
     monkeypatch.setattr(VadPipeline, "__call__", broken)
 
 
+def altered_score(monkeypatch):
+    """The program's score of each chunk altered where the benchmark reads
+    it: every row's summed log-prob shifted by twice the ``score_err`` limit."""
+    from whisperx_tpu_torch.decode.engine import DecodeResult
+
+    shift = 2 * tiny.cell().config["check"]["limits"]["score_err"]
+    monkeypatch.setattr(DecodeResult, "sum_logprobs", property(lambda self: self.fetch()._stats[0] + shift))
+
+
 @pytest.mark.parametrize("fault,number", [
     (altered_token, "beam_deficit"),
     (half_batch_left_out, "files_failed"),
     (altered_word_time, "word_err"),
     (altered_emissions, "word_err"),
     (altered_chunk, "vad_chunks_off"),
+    (altered_score, "score_err"),
 ])
 def test_fault_comes_out_not_correct(monkeypatch, fault, number):
     fault(monkeypatch)
