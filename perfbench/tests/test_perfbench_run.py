@@ -37,7 +37,8 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
 @pytest.mark.parametrize("traced", [False, True])
 def test_tiny_cpu_run_line(traced):
     cell = tiny.cell()
-    line = runner.run(cell, 2**31 + 3, 3.0, traced, "cpu", log=lambda m: None)
+    logs = []
+    line = runner.run(cell, 2**31 + 3, 3.0, traced, "cpu", log=logs.append)
     json.dumps(line)
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics", "device"] and list(line)[-1] == "check"
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
@@ -53,6 +54,10 @@ def test_tiny_cpu_run_line(traced):
         assert set(line["metrics"]) == set(names) - {"peak_mem_gib"}  # device memory: on a card only
     for n in line["check"].values():
         assert n["value"] <= n["limit"]
+    # Each number compared, beside its limit: the configuration's limits, the last lines of standard error.
+    limits = cell.config["check"]["limits"]
+    assert list(line["check"]) == list(limits)
+    assert [m.split(":")[0] for m in logs[-len(limits):]] == [f"check {name}" for name in limits]
 
 
 def test_sparse_traffic_runs_on_the_cpu():

@@ -28,11 +28,14 @@ def test_the_request_mask_is_the_reference_mask(n_vocab):
 
 @pytest.mark.parametrize("compute_type", ["float16", "int8"])
 def test_score_err_reads_bf16_rounding_and_fp8_above_it(tmp_path, compute_type):
-    cell = tiny.cell(minutes=(1.0, 1.5))
+    # A window of exactly one 10-minute file (20 chunks), whatever the CPU's
+    # speed: a window of 0 s ends with its first file.
+    cell = tiny.cell(minutes=(10.0,))
     cell.config["compute_type"] = compute_type
     cell.config["check"]["control"]["whisper"] = "fp8"
     session = runner.Session(cell, 2**31 + 5, "cpu", str(tmp_path), lambda m: None)
-    record = session.window(2.0, False)
+    record = session.window(0.0, False)
+    assert len(record.files) == 1 and len(record.files[0].chunks) == 20
     out = check.readings(cell, 2**31 + 5, session.files, record.files, "cpu", ("exact", "control"))
     program, fp8 = out["exact"]["score_err"], out["control"]["score_err"]
     # bfloat16 rounding: under one unit in the 8th bit a served token.
