@@ -53,18 +53,19 @@ Phases:
      bursts → load_audio → SpeechBandVAD cut & merge → phase 4's large-v2
      model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
      .finish() with phase 5's wav2vec2 base and bench.py's transcript per
-     chunk; once with the JAX package's defaults (WHISPERX_CROSS_ATTN=xla),
-     once with WHISPERX_CROSS_ATTN=pallas and WHISPERX_ATTN=flash, and once
-     with the port's defaults (the cross-attention kernel, "xla" encoder
-     attention) and enable_fallback=True (sampled retry batches on the
-     device loop);
+     chunk; once with the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
+     WHISPERX_ATTN=xla), once with WHISPERX_CROSS_ATTN=pallas and
+     WHISPERX_ATTN=flash, and once with the port's defaults (the
+     cross-attention kernel and flash encoder attention) and
+     enable_fallback=True (sampled retry batches on the device loop);
   7. drive the command line as a user runs ``python -m whisperx_tpu_torch
      <wav> --diarize``: ``cli.cli`` in-process on checkpoints written from
      seeds in their published layouts (large-v2 HF directory with fp16
      safetensors, wav2vec2 base HF directory, WeSpeaker ResNet34 and
      pyannote PyanNet ``.bin`` files) and a 6-minute two-speaker WAV file:
      neural VAD, int8 beam-5 decode of 224 tokens (EOT banned) with the
-     port's defaults (the cross-attention kernel), alignment,
+     port's defaults (the cross-attention kernel, flash encoder attention
+     in both encoders), alignment,
      overlap-aware diarization, six output files; then ``python -m
      whisperx_tpu_torch --help``;
   8. drive the training step: ``train.make_train_step`` on Whisper large-v2
@@ -80,9 +81,9 @@ Phases:
      phase 6's tone bursts (8 chunks, one decode batch), beam 5, 112 tokens
      (EOT banned), then alignment of the chunks and of one 1 s batch (the
      int8 wav2vec2's projections through int8_matmul); arm (a) with the int8
-     KV cache and the JAX package's defaults (WHISPERX_CROSS_ATTN=xla), arm
-     (b) with the int4 KV cache, the cross-attention kernel (int8 cross K/V)
-     and flash attention;
+     KV cache and the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
+     WHISPERX_ATTN=xla), arm (b) with the int4 KV cache, the
+     cross-attention kernel (int8 cross K/V) and flash attention;
  10. (run after phase 9, on phase 7's files) drive parallel/ on the one card:
      (a) a world of one over NCCL in this process: ``load_model(...,
      compute_type="int8", mesh=make_mesh())`` transcribes phase 6's WAV,
@@ -92,8 +93,9 @@ Phases:
      (``--parallel-rank``): large-v2 int8 with 10 heads a rank and unfused
      QKV, the 8-chunk batch at beam 5 and 112 tokens (EOT banned) with every
      kernel, then ``shard_align_model`` alignment (6 heads a rank) in the
-     default and the flash arm; both ranks equal, the first step's log-probs
-     near the whole model's on this card; (c) 128-wide fp32 Whisper and
+     JAX package's default arm (WHISPERX_ATTN=xla) and the flash arm; both
+     ranks equal, the first step's log-probs near the whole model's on this
+     card; (c) 128-wide fp32 Whisper and
      wav2vec2 under that mesh equal to the CPU's single process.
 Phase 2 also holds int8_matmul at the int8 wav2vec2 base's shapes and at
 large-v2's tensor-parallel shard shapes, and cross-attention and flash at a
@@ -2506,10 +2508,11 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     at onset 0.5 / offset 0.363, batches of 8, int16 uploads, beam 5, 112
     tokens with EOT suppressed, int8 KV cache) → align_begin(...).finish()
     with each chunk's text replaced by bench.py's transcript (bench.py:180).
-    Three runs: the JAX package's defaults (WHISPERX_CROSS_ATTN=xla), the
-    kernel arm (WHISPERX_CROSS_ATTN=pallas, WHISPERX_ATTN=flash), each set
-    for the run only, and the port's defaults (on the card the
-    cross-attention kernel and the "xla" encoder attention) with
+    Three runs: the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
+    WHISPERX_ATTN=xla), the kernel arm (WHISPERX_CROSS_ATTN=pallas,
+    WHISPERX_ATTN=flash), each set for the run only, and the port's defaults
+    (on the card the cross-attention kernel, and the flash kernel in both
+    encoders, since "auto" takes it for bf16 heads of 64) with
     enable_fallback=True at temperatures (0.0,
     *SAMPLED_TEMPERATURES): on random weights every chunk fails the
     log-prob gate, so each temperature re-decodes BEST_OF sampled copies of
@@ -2563,7 +2566,7 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     t0 = time.perf_counter()
     ready = native.available()
     log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
-    arms = {"default": ({"WHISPERX_CROSS_ATTN": "xla"}, pipe),
+    arms = {"default": ({"WHISPERX_CROSS_ATTN": "xla", "WHISPERX_ATTN": "xla"}, pipe),
             "kernel": ({"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}, pipe), "fallback": ({}, fallback)}
     L, runs = cfg.n_text_layer, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2601,7 +2604,6 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 s["words"] and all("start" in w and "end" in w for w in s["words"]) for s in aligned["segments"]
             ):
                 raise AssertionError(f"pipeline {arm}: not every chunk aligned: {[len(s['words']) for s in aligned['segments']]}")
-            kernel = arm == "kernel"
             # Each retry batch holds BEST_OF copies of the failed chunks, padded to 8 rows.
             n_retry = len(SAMPLED_TEMPERATURES) * -(-len(chunks) * BEST_OF // batch) if arm == "fallback" else 0
             if len(retries) != n_retry:
@@ -2610,7 +2612,10 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 "int8_matmul": 6 * L * (1 + max_new) * (n_batches + n_retry),
                 # The port's default on the card is the kernel: only the JAX package's arm takes the einsum.
                 "cross_attention_decode": L * (1 + max_new) * (n_batches + n_retry) if arm != "default" else 0,
-                "flash_self_attention": (cfg.n_audio_layer + align_model.model.config.num_layers) * n_batches if kernel else 0,
+                # "auto" takes the flash kernel too: every encoder pass (a retry batch encodes
+                # its mel again) and every align batch launches it once a layer.
+                "flash_self_attention": (cfg.n_audio_layer * (n_batches + n_retry)
+                                         + align_model.model.config.num_layers * n_batches) if arm != "default" else 0,
                 "log_mel": 0,
             }
             if launches != want or loop_graphs != n_batches + n_retry or ctc_launches != n_batches:
@@ -2713,7 +2718,8 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     30 s chunks, every (window, class) pair embedded and clustered. int8,
     batch 8, beam 5, EOT banned (the 224-token default horizon), the port's
     defaults otherwise (no kernel env knob: on the card the cross-attention
-    kernel, the "xla" encoder attention). The files stay in
+    kernel, and the flash kernel in both encoders, which "auto" takes for
+    bf16 heads of 64). The files stay in
     ``tmp`` for phase 9. Returns the launches, the two HF directories, the
     int8 model's weight bytes and load_model's time."""
     from whisperx_tpu_torch import cli, native
@@ -2829,8 +2835,10 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     stages = seen["stages"]
 
     n_batches = -(-seen["chunks"] // batch)
+    # The default "auto" launches flash once an encoder layer: every decode batch and every align batch.
     want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": L * (1 + steps) * n_batches,
-            "flash_self_attention": 0, "log_mel": 0}
+            "flash_self_attention": cfg.n_audio_layer * n_batches + WAV2VEC2_BASE.num_layers * seen["align_batches"],
+            "log_mel": 0}
     if written != sorted(f"conversation.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")) or len(written_all) != 6:
         raise AssertionError(f"cli: wrote {written}, then {written_all}")
     if seen["generate"] != n_batches or n_batches < 2:
@@ -2912,9 +2920,9 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     (one 1 s alignment batch of 4 x 49 frames: every int8 projection of
     wav2vec2 base goes through int8_matmul). Two arms in turns: (a) int4
     weights with the default KV ("auto" → int8) and the JAX package's
-    defaults (WHISPERX_CROSS_ATTN=xla); (b) int4 weights, kv_cache_dtype="int4",
-    WHISPERX_CROSS_ATTN=pallas (int8 cross K/V for the kernel) and
-    WHISPERX_ATTN=flash. Then each arm's beam loop once more, stage by
+    defaults (WHISPERX_CROSS_ATTN=xla, WHISPERX_ATTN=xla); (b) int4
+    weights, kv_cache_dtype="int4", WHISPERX_CROSS_ATTN=pallas (int8 cross
+    K/V for the kernel) and WHISPERX_ATTN=flash. Then each arm's beam loop once more, stage by
     stage, on 8 x 30 s of noise. Returns arm (b)'s launches."""
     from whisperx_tpu_torch.align.alignment import align_begin, load_align_model
     from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
@@ -2986,7 +2994,8 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     short = [{"start": 25.0 * i + 1.0, "end": 25.0 * i + 1.9, "text": " the quick brown fox"} for i in range(4)]
     n_w2v, L = w2v.config.num_layers, cfg.n_text_layer
     w2v_int8 = 1 + 6 * n_w2v  # feat_projection + 6 projections a layer, in the 1 s batch only
-    arms = {"a": ("int8", {"WHISPERX_CROSS_ATTN": "xla"}), "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
+    arms = {"a": ("int8", {"WHISPERX_CROSS_ATTN": "xla", "WHISPERX_ATTN": "xla"}),
+            "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
     want = {
         "a": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
         "b": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new),
@@ -3289,7 +3298,8 @@ def parallel_rank(spec: dict) -> int:
     7's large-v2 directory>, compute_type="int8", mesh=) → the 8-chunk decode
     with every kernel (``captured_decode``); shard_align_model(<phase 7's
     wav2vec2 base>) alignment of bench.py's transcript over the 8 chunks in
-    the default and the flash arm; (c) ``small_fp32_run`` under the mesh.
+    the JAX package's default arm (WHISPERX_ATTN=xla) and the flash arm;
+    (c) ``small_fp32_run`` under the mesh.
     Prints one ``RANK_RESULT`` JSON line; the first step's log-probs go to
     ``<tmp>/rank<r>_logprobs.npy``."""
     import torch
@@ -3337,7 +3347,7 @@ def parallel_rank(spec: dict) -> int:
     audio = wavs.reshape(-1).astype(np.float32) / 32768.0
     meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
     aligned, align_ms, flash = {}, {}, {}
-    for arm, env in (("default", {}), ("flash", {"WHISPERX_ATTN": "flash"})):
+    for arm, env in (("default", {"WHISPERX_ATTN": "xla"}), ("flash", {"WHISPERX_ATTN": "flash"})):
         os.environ.update(env)
         try:
             flash_attn.launches = int8_mm.launches = 0

@@ -410,6 +410,82 @@ def test_default_options_take_the_cross_attention_kernel_in_the_device_loop(gen,
 
 
 @pytest.mark.cuda
+def test_default_options_take_the_flash_kernel_in_both_encoders(gen, monkeypatch):
+    """Built with the default "auto", a bf16 Whisper encoder and a bf16
+    wav2vec2 base (heads of 64) run their self-attention on the flash kernel:
+    one launch a layer, an output bit-equal to an explicit "flash", none
+    under "xla". Through the pipeline, each ``asr.prepare`` span counts the
+    Whisper encoder's launches and each ``align.emissions`` span wav2vec2
+    base's 12."""
+    import dataclasses
+
+    import numpy as np
+
+    from whisperx_tpu_torch.align import alignment
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_BASE
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.ops.attention import set_attn_impl
+    from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
+    from whisperx_tpu_torch.utils import telemetry
+    from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
+
+    monkeypatch.delenv("WHISPERX_ATTN", raising=False)
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
+    am = alignment.test_align_model("en", seed=0, config=WAV2VEC2_BASE, dtype=torch.bfloat16, device="cuda")
+    assert {m.attn_impl for net in (model, am.model) for m in net.modules() if hasattr(m, "attn_impl")} == {"auto"}
+
+    def launched(fn):
+        before = flash_attn.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, flash_attn.launches - before
+
+    mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
+    with torch.inference_mode():
+        got, n = launched(lambda: model.encode(mel))
+        assert n == cfg.n_audio_layer
+        set_attn_impl(model, "flash")
+        assert torch.equal(got, model.encode(mel))
+        set_attn_impl(model, "xla")
+        assert launched(lambda: model.encode(mel))[1] == 0
+    set_attn_impl(model, "auto")
+
+    # Tone bursts 4 s apart: one VAD chunk each at chunk_size=5.
+    rng, parts = np.random.default_rng(0), []
+    for i in range(5):
+        t = np.arange(int((1.5 + 0.3 * i) * 16_000)) / 16_000
+        x = 0.3 * np.sin(2 * np.pi * (180.0 + 40 * i) * t) * (1 + 0.5 * np.sin(2 * np.pi * 3.1 * t))
+        parts += [np.zeros(8_000), x + 0.05 * rng.standard_normal(len(t)), np.zeros(56_000)]
+    audio = np.concatenate(parts).astype(np.float32)
+    tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
+    pipe = WhisperPipeline(
+        engine=WhisperEngine(model, tok), vad=VadPipeline(EnergyVAD()),
+        vad_params={"vad_onset": 0.5, "vad_offset": 0.363}, options=TranscriptionOptions(beam_size=2, max_new_tokens=8),
+        tokenizer=tok, language="en", kv_cache_dtype="int8",
+    )
+    meta = {"language": "en", "dictionary": am.dictionary}
+    start = max((s.span_id for s in telemetry.spans()), default=0)
+    result, n_asr = launched(lambda: pipe.transcribe(audio, batch_size=2, chunk_size=5))
+    segs = [dict(s, text="the quick brown fox") for s in result["segments"]]
+    aligned, n_align = launched(lambda: alignment.align([dict(s) for s in segs], am, meta, audio, "cuda"))
+    spans = [s for s in telemetry.spans() if s.span_id > start]
+    prepare = [s.counts["flash_launches"] for s in spans if s.name == "asr.prepare"]
+    emissions = [s.counts["flash_launches"] for s in spans if s.name == "align.emissions"]
+    assert len(segs) == 5 and len(prepare) == 3 and len(emissions) == 1
+    assert prepare == [cfg.n_audio_layer] * 3 and sum(prepare) == n_asr
+    assert emissions == [WAV2VEC2_BASE.num_layers] == [12] and n_align == 12
+    set_attn_impl(am.model, "flash")
+    assert alignment.align([dict(s) for s in segs], am, meta, audio, "cuda") == aligned
+    set_attn_impl(am.model, "xla")
+    assert launched(lambda: alignment.align([dict(s) for s in segs], am, meta, audio, "cuda"))[1] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.2, 1.0])
 def test_sampled_device_loop_equals_host_loop(gen, monkeypatch, temperature):
     """A sampled decode (temperature > 0) runs on the device loop: its

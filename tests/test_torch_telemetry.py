@@ -254,6 +254,7 @@ def test_transcribe_writes_its_span_tree(pipeline_spans):
     for prep, loop in zip(prepare, loops):
         assert prep.end_ns == loop.start_ns and prep.device == loop.device == "cpu"
         assert prep.device_ms == prep.host_ms and loop.device_ms == loop.host_ms
+        assert prep.counts["flash_launches"] == 0  # the CPU runs no kernel
     assert sum(s.counts["steps"] for s in loops) == bodies and all(s.counts["steps"] >= 1 for s in loops)
     assert all(s.end_ns is not None for s in spans)
 
@@ -272,6 +273,6 @@ def test_align_writes_its_span_tree(pipeline_spans):
     assert names.count("align.aggregate") == 4  # each batch's paths, then the words and sentences
     assert sum(s.counts["rows_valid"] for s in emissions) == len(result["segments"])
     for e, c in zip(emissions, ctc):
-        assert e.end_ns == c.start_ns and dict(e.counts) == dict(c.counts)
+        assert e.end_ns == c.start_ns and dict(e.counts) == dict(c.counts, flash_launches=0)  # the CPU runs no kernel
         assert e.device_ms is not None and c.device_ms is not None
     assert len(aligned["segments"]) >= 1

@@ -43,6 +43,7 @@ from ..io.languages import LANGUAGES_WITHOUT_SPACES
 from ..io.types import AlignedTranscriptionResult, SingleAlignedSegment, SingleSegment
 from ..models.configs import WAV2VEC2_TEST
 from ..models.wav2vec2 import Wav2Vec2ForCTC
+from ..ops import flash_attn
 from ..ops.ctc import PathPoint, align_tokens_batch, ctc_align_batch_device, merge_repeats
 from ..parallel.mesh import axis_size, gather_rows, mesh_device, shard_batch
 from ..utils import interpolate_nans, telemetry
@@ -225,13 +226,16 @@ def _fused_align_fwd(model: Wav2Vec2ForCTC, wavs: torch.Tensor, tok_pack: torch.
     [success, t_len, 0]. ``tok_pack`` (B, N+2) = [tokens | sample_len |
     n_len]. Nothing is read back here. Two device spans time it,
     ``align.emissions`` and ``align.ctc`` (counts ``rows`` and
-    ``rows_valid``, the rows that hold a segment)."""
+    ``rows_valid``, the rows that hold a segment; ``align.emissions`` also
+    ``flash_launches``, the encoder's flash kernel launches)."""
     tokens = tok_pack[:, :-2]
     sample_lens = tok_pack[:, -2]
     n_len = tok_pack[:, -1]
     counts = {"rows": wavs.shape[0], "rows_valid": rows_valid}
+    flash0 = flash_attn.launches
     emissions = telemetry.begin("align.emissions", device=wavs.device, **counts)
     logp, t_len = _emissions(model, wavs, sample_lens)
+    emissions.counts["flash_launches"] = flash_attn.launches - flash0
     ctc = telemetry.begin("align.ctc", device=wavs.device, **counts)
     telemetry.end(emissions, at=ctc)
     tok_idx, probs, active, success, _ = ctc_align_batch_device(logp, tokens, t_len, n_len, blank=blank)

@@ -120,7 +120,8 @@ class W2VAttention(nn.Module):
         self.head_dim = d // config.num_heads
         self.num_heads = local_heads(d, config.num_heads, group)  # this rank's heads
         width = self.num_heads * self.head_dim
-        # ops/attention.py:fused_self_attention's impl ("auto" | "xla" | "flash").
+        # ops/attention.py:fused_self_attention's impl ("auto" | "xla" | "flash";
+        # "auto": the flash kernel for bf16 on the card, "xla" elsewhere).
         self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, device=device)
         self.q_proj = Dense(d, width, **kw)
@@ -178,7 +179,8 @@ class Wav2Vec2ForCTC(nn.Module):
     """Full CTC model: conv features → projection → transformer → vocab logits.
 
     ``attn_impl`` selects the encoder attention ("auto" | "xla" | "flash";
-    ``ops.attention.set_attn_impl`` changes it later). ``quantized``: int8
+    "auto" is the flash kernel on the card at bf16 with heads of 64, "xla"
+    elsewhere; ``ops.attention.set_attn_impl`` changes it later). ``quantized``: int8
     weight-only projections in the transformer and ``feat_projection``
     (the convolutions and the ``lm_head`` emissions projection stay fp).
     ``device=None`` means the card (the rank's device under a ``mesh``, whose

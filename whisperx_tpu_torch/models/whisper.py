@@ -30,7 +30,9 @@ Differences in mechanism, not in value:
   the einsum, which here would cast each layer's whole K and V to bf16 every
   step); the encoder's self-attention through
   ``ops/attention.py:fused_self_attention`` with the module's ``attn_impl``
-  ("flash" launches ``ops/flash_attn.py``'s kernel).
+  ("flash" launches ``ops/flash_attn.py``'s kernel, and so does the default
+  "auto" on the card for a bf16 model with heads of 64; the JAX package's
+  default is "xla", which here would write (B, H, T, T) fp32 logits).
 - int4 values (``Dense(quant_bits=4)`` kernels, the int4 KV cache and cross
   K/V) are stored packed two to a byte (:data:`PACKED_INT4`, see
   :func:`pack_int4`): torch has no int4 type. They are unpacked where the JAX
@@ -332,7 +334,8 @@ class MultiHeadAttention(nn.Module):
         self.width = self.n_head * self.head_dim
         self.dtype = dtype
         self.fused_qkv = fused_qkv
-        # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it.
+        # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it
+        # with the call's tensors ("auto": the flash kernel for bf16 on the card).
         self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
         if fused_qkv and self.width != d_model:
@@ -633,7 +636,8 @@ class Whisper(nn.Module):
     ``quant_bits``: 8 or 4, the quantized projections' width.
     ``fused_qkv``: one (D, 3D) projection for every self-attention block;
     pair with :func:`fuse_qkv_params`. ``attn_impl``: the encoder's
-    self-attention path ("auto" | "xla" | "flash"; ``ops.attention.
+    self-attention path ("auto" | "xla" | "flash"; "auto" is the flash
+    kernel on the card at bf16, "xla" elsewhere; ``ops.attention.
     set_attn_impl`` changes it later). ``device=None`` means the card (the
     rank's device under a ``mesh``). ``mesh``: a ``parallel.make_mesh``
     mesh whose "model" axis the module splits over (module docstring);

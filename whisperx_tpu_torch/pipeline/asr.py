@@ -43,6 +43,7 @@ from ..decode.search import SearchOptions
 from ..decode.tokenizer import WhisperTokenizer
 from ..device import DeviceLike, resolve_device
 from ..io.types import SingleSegment, TranscriptionResult
+from ..ops import flash_attn
 from ..parallel.mesh import axis_index, axis_size, mesh_device, shard_batch
 from ..utils import telemetry
 from ..utils.telemetry import PipelineTelemetry
@@ -250,7 +251,8 @@ class WhisperPipeline:
         ``audio_s``): under it the stages ``vad`` and ``asr_decode``, and in
         ``asr_decode`` one ``asr.batch`` per decode batch (counts ``rows``,
         ``rows_valid``) holding ``asr.prepare`` (device: upload, log-mel,
-        encoder, cross K/V and prompt, up to the loop's launch),
+        encoder, cross K/V and prompt, up to the loop's launch; counts
+        ``flash_launches``, the encoder's flash kernel launches),
         ``decode.loop``, ``asr.fetch`` (the host's wait for the batch's
         result) and ``asr.detokenize``."""
         with telemetry.span("transcribe", root=True) as root:
@@ -325,6 +327,7 @@ class WhisperPipeline:
             for wavs, n_valid in self._wave_batches(audio_dev, vad_segments, batch_size):
                 batch = telemetry.begin("asr.batch", rows=batch_size, rows_valid=n_valid)
                 with telemetry.within(batch):
+                    flash0 = flash_attn.launches
                     prepare = telemetry.begin("asr.prepare", device=self.device)
                     # A sampled first pass draws as the JAX package's PRNGKey(0) does
                     # (whisperx_tpu/decode/search.py:greedy_decode): the same seed
@@ -337,6 +340,7 @@ class WhisperPipeline:
                         sync=False,
                     ))
                     telemetry.end(prepare, at=result.loop_span)  # where the loop begins
+                    prepare.counts["flash_launches"] = flash_attn.launches - flash0
                 if in_flight is not None:
                     consume(*in_flight)
                     done += in_flight[1]
