@@ -19,9 +19,10 @@ Phases:
      beside its dependency bound;
   3. on small models, check that the card gives the CPU's results: decode
      tokens (kernels against plain versions) and fp32 alignment segments,
-     words and timestamps; then the flash route's bf16 emissions against the
-     card's plain route; then the production pipeline (VAD → transcribe →
-     align on a 128-wide Whisper and wav2vec2, fp32): identical segments,
+     words and timestamps; then bf16 alignment emissions (the flash route)
+     against the card's fp32 model's (the plain route); then the production
+     pipeline (VAD → transcribe → align on a 128-wide Whisper and wav2vec2,
+     fp32): identical segments,
      tokens, words and timestamps; then diarization at published widths on
      a few windows (seeded ResNet34 + PyanNet, overlap-aware, and the
      weight-free default): identical turns and labels; then ``cli.cli``
@@ -32,31 +33,27 @@ Phases:
   4. drive the decode path: Whisper large-v2 with random weights from a seed,
      int8 weights, fused QKV, int8 KV cache; batch 8 of 30 s int16 audio →
      log-mel → beam-5 decode of 112 tokens with EOT banned (bench.py's
-     flagship), in two arms: the JAX package's defaults (plain log-mel,
-     "xla" encoder attention, einsum cross attention) and the kernel arm
-     (log-mel kernel, flash encoder attention, cross-attention kernel). The
-     loop runs on the card (one WHILE-graph launch a batch, ops/graph_loop.py);
-     each arm also runs the host loop on the same inputs (tokens, sum
-     log-probs and lengths equal), and the kernel arm's generate(sync=False)
-     returns before the loop ends, with no read of the card between the
-     launch and the fetch; then a sampled arm on the same model (greedy,
-     batch 8 x 1, 112 tokens, temperatures 0.2 and 1.0, the kernel arm's
-     routes): one kept sampling loop on the card for both temperatures,
+     flagship) on the log-mel kernel and the port's routes (flash encoder
+     attention, cross-attention kernel). The loop runs on the card (one
+     WHILE-graph launch a batch, ops/graph_loop.py); the host loop runs on
+     the same inputs (tokens, sum log-probs and lengths equal), and
+     generate(sync=False) returns before the loop ends, with no read of the
+     card between the launch and the fetch; then a sampled arm on the same
+     model (greedy, batch 8 x 1, 112 tokens, temperatures 0.2 and 1.0):
+     one kept sampling loop on the card for both temperatures,
      the device loop equal to the host loop, distinct candidates for the
      copies of one chunk, generate(sync=False) returning at launch;
   5. drive the alignment path: wav2vec2 base (published widths, random
      weights from seed 0, bf16) aligning bench.py's fixed transcript to 8 x
-     30 s of int16 audio through align_begin(...).finish(), with the "xla"
-     and the flash encoder attention; one launch of the CTC kernel a batch;
+     30 s of int16 audio through align_begin(...).finish() (flash encoder
+     attention); one launch of the CTC kernel a batch;
   6. drive the production pipeline through the user entry points (bench.py's
      BENCH_PIPELINE configuration): a 6-minute WAV file of bench.py's tone
      bursts → load_audio → SpeechBandVAD cut & merge → phase 4's large-v2
      model, beam 5, 112 tokens (EOT suppressed), batch 8 → align_begin(...)
      .finish() with phase 5's wav2vec2 base and bench.py's transcript per
-     chunk; once with the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
-     WHISPERX_ATTN=xla), once with WHISPERX_CROSS_ATTN=pallas and
-     WHISPERX_ATTN=flash, and once with the port's defaults (the
-     cross-attention kernel and flash encoder attention) and
+     chunk, on the port's routes (the cross-attention kernel and flash
+     encoder attention); once with the default options and once with
      enable_fallback=True (sampled retry batches on the device loop);
   7. drive the command line as a user runs ``python -m whisperx_tpu_torch
      <wav> --diarize``: ``cli.cli`` in-process on checkpoints written from
@@ -70,9 +67,10 @@ Phases:
      whisperx_tpu_torch --help``;
   8. drive the training step: ``train.make_train_step`` on Whisper large-v2
      (published widths and depth, fp32 masters from seed 0, bf16 compute),
-     five AdamW steps on 2 x 30 s of random mel and 129 random tokens, with
-     the "xla" and then the flash encoder attention (the forward with lse
-     and both backward kernels: 32 launches of each a step);
+     five AdamW steps on 2 x 30 s of random mel and 129 random tokens, at
+     bf16 compute (flash encoder attention: the forward with lse and both
+     backward kernels, 32 launches of each a step) against fp32 compute
+     (the plain "xla" attention);
   9. (run after phase 7, whose files it reads) drive the int4 path through
      the entry points: ``load_model(...,
      compute_type="int4")`` on phase 7's large-v2 directory (every Dense
@@ -81,9 +79,8 @@ Phases:
      phase 6's tone bursts (8 chunks, one decode batch), beam 5, 112 tokens
      (EOT banned), then alignment of the chunks and of one 1 s batch (the
      int8 wav2vec2's projections through int8_matmul); arm (a) with the int8
-     KV cache and the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
-     WHISPERX_ATTN=xla), arm (b) with the int4 KV cache, the
-     cross-attention kernel (int8 cross K/V) and flash attention;
+     KV cache (the cross-attention kernel), arm (b) with the int4 KV cache
+     (the einsum), both with flash attention;
  10. (run after phase 9, on phase 7's files) drive parallel/ on the one card:
      (a) a world of one over NCCL in this process: ``load_model(...,
      compute_type="int8", mesh=make_mesh())`` transcribes phase 6's WAV,
@@ -92,11 +89,10 @@ Phases:
      sharing the card over gloo, mesh (1, 2), each a process of this script
      (``--parallel-rank``): large-v2 int8 with 10 heads a rank and unfused
      QKV, the 8-chunk batch at beam 5 and 112 tokens (EOT banned) with every
-     kernel, then ``shard_align_model`` alignment (6 heads a rank) in the
-     JAX package's default arm (WHISPERX_ATTN=xla) and the flash arm; both
-     ranks equal, the first step's log-probs near the whole model's on this
-     card; (c) 128-wide fp32 Whisper and
-     wav2vec2 under that mesh equal to the CPU's single process.
+     kernel, then ``shard_align_model`` alignment (6 heads a rank, flash
+     attention); both ranks equal, the first step's log-probs near the whole
+     model's on this card; (c) 128-wide fp32 Whisper and wav2vec2 under that
+     mesh equal to the CPU's single process.
 Phase 2 also holds int8_matmul at the int8 wav2vec2 base's shapes and at
 large-v2's tensor-parallel shard shapes, and cross-attention and flash at a
 rank's heads (10 and 6); phase 3 also checks int4-weight and int4-KV decode
@@ -1354,30 +1350,27 @@ def small_reference_phase(torch) -> None:
     engines = {dev: WhisperEngine(whisper_from_jax(params, cfg, device=dev), tok) for dev in ("cuda", "cpu")}
     mel = (rng.standard_normal((2, cfg.n_mels, 3000))).astype(np.float32)
     for beam in (1, 2):
-        for cross in ("xla", "pallas"):
-            opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype="int8")
-            opts = dataclasses.replace(opts, cross_attn=cross)
-            got = engines["cuda"].generate(mel, options=opts)
-            want = engines["cpu"].generate(mel, options=opts)
-            if not np.array_equal(got.tokens, want.tokens):
-                raise AssertionError(f"small model beam={beam} cross={cross}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
-            lp_err = float(np.abs(got.sum_logprobs - want.sum_logprobs).max())
-            if lp_err > 2e-2:
-                raise AssertionError(f"small model beam={beam} cross={cross}: sum_logprobs differ by {lp_err}")
-            log(f"small model (128 wide, int8) beam={beam} cross={cross}: card tokens == cpu tokens, sum_logprobs within {lp_err:.2g}: ok")
+        opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype="int8")
+        got = engines["cuda"].generate(mel, options=opts)
+        want = engines["cpu"].generate(mel, options=opts)
+        if not np.array_equal(got.tokens, want.tokens):
+            raise AssertionError(f"small model beam={beam}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
+        lp_err = float(np.abs(got.sum_logprobs - want.sum_logprobs).max())
+        if lp_err > 2e-2:
+            raise AssertionError(f"small model beam={beam}: sum_logprobs differ by {lp_err}")
+        log(f"small model (128 wide, int8, fp32 compute) beam={beam}: card tokens == cpu tokens, sum_logprobs within {lp_err:.2g}: ok")
 
 
 def small_int4_phase(torch) -> None:
     """int4 weights and the int4 KV cache on a 128-wide fp32 Whisper: the
-    card's decode tokens equal the CPU's, at beam 1 and 2, under both cross
-    routes (the "pallas" route launches cross_attention_decode on int8
-    cross K/V for an int4 request; int4 projections never take int8_matmul)."""
+    card's decode tokens equal the CPU's, at beam 1 and 2 (fp32 compute
+    keeps the einsum cross attention; int4 projections never take
+    int8_matmul)."""
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import TEST_CONFIG
     from whisperx_tpu_torch.models.convert import whisper_from_jax
-    from whisperx_tpu_torch.ops import cross_attn, int8_mm
 
     p = torch.arange(256, dtype=torch.int32).to(torch.uint8)
     if not torch.equal(tw.unpack_int4(p.cuda()).cpu(), tw.unpack_int4(p)):
@@ -1390,35 +1383,33 @@ def small_int4_phase(torch) -> None:
     for what, tree, bits, kv in (("int4 weights", q4, 4, "int8"), ("int4 kv", fp, None, "int4"), ("int4 weights + kv", q4, 4, "int4")):
         engines = {dev: WhisperEngine(whisper_from_jax(tree, cfg, quant_bits=bits, device=dev), tok) for dev in ("cuda", "cpu")}
         for beam in (1, 2):
-            for cross in ("xla", "pallas"):
-                opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype=kv)
-                opts = dataclasses.replace(opts, cross_attn=cross)
-                zero_launches()
-                got = engines["cuda"].generate(mel, options=opts)
-                launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
-                want = engines["cpu"].generate(mel, options=opts)
-                if not np.array_equal(got.tokens, want.tokens):
-                    raise AssertionError(f"small {what} beam={beam} cross={cross}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
-                lp_err = float(np.abs(got.sum_logprobs - want.sum_logprobs).max())
-                if lp_err > 2e-2:
-                    raise AssertionError(f"small {what} beam={beam} cross={cross}: sum_logprobs differ by {lp_err}")
-                if launched[0] != 0 or (launched[1] > 0) != (cross == "pallas"):
-                    raise AssertionError(f"small {what} beam={beam} cross={cross}: int8_mm, cross_attn launches {launched}")
-                log(f"small model (128 wide, {what}, kv {kv}) beam={beam} cross={cross}: card tokens == cpu tokens, "
-                    f"sum_logprobs within {lp_err:.2g}, launches int8_mm/cross_attn {launched}: ok")
+            opts = engines["cpu"].build_options(beam_size=beam, max_new_tokens=6, kv_cache_dtype=kv)
+            zero_launches()
+            got = engines["cuda"].generate(mel, options=opts)
+            launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
+            want = engines["cpu"].generate(mel, options=opts)
+            if not np.array_equal(got.tokens, want.tokens):
+                raise AssertionError(f"small {what} beam={beam}: card tokens {got.tokens.tolist()} != cpu {want.tokens.tolist()}")
+            lp_err = float(np.abs(got.sum_logprobs - want.sum_logprobs).max())
+            if lp_err > 2e-2:
+                raise AssertionError(f"small {what} beam={beam}: sum_logprobs differ by {lp_err}")
+            if launched != (0, 0):
+                raise AssertionError(f"small {what} beam={beam}: int8_mm, cross_attn launches {launched}")
+            log(f"small model (128 wide, {what}, kv {kv}) beam={beam}: card tokens == cpu tokens, "
+                f"sum_logprobs within {lp_err:.2g}, launches int8_mm/cross_attn {launched}: ok")
 
 
 def small_align_phase(torch, card: str) -> None:
     """Alignment on a 128-wide wav2vec2 (WAV2VEC2_TEST widened to the flash
-    kernel's head dim 64): fp32 "xla" on the card against the CPU, the same
-    for its int8 model, then the flash route at bf16 against the card's
-    plain route."""
+    kernel's head dim 64): fp32 (the "xla" attention) on the card against
+    the CPU, the same for its int8 model, then bf16 (the flash route)
+    against the card's fp32 model, whose attention takes the plain route."""
     from whisperx_tpu_torch.align.alignment import AlignModel, _emissions, align
     from whisperx_tpu_torch.audio import N_SAMPLES
     from whisperx_tpu_torch.models import wav2vec2 as tw2
     from whisperx_tpu_torch.models.configs import WAV2VEC2_TEST
     from whisperx_tpu_torch.models.convert import wav2vec2_from_jax
-    from whisperx_tpu_torch.ops import attention, flash_attn, int8_mm
+    from whisperx_tpu_torch.ops import flash_attn, int8_mm
 
     cfg = dataclasses.replace(WAV2VEC2_TEST, hidden_size=128, intermediate_size=256)
     params = tw2.random_params(cfg, seed=0)
@@ -1428,8 +1419,8 @@ def small_align_phase(torch, card: str) -> None:
     audio = (np.random.default_rng(4).standard_normal(n_seg * N_SAMPLES) * 0.1).astype(np.float32)
     transcript = align_transcript(n_seg)
 
-    def model_on(dev, dtype, impl):
-        return AlignModel(wav2vec2_from_jax(params, cfg, dtype=dtype, attn_impl=impl, device=dev), dictionary, "en")
+    def model_on(dev, dtype):
+        return AlignModel(wav2vec2_from_jax(params, cfg, dtype=dtype, device=dev), dictionary, "en")
 
     def timestamps(res):
         segs = [(s["text"], s["start"], s["end"]) for s in res["segments"]]
@@ -1437,7 +1428,7 @@ def small_align_phase(torch, card: str) -> None:
 
     results = {}
     for dev in ("cuda", "cpu"):
-        results[dev] = align([dict(s) for s in transcript], model_on(dev, torch.float32, "xla"), meta, audio, dev)
+        results[dev] = align([dict(s) for s in transcript], model_on(dev, torch.float32), meta, audio, dev)
     if timestamps(results["cuda"]) != timestamps(results["cpu"]):
         raise AssertionError("small align fp32: the card's segments, words or timestamps differ from the CPU's")
     # Scores are means of exp(log-probs) rounded to 3 decimals: fp32 sums in
@@ -1461,7 +1452,7 @@ def small_align_phase(torch, card: str) -> None:
     short.append({"start": 10.0, "end": 10.9, "text": " over the dog"})
     results = {}
     for dev in ("cuda", "cpu"):
-        qm = AlignModel(tw2.quantize_wav2vec2(model_on(dev, torch.float32, "xla").model), dictionary, "en")
+        qm = AlignModel(tw2.quantize_wav2vec2(model_on(dev, torch.float32).model), dictionary, "en")
         int8_mm.launches = 0
         long_res = align([dict(s) for s in transcript], qm, meta, audio, dev)
         long_launched = int8_mm.launches
@@ -1478,30 +1469,29 @@ def small_align_phase(torch, card: str) -> None:
         f"3 x 30 s ({n_words[0]} words) and 4 x 0.9 s ({n_words[1]} words, int8_matmul launched {want_launches} times): ok"
     )
 
-    # bf16: the flash route's emissions against the card's plain ("xla") route.
-    am = model_on("cuda", torch.bfloat16, "flash")
+    # bf16 (the flash route) against fp32 on the card (the plain route).
+    models = {"flash": model_on("cuda", torch.bfloat16), "xla": model_on("cuda", torch.float32)}
     wavs = torch.from_numpy(audio.reshape(n_seg, N_SAMPLES)).cuda()
     lens = torch.full((n_seg,), N_SAMPLES, device="cuda")
     lens[1] = N_SAMPLES - 16_000 * 7  # one padded row
     with torch.inference_mode():
         flash_attn.launches = 0
-        em_flash, t_len = _emissions(am.model, wavs, lens)
+        em_flash, t_len = _emissions(models["flash"].model, wavs, lens)
         launched = flash_attn.launches
-        attention.set_attn_impl(am.model, "xla")
-        em_xla, _ = _emissions(am.model, wavs, lens)
+        em_xla, _ = _emissions(models["xla"].model, wavs, lens)
+        if flash_attn.launches != launched:
+            raise AssertionError("small align fp32: the flash kernel launched for an fp32 model")
     valid = torch.arange(em_flash.shape[1], device="cuda")[None, :] < t_len[:, None]
-    # bf16 activations rounded at other places through two layers.
-    err = max_err_within(torch, "small align bf16 emissions flash vs xla", em_flash[valid], em_xla[valid], 0.15, 0.05)
+    # bf16 activations rounded through two layers (0.058 at most on the CPU).
+    err = max_err_within(torch, "small align bf16 flash vs fp32 xla emissions", em_flash[valid], em_xla[valid], 0.15, 0.05)
     if launched != cfg.num_layers:
         raise AssertionError(f"small align bf16: flash launched {launched} times, expected {cfg.num_layers}")
-    words = {}
-    for impl in ("xla", "flash"):
-        attention.set_attn_impl(am.model, impl)
-        words[impl] = align([dict(s) for s in transcript], am, meta, audio)["word_segments"]
+    words = {impl: align([dict(s) for s in transcript], am, meta, audio)["word_segments"] for impl, am in models.items()}
     same = float(np.mean([a == b for a, b in zip(words["xla"], words["flash"])])) if words["xla"] else 0.0
     log(
-        f"small align bf16 [{card}]: emissions flash vs xla max abs err {err:.3g} (atol 0.15, rtol 0.05): ok; "
-        f"word timestamps identical between the routes: {same:.3f} of {len(words['xla'])} words (random weights)"
+        f"small align bf16 [{card}]: emissions flash vs fp32 xla max abs err {err:.3g} (atol 0.15, rtol 0.05): ok; "
+        f"word timestamps identical between bf16 flash and fp32 xla: {same:.3f} of {len(words['xla'])} words "
+        f"(random weights)"
     )
 
 
@@ -1542,16 +1532,16 @@ def ids_tokenizer(n_vocab: int, language: str = "en"):
 def small_pipeline_phase(torch) -> None:
     """The production pipeline on small models, card against CPU: a
     128-wide Whisper (int8 weights, fused QKV, int8 KV cache, fp32 compute;
-    the int8 and cross-attention kernels on the card, their plain versions on
-    the CPU) transcribes three tone bursts, then a 128-wide wav2vec2 (fp32,
-    "xla") aligns bench.py's transcript in each VAD chunk. The text backend
-    renders every token id, so equal text is equal tokens."""
+    the int8 kernel on the card, its plain version on the CPU; fp32 keeps
+    the einsum cross attention) transcribes three tone bursts, then a
+    128-wide wav2vec2 (fp32, "xla") aligns bench.py's transcript in each VAD
+    chunk. The text backend renders every token id, so equal text is equal
+    tokens."""
     from whisperx_tpu_torch.align.alignment import AlignModel, align
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.models import wav2vec2 as tw2
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.convert import wav2vec2_from_jax, whisper_from_jax
-    from whisperx_tpu_torch.ops import cross_attn, int8_mm
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
 
@@ -1574,30 +1564,26 @@ def small_pipeline_phase(torch) -> None:
         )
 
     results, detected = {}, {}
-    os.environ["WHISPERX_CROSS_ATTN"] = "pallas"
-    try:
-        for dev in ("cuda", "cpu"):
-            pipe = pipeline(dev)
-            zero_launches()
-            res = pipe.transcribe(audio, batch_size=2, chunk_size=5)
-            launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
-            am = AlignModel(wav2vec2_from_jax(w2v_params, w2v_cfg, device=dev), dictionary, "en")
-            aligned = align([dict(s, text=" the quick brown fox jumps") for s in res["segments"]], am, meta, audio, dev)
-            results[dev] = (res, aligned, launched)
-            # Multilingual mode: language detection on the first 30 s, then
-            # the tokenizer is dropped for the next file.
-            multi = pipeline(dev, language=None)
-            detected[dev] = (multi.transcribe(audio, batch_size=2, chunk_size=5), multi.tokenizer)
-        # The temperature fallback's sampled retries, on the card only (the
-        # samples are the card's own): every chunk fails the logprob gate once.
-        pipe = pipeline("cuda")
-        pipe.options = dataclasses.replace(
-            pipe.options, enable_fallback=True, best_of=2, temperatures=(0.0, 0.5), log_prob_threshold=0.0,
-            compression_ratio_threshold=None, no_speech_threshold=None,
-        )
-        fallback = pipe.transcribe(audio, batch_size=2, chunk_size=5)
-    finally:
-        os.environ.pop("WHISPERX_CROSS_ATTN", None)
+    for dev in ("cuda", "cpu"):
+        pipe = pipeline(dev)
+        zero_launches()
+        res = pipe.transcribe(audio, batch_size=2, chunk_size=5)
+        launched = tuple(read_launches()[k] for k in ("int8_matmul", "cross_attention_decode"))
+        am = AlignModel(wav2vec2_from_jax(w2v_params, w2v_cfg, device=dev), dictionary, "en")
+        aligned = align([dict(s, text=" the quick brown fox jumps") for s in res["segments"]], am, meta, audio, dev)
+        results[dev] = (res, aligned, launched)
+        # Multilingual mode: language detection on the first 30 s, then
+        # the tokenizer is dropped for the next file.
+        multi = pipeline(dev, language=None)
+        detected[dev] = (multi.transcribe(audio, batch_size=2, chunk_size=5), multi.tokenizer)
+    # The temperature fallback's sampled retries, on the card only (the
+    # samples are the card's own): every chunk fails the logprob gate once.
+    pipe = pipeline("cuda")
+    pipe.options = dataclasses.replace(
+        pipe.options, enable_fallback=True, best_of=2, temperatures=(0.0, 0.5), log_prob_threshold=0.0,
+        compression_ratio_threshold=None, no_speech_threshold=None,
+    )
+    fallback = pipe.transcribe(audio, batch_size=2, chunk_size=5)
     (got, got_al, launched), (want, want_al, cpu_launched) = results["cuda"], results["cpu"]
     if detected["cuda"] != detected["cpu"] or detected["cuda"][1] is not None:
         raise AssertionError(f"small pipeline, language detection: card {detected['cuda']} != cpu {detected['cpu']}")
@@ -1608,9 +1594,9 @@ def small_pipeline_phase(torch) -> None:
     n = len(got["segments"])
     if n != 3 or not all(s["text"] for s in got["segments"]):
         raise AssertionError(f"small pipeline: expected 3 transcribed chunks, got {got['segments']}")
-    # The beam loop may end early on EOT, so the card's counts are only known
-    # to be positive: 6 projections and 1 cross attention a layer and step.
-    if not (launched[0] > 0 and launched[0] == 6 * launched[1]) or cpu_launched != (0, 0):
+    # The beam loop may end early on EOT, so the card's int8_matmul count is
+    # only known to be positive; fp32 compute launches no cross attention.
+    if not (launched[0] > 0 and launched[1] == 0) or cpu_launched != (0, 0):
         raise AssertionError(f"small pipeline: launches card {launched}, cpu {cpu_launched}")
 
     def timestamps(res):
@@ -1627,7 +1613,7 @@ def small_pipeline_phase(torch) -> None:
         f"small pipeline (128-wide Whisper int8 + 128-wide wav2vec2, fp32): VAD -> transcribe -> align, card == cpu: "
         f"{n} chunks, tokens and VAD times identical, {len(timestamps(got_al))} words and timestamps identical, "
         f"detected language {detected['cuda'][0]['language']!r} on both; card launches int8_matmul {launched[0]}, "
-        f"cross_attention_decode {launched[1]}; the fallback's sampled retries ran on the card: ok"
+        f"cross_attention_decode {launched[1]} (fp32: the einsum); the fallback's sampled retries ran on the card: ok"
     )
 
 
@@ -1781,11 +1767,11 @@ def large_v2(torch):
 
 
 def main_path_phase(torch, card: str, model) -> dict:
-    from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
+    from whisperx_tpu_torch.audio import N_SAMPLES, pcm16
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.search import beam_decode
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, graph_loop, mel
+    from whisperx_tpu_torch.ops import graph_loop, mel
 
     cfg = model.config
     batch, beam, max_new = 8, 5, 112
@@ -1793,49 +1779,37 @@ def main_path_phase(torch, card: str, model) -> dict:
     opts = engine.build_options(beam_size=beam, max_new_tokens=max_new, kv_cache_dtype="int8")
     # Ban EOT (bench.py:75-82): every segment pays the full 112-token horizon.
     opts = dataclasses.replace(opts, banned_tokens=opts.banned_tokens + (opts.eot,))
+    cross = engine._cross_impl(opts)
+    if cross != "pallas":
+        raise AssertionError(f"main path: the cross-attention route is {cross!r}, not the kernel")
     rng = np.random.default_rng(0)
     audio = pcm16((rng.standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32))
 
-    # The two arms: the JAX package's defaults, and every kernel of the path.
-    # Both front ends divide the int16 upload by 32768 on the card.
-    arms = {
-        "reference": dict(cross="xla", attn="xla", mel=log_mel_spectrogram),
-        "kernel": dict(cross="pallas", attn="flash", mel=mel.log_mel_kernel),
-    }
+    # The log-mel kernel divides the int16 upload by 32768 on the card.
+    def mel_of(x):
+        return mel.log_mel_kernel(x, n_mels=cfg.n_mels).to(torch.bfloat16)
 
-    def use(arm):
-        a = arms[arm]
-        attention.set_attn_impl(model, a["attn"])
-        return dataclasses.replace(opts, cross_attn=a["cross"]), lambda x: a["mel"](x, n_mels=cfg.n_mels).to(torch.bfloat16)
-
-    # One-time CUDA and cuBLAS set-up, and each arm's device loop captured
-    # (a graph per shape key), outside the counted runs.
-    for arm in arms:
-        o, mel_of = use(arm)
-        engine.generate(mel_of(audio), options=o)
-        if not engine.uses_device_loop(o):
-            raise AssertionError(f"main path {arm}: the device loop is not chosen for {o}")
-        loop, _, graph = model.decode_loops[("beam", batch, len(engine.build_prompt(1)[0]), o, o.cross_attn)]
-        log(
-            f"device loop {arm} arm [{card}]: captured in {graph.capture_ms:.1f} ms (warm-up step + capture), WHILE "
-            f"graph built and instantiated in {graph.instantiate_ms:.1f} ms; captured step's pool "
-            f"{graph.pool_bytes / 2**20:.1f} MiB, static state {state_bytes(loop) / 2**20:.1f} MiB; launches in one "
-            f"step {graph.body_launches}"
-        )
+    # One-time CUDA and cuBLAS set-up, and the device loop captured, outside
+    # the counted runs.
+    engine.generate(mel_of(audio), options=opts)
+    if not engine.uses_device_loop(opts):
+        raise AssertionError(f"main path: the device loop is not chosen for {opts}")
+    loop, _, graph = model.decode_loops[("beam", batch, len(engine.build_prompt(1)[0]), opts, cross)]
+    log(
+        f"device loop [{card}]: captured in {graph.capture_ms:.1f} ms (warm-up step + capture), WHILE "
+        f"graph built and instantiated in {graph.instantiate_ms:.1f} ms; captured step's pool "
+        f"{graph.pool_bytes / 2**20:.1f} MiB, static state {state_bytes(loop) / 2**20:.1f} MiB; launches in one "
+        f"step {graph.body_launches}"
+    )
 
     L = cfg.n_text_layer
     want = {
-        "reference": {"int8_matmul": 6 * L * (1 + max_new), "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
-        "kernel": {
-            "int8_matmul": 6 * L * (1 + max_new),  # 6 projections per layer, prompt + every step
-            "cross_attention_decode": L * (1 + max_new),
-            "flash_self_attention": cfg.n_audio_layer,  # one per encoder layer
-            "log_mel": 1,  # one call for the batch
-        },
+        "int8_matmul": 6 * L * (1 + max_new),  # 6 projections per layer, prompt + every step
+        "cross_attention_decode": L * (1 + max_new),
+        "flash_self_attention": cfg.n_audio_layer,  # one per encoder layer
+        "log_mel": 1,  # one call for the batch
     }
-    runs = {}
-    for arm in ("reference", "kernel", "kernel", "reference"):  # in turns: two runs each
-        o, mel_of = use(arm)
+    for run in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -1843,31 +1817,30 @@ def main_path_phase(torch, card: str, model) -> dict:
         mel_b = mel_of(audio)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = engine.generate(mel_b, options=o)  # returns host arrays: synchronized
+        res = engine.generate(mel_b, options=opts)  # returns host arrays: synchronized
         t2 = time.perf_counter()
         launches = read_launches()
         if res.tokens.shape != (batch, max_new) or not np.isfinite(res.sum_logprobs).all():
-            raise AssertionError(f"main path {arm}: tokens {res.tokens.shape}, sum_logprobs {res.sum_logprobs}")
+            raise AssertionError(f"main path: tokens {res.tokens.shape}, sum_logprobs {res.sum_logprobs}")
         if not (res.lengths == max_new + 1).all() or (res.tokens == opts.eot).any():
-            raise AssertionError(f"main path {arm}: EOT is banned, yet lengths are {res.lengths}")
-        if launches != want[arm] or graph_loop.launches != 1:
-            raise AssertionError(f"main path {arm}: launches {launches}, {graph_loop.launches} loop graphs; expected {want[arm]}, 1")
+            raise AssertionError(f"main path: EOT is banned, yet lengths are {res.lengths}")
+        if launches != want or graph_loop.launches != 1:
+            raise AssertionError(f"main path: launches {launches}, {graph_loop.launches} loop graphs; expected {want}, 1")
         mel_ms, gen_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         rate = batch * 30.0 / (t2 - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        runs[arm] = {"tokens": res.tokens, "launches": {**launches, "decode_while_loop": graph_loop.launches}}
         log(
-            f"main path {arm} arm [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms (one WHILE-graph launch), "
+            f"main path run {run} [{card}]: mel {mel_ms:.1f} ms, generate {gen_ms:.1f} ms (one WHILE-graph launch), "
             f"{rate:.2f} audio-s/s, peak {peak:.1f} GiB, launches {launches}: ok"
         )
+    launches = {**launches, "decode_while_loop": graph_loop.launches}
 
     # generate(sync=False) returns once the loop is enqueued: its return time
     # next to the wait at the first read, and no read of the card in between.
-    o, mel_of = use("kernel")
     mel_b = mel_of(audio)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pending = engine.generate(mel_b, options=o, sync=False)
+    pending = engine.generate(mel_b, options=opts, sync=False)
     t1 = time.perf_counter()
     done = torch.cuda.Event()
     done.record()
@@ -1876,11 +1849,11 @@ def main_path_phase(torch, card: str, model) -> dict:
     t2 = time.perf_counter()
     if not busy_at_return:
         raise AssertionError("generate(sync=False): the card had finished the loop when the call returned")
-    reads = reads_between_launch_and_fetch(torch, engine, mel_b, o)
+    reads = reads_between_launch_and_fetch(torch, engine, mel_b, opts)
     if reads["local_scalar_dense"] or reads["syncs"]:
         raise AssertionError(f"generate(sync=False): the host read the card between launch and fetch: {reads}")
     log(
-        f"generate(sync=False) kernel arm [{card}]: returned in {(t1 - t0) * 1e3:.2f} ms with the loop still running "
+        f"generate(sync=False) [{card}]: returned in {(t1 - t0) * 1e3:.2f} ms with the loop still running "
         f"on the card; the first read waited {(t2 - t1) * 1e3:.2f} ms; between the loop's launch and the fetch: "
         f"{reads['local_scalar_dense']} aten::_local_scalar_dense (profiler), {len(reads['syncs'])} synchronizing "
         f"calls (sync debug mode: device-to-host copies, item, synchronize); host reads before the launch: "
@@ -1892,49 +1865,44 @@ def main_path_phase(torch, card: str, model) -> dict:
     # on the host loop (tokens and statistics equal); then a profiled window
     # of the host loop (the launch counts a step) and a profiled device loop
     # (its idle share).
-    profiles, loops = {}, {}
     with torch.inference_mode():
-        for arm in ("reference", "kernel"):
-            o, mel_of = use(arm)
-            stamps = [time.perf_counter()]
+        stamps = [time.perf_counter()]
 
-            def mark():
-                torch.cuda.synchronize()
-                stamps.append(time.perf_counter())
+        def mark():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
 
-            mel_b = mel_of(audio)
-            mark()
-            states = engine._encode(mel_b)
-            mark()
-            prompt = engine.build_prompt(batch)
-            key = ("beam", batch, prompt.shape[1], o, o.cross_attn)
-            logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl=o.cross_attn,
-                cross=engine._loop_cross(key),
-            )
-            mark()
-            device = engine._device_loop(key, logits, cache)
-            mark()
-            expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
-            host = beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], o)
-            mark()
-            same_loops(torch, f"main path {arm} arm", device, host)
-            loop_err = float((device[1] - host[1]).abs().max())
-            mel_ms, enc_ms, prompt_ms, dev_ms, host_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
-            log(
-                f"stages {arm} arm (cross={o.cross_attn}, encoder attention={arms[arm]['attn']}) [{card}]: "
-                f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, device loop {dev_ms:.1f} ms "
-                f"({dev_ms / max_new:.2f} ms/step), host loop {host_ms:.1f} ms ({host_ms / max_new:.2f} ms/step); "
-                f"tokens, sum_logprobs and lengths equal between the two loops; "
-                f"{batch * 30.0 / (stamps[4] - stamps[0]):.2f} audio-s/s with the device loop"
-            )
-            profiles[arm] = profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], o, card)
-            loops[arm] = profile_device_loop(torch, engine, logits, cache, key, card)
-            loops[arm].update(device_ms_per_step=dev_ms / max_new, host_ms_per_step=host_ms / max_new, max_abs_err=loop_err,
-                              bound_ms=bound_ms(loop_step_bytes(engine, key, loops[arm]["steps"]), 0)[0])
-    same = float((runs["reference"]["tokens"] == runs["kernel"]["tokens"]).mean())
-    log(f"main path tokens equal between the two arms: {same:.3f} of positions (random weights)")
-    return runs["kernel"]["launches"], profiles["kernel"], loops
+        mel_b = mel_of(audio)
+        mark()
+        states = engine._encode(mel_b)
+        mark()
+        prompt = engine.build_prompt(batch)
+        key = ("beam", batch, prompt.shape[1], opts, cross)
+        logits, cache, _ = engine._prompt_cache(
+            states, prompt, engine._cache_len(prompt.shape[1], opts), kv_bits=8, cross_impl=cross,
+            cross=engine._loop_cross(key),
+        )
+        mark()
+        device = engine._device_loop(key, logits, cache)
+        mark()
+        expanded = [{n: b.repeat_interleave(beam, dim=0) for n, b in layer.items()} for layer in cache["self"]]
+        host = beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt.shape[1], opts)
+        mark()
+        same_loops(torch, "main path", device, host)
+        loop_err = float((device[1] - host[1]).abs().max())
+        mel_ms, enc_ms, prompt_ms, dev_ms, host_ms = (1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        log(
+            f"stages (cross={cross}, encoder attention flash) [{card}]: "
+            f"mel {mel_ms:.1f} ms, encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, device loop {dev_ms:.1f} ms "
+            f"({dev_ms / max_new:.2f} ms/step), host loop {host_ms:.1f} ms ({host_ms / max_new:.2f} ms/step); "
+            f"tokens, sum_logprobs and lengths equal between the two loops; "
+            f"{batch * 30.0 / (stamps[4] - stamps[0]):.2f} audio-s/s with the device loop"
+        )
+        profile = profile_beam_loop(torch, engine, logits, cache, prompt.shape[1], opts, card)
+        loop = profile_device_loop(torch, engine, logits, cache, key, card)
+        loop.update(device_ms_per_step=dev_ms / max_new, host_ms_per_step=host_ms / max_new, max_abs_err=loop_err,
+                    bound_ms=bound_ms(loop_step_bytes(engine, key, loop["steps"]), 0)[0])
+    return launches, profile, loop
 
 
 SAMPLED_TEMPERATURES = (0.2, 1.0)
@@ -1943,7 +1911,7 @@ BEST_OF = 5  # a retry batch's copies of one chunk (TranscriptionOptions.best_of
 
 def sampled_path_phase(torch, card: str, model) -> dict:
     """Phase 4's sampled arm, on phase 4's model (large-v2, int8 weights +
-    fused QKV, int8 KV) with the kernel arm's routes: greedy sampling at batch
+    fused QKV, int8 KV) with its default routes: greedy sampling at batch
     8 x 1, 112 tokens with EOT banned, at each of SAMPLED_TEMPERATURES, on a
     batch laid out as the fallback's retries are (the first chunk BEST_OF
     times, then three copies of another). Each temperature: one device-loop
@@ -1957,14 +1925,14 @@ def sampled_path_phase(torch, card: str, model) -> dict:
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.search import greedy_decode
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, graph_loop, mel
+    from whisperx_tpu_torch.ops import graph_loop, mel
 
     cfg = model.config
     batch, max_new, L = 8, 112, cfg.n_text_layer
     engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
     base = engine.build_options(beam_size=1, max_new_tokens=max_new, kv_cache_dtype="int8")
-    base = dataclasses.replace(base, banned_tokens=base.banned_tokens + (base.eot,), cross_attn="pallas")
-    attention.set_attn_impl(model, "flash")
+    base = dataclasses.replace(base, banned_tokens=base.banned_tokens + (base.eot,))
+    cross = engine._cross_impl(base)
     rng = np.random.default_rng(1)
     chunks = pcm16((rng.standard_normal((2, N_SAMPLES)) * 0.1).astype(np.float32))
     audio = np.concatenate([np.repeat(chunks[:1], BEST_OF, axis=0), np.repeat(chunks[1:], batch - BEST_OF, axis=0)])
@@ -2002,9 +1970,9 @@ def sampled_path_phase(torch, card: str, model) -> dict:
 
             states = engine._encode(mel_b)
             prompt = engine.build_prompt(batch)
-            key = ("greedy", batch, prompt.shape[1], engine._loop_options(o), "pallas")
+            key = ("greedy", batch, prompt.shape[1], engine._loop_options(o), cross)
             logits, cache, _ = engine._prompt_cache(
-                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl="pallas",
+                states, prompt, engine._cache_len(prompt.shape[1], o), kv_bits=8, cross_impl=cross,
                 cross=engine._loop_cross(key),
             )
             mark()
@@ -2035,7 +2003,7 @@ def sampled_path_phase(torch, card: str, model) -> dict:
         out[temp] = {"device_ms_per_step": dev_ms / max_new, "host_ms_per_step": host_ms / max_new,
                      "return_ms": (t1 - t0) * 1e3, "wait_ms": (t2 - t1) * 1e3, "launches": loop_graphs}
         log(
-            f"sampled arm T={temp} (greedy, batch {batch} x 1, {max_new} tokens, EOT banned, kernel arm) [{card}]: "
+            f"sampled arm T={temp} (greedy, batch {batch} x 1, {max_new} tokens, EOT banned, cross={cross}) [{card}]: "
             f"one WHILE-graph launch, launches {launches}; the {BEST_OF} copies of one chunk gave {len(copies)} distinct "
             f"candidates; device loop {dev_ms:.1f} ms ({dev_ms / max_new:.2f} ms/step), host loop {host_ms:.1f} ms "
             f"({host_ms / max_new:.2f} ms/step), tokens, sum_logprobs and lengths equal between the two loops; "
@@ -2156,12 +2124,11 @@ def reads_between_launch_and_fetch(torch, engine, mel_b, opts, generator=None) -
     }
 
 
-def loop_entry(loops: dict, sampled: dict, fallback: dict) -> dict:
+def loop_entry(k: dict, sampled: dict, fallback: dict) -> dict:
     """The ``kernels`` line's entry of the device loop (``csrc/graph_loop.cu``):
     its ms a step against the host loop's (its plain version), in phase 4's
-    kernel arm; beside it the sampled arm's (phase 4) and the launches of
+    beam decode; beside it the sampled arm's (phase 4) and the launches of
     phase 6's fallback arm."""
-    k = loops["kernel"]
     return {
         "name": "decode_while_loop",
         "route": "cuda",
@@ -2181,11 +2148,11 @@ def loop_entry(loops: dict, sampled: dict, fallback: dict) -> dict:
                          "step's first kernel to its last",
         "busy_ms": k["busy_ms_per_step"],
         "span_ms": k["span_ms_per_step"],
-        "unit": "one beam step of large-v2, batch 8 x beam 5, int8 weights and KV, kernel arm (host clock around the "
+        "unit": "one beam step of large-v2, batch 8 x beam 5, int8 weights and KV, default routes (host clock around the "
                 "whole loop / steps); the plain version is the host loop on the same inputs",
         "launches_sampled": sum(v["launches"] for v in sampled.values()),
         "sampled": {str(t): v for t, v in sampled.items()},
-        "sampled_unit": "one greedy sampling step of large-v2, batch 8 x 1, int8 weights and KV, kernel arm",
+        "sampled_unit": "one greedy sampling step of large-v2, batch 8 x 1, int8 weights and KV, default routes",
         "launches_fallback": fallback["launches"]["decode_while_loop"],
         "fallback_retry_batches": fallback["retry_batches"],
         "fallback_peak_gib": fallback["peak_gib"],
@@ -2209,18 +2176,19 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
     K = o.beam_size
     expanded = [{n: b.repeat_interleave(K, dim=0) for n, b in layer.items()} for layer in cache["self"]]
     prof = profiled(torch, lambda: beam_decode(engine._step_fn(cache["cross"]), logits, expanded, prompt_len, o))
+    cross = engine._cross_impl(opts)
     if not prof:
-        log(f"profile cross={opts.cross_attn}: the profiler recorded no device time; busy share not measured")
+        log(f"profile cross={cross}: the profiler recorded no device time; busy share not measured")
         return {}
     kernels, busy_ms, wall_ms = prof["kernels"], prof["busy_ms"], prof["wall_ms"]
     step_ms = {name: sum(t for k, t, _ in kernels if key in k) / steps for name, key in STEP_KERNELS.items()}
     events = {name: sum(c for k, _, c in kernels if key in k) / steps for name, key in STEP_KERNELS.items()}
-    key = ("beam", logits.shape[0], prompt_len, opts, engine._cross_impl(opts))
+    key = ("beam", logits.shape[0], prompt_len, opts, cross)
     body = engine.model.decode_loops[key][2].body_launches
     if any(events[name] != body[name] for name in STEP_KERNELS):
         raise AssertionError(f"launches a step: the profiler's kernel events {events} != the captured step's {body}")
     log(
-        f"profile host loop cross={opts.cross_attn} [{card}], {steps} beam steps under torch.profiler: wall "
+        f"profile host loop cross={cross} [{card}], {steps} beam steps under torch.profiler: wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms ({busy_ms / steps:.3f} ms/step), idle share "
         f"{1 - busy_ms / wall_ms:.3f}; kernel events a step {events} == the device loop's captured step: ok; top kernels: "
         + "; ".join(f"{k[:60]} {t / steps:.3f} ms/step x{c // steps}" for k, t, c in kernels[:6])
@@ -2253,7 +2221,7 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
     from torch.profiler import ProfilerActivity, profile
 
     loop, cross, graph = engine.model.decode_loops[key]
-    arm = key[3].cross_attn
+    route = key[4]
     if cache["cross"] is not cross:
         raise AssertionError("profile device loop: the cross K/V are not the loop's own")
     with torch.inference_mode():
@@ -2279,7 +2247,7 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
     )
     out = {"wall_ms_per_step": wall_ms / steps, "steps": steps}
     if len(kernels) < replays + 1:
-        log(f"device loop cross={arm} [{card}]: the profiler saw {len(kernels)} kernels in {replays + 1} step replays; "
+        log(f"device loop cross={route} [{card}]: the profiler saw {len(kernels)} kernels in {replays + 1} step replays; "
             f"idle share not measured")
         return {**out, "idle_share": None, "busy_ms_per_step": None, "span_ms_per_step": None}
     gaps = sorted(range(1, len(kernels)), key=lambda i: kernels[i][0] - kernels[i - 1][1])[len(kernels) - 1 - replays:]
@@ -2308,7 +2276,7 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
         )
     idle = 1 - busy_ms / span_ms
     log(
-        f"device loop cross={arm} [{card}]: one WHILE-graph launch, {steps} steps in {wall_ms:.2f} ms "
+        f"device loop cross={route} [{card}]: one WHILE-graph launch, {steps} steps in {wall_ms:.2f} ms "
         f"({wall_ms / steps:.3f} ms/step, CUDA events); its captured step replayed alone {replays} times (after one "
         f"left out) under "
         f"torch.profiler: device busy {busy_ms:.3f} ms a step over a span of {span_ms:.3f} ms from its first kernel "
@@ -2326,13 +2294,12 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
 def align_path_phase(torch, card: str):
     """wav2vec2 base (published widths, depth not cut), random weights from
     seed 0, bf16, max_batch 8: bench.py's alignment of its fixed transcript
-    to 8 x 30 s of int16 audio (bench.py:257-289). Returns the flash
-    launches counted in the last flash run, the CTC kernel's launches in the
-    last run, and the align model."""
+    to 8 x 30 s of int16 audio (bench.py:257-289), twice. Returns the flash
+    and CTC kernel launches counted in the last run, and the align model."""
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import N_SAMPLES
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
-    from whisperx_tpu_torch.ops import attention, ctc, flash_attn
+    from whisperx_tpu_torch.ops import ctc, flash_attn
 
     batch = 8
     t0 = time.perf_counter()
@@ -2346,36 +2313,28 @@ def align_path_phase(torch, card: str):
     def run():
         return alignment.align_begin([dict(s) for s in transcript], am, meta, audio).finish()
 
-    attention.set_attn_impl(am.model, "flash")
     run()  # one-time set-up (cuBLAS handles, pinned buffers), outside the counted runs
-    want = {"xla": 0, "flash": am.model.config.num_layers}  # one batch: one launch per encoder layer
-    words, flash_launches, ctc_launches = {}, None, None
-    for impl in ("xla", "flash", "flash", "xla"):  # in turns: two runs each
-        attention.set_attn_impl(am.model, impl)
+    want = am.model.config.num_layers  # one batch: one flash launch per encoder layer
+    for i in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attn.launches = ctc.launches = 0
         t0 = time.perf_counter()
         res = run()
         wall = time.perf_counter() - t0
-        launched, ctc_launches = flash_attn.launches, ctc.launches
+        flash_launches, ctc_launches = flash_attn.launches, ctc.launches
         segs = res["segments"]
         if len(segs) != batch or not all(s["words"] and all("start" in w and "end" in w for w in s["words"]) for s in segs):
-            raise AssertionError(f"align path {impl}: not every segment aligned: {[len(s['words']) for s in segs]}")
-        if launched != want[impl] or ctc_launches != 1:
-            raise AssertionError(f"align path {impl}: flash launched {launched} times, expected {want[impl]}; "
+            raise AssertionError(f"align path: not every segment aligned: {[len(s['words']) for s in segs]}")
+        if flash_launches != want or ctc_launches != 1:
+            raise AssertionError(f"align path: flash launched {flash_launches} times, expected {want}; "
                                  f"ctc_align {ctc_launches} times, expected 1 (one batch)")
-        words[impl] = res["word_segments"]
-        if impl == "flash":
-            flash_launches = launched
         log(
-            f"align path attn={impl} [{card}]: {wall * 1e3:.1f} ms for {audio_s:.1f} audio-s, "
+            f"align path run {i} [{card}]: {wall * 1e3:.1f} ms for {audio_s:.1f} audio-s, "
             f"{audio_s / wall:.2f} audio-s/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"{len(res['word_segments'])} words, flash launches {launched}, ctc_align launches {ctc_launches}: ok"
+            f"{len(res['word_segments'])} words, flash launches {flash_launches}, ctc_align launches {ctc_launches}: ok"
         )
-    same = float(np.mean([a == b for a, b in zip(words["xla"], words["flash"])]))
-    log(f"align path word timestamps identical between xla and flash: {same:.3f} of {len(words['xla'])} words (random weights)")
-    log(same_alignment_as_plain(torch, f"align path (attention {impl})", run) + ": ok")
+    log(same_alignment_as_plain(torch, "align path", run) + ": ok")
 
     # Stage split: the same run with a sync after each device stage.
     stages: dict = {}
@@ -2401,20 +2360,17 @@ def align_path_phase(torch, card: str):
     alignment._emissions = timed("emissions", originals[0])
     alignment.ctc_align_batch_device = timed("ctc", ctc_call)
     try:
-        for impl in ("xla", "flash"):
-            attention.set_attn_impl(am.model, impl)
-            stages.clear()
-            t0 = time.perf_counter()
-            job = alignment.align_begin([dict(s) for s in transcript], am, meta, audio)
-            t1 = time.perf_counter()
-            job.finish()
-            t2 = time.perf_counter()
-            launch_ms = (t1 - t0) * 1e3 - sum(stages.values())
-            log(
-                f"align stages attn={impl} [{card}]: emissions (wav2vec2 + log-softmax) {stages['emissions']:.1f} ms, "
-                f"trellis + backtrack (ctc_align kernel) {stages['ctc']:.2f} ms, host prep and launch "
-                f"{launch_ms:.1f} ms, fetch + host aggregation {(t2 - t1) * 1e3:.1f} ms"
-            )
+        t0 = time.perf_counter()
+        job = alignment.align_begin([dict(s) for s in transcript], am, meta, audio)
+        t1 = time.perf_counter()
+        job.finish()
+        t2 = time.perf_counter()
+        launch_ms = (t1 - t0) * 1e3 - sum(stages.values())
+        log(
+            f"align stages [{card}]: emissions (wav2vec2 + log-softmax) {stages['emissions']:.1f} ms, "
+            f"trellis + backtrack (ctc_align kernel) {stages['ctc']:.2f} ms, host prep and launch "
+            f"{launch_ms:.1f} ms, fetch + host aggregation {(t2 - t1) * 1e3:.1f} ms"
+        )
     finally:
         alignment._emissions, alignment.ctc_align_batch_device = originals
     log(f"align path ctc_align shapes (B, T, V, N) {sorted(set(shapes))}")
@@ -2508,31 +2464,26 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     at onset 0.5 / offset 0.363, batches of 8, int16 uploads, beam 5, 112
     tokens with EOT suppressed, int8 KV cache) → align_begin(...).finish()
     with each chunk's text replaced by bench.py's transcript (bench.py:180).
-    Three runs: the JAX package's defaults (WHISPERX_CROSS_ATTN=xla,
-    WHISPERX_ATTN=xla), the kernel arm (WHISPERX_CROSS_ATTN=pallas,
-    WHISPERX_ATTN=flash), each set for the run only, and the port's defaults
-    (on the card the cross-attention kernel, and the flash kernel in both
-    encoders, since "auto" takes it for bf16 heads of 64) with
-    enable_fallback=True at temperatures (0.0,
+    Two runs on the port's routes (on the card the cross-attention kernel,
+    and the flash kernel in both encoders for bf16 heads of 64): the
+    default options, then enable_fallback=True at temperatures (0.0,
     *SAMPLED_TEMPERATURES): on random weights every chunk fails the
     log-prob gate, so each temperature re-decodes BEST_OF sampled copies of
     each chunk in retry batches of 8, each one device-loop launch of one kept
-    sampling loop. Returns the kernel arm's launches and the fallback arm's
-    counts."""
+    sampling loop. Returns the default run's launches and the fallback
+    run's counts."""
     from whisperx_tpu_torch import native
     from whisperx_tpu_torch.align import alignment
     from whisperx_tpu_torch.audio import io as audio_io
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
-    from whisperx_tpu_torch.ops import attention, ctc, graph_loop
+    from whisperx_tpu_torch.ops import ctc, graph_loop
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.utils import telemetry
     from whisperx_tpu_torch.vad.model import SpeechBandVAD, VadPipeline
 
     cfg = model.config
     batch, beam, max_new = 8, 5, 112
-    for m in (model, align_model.model):
-        attention.set_attn_impl(m, "auto")  # each arm's WHISPERX_ATTN decides
     tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
     pipe = WhisperPipeline(
         engine=WhisperEngine(model, tok),
@@ -2566,14 +2517,12 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
     t0 = time.perf_counter()
     ready = native.available()
     log(f"native audio decoder {'built' if ready else 'unavailable (numpy fallback)'} in {time.perf_counter() - t0:.2f} s")
-    arms = {"default": ({"WHISPERX_CROSS_ATTN": "xla", "WHISPERX_ATTN": "xla"}, pipe),
-            "kernel": ({"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}, pipe), "fallback": ({}, fallback)}
+    arms = {"default": pipe, "fallback": fallback}
     L, runs = cfg.n_text_layer, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pipeline.wav")
         audio_io.write_wav(path, audio)
-        for arm, (env, p) in arms.items():
-            os.environ.update(env)
+        for arm, p in arms.items():
             WhisperEngine.generate = counted_generate
             retries.clear()
             try:
@@ -2592,8 +2541,6 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 launches, loop_graphs, ctc_launches = read_launches(), graph_loop.launches, ctc.launches
             finally:
                 WhisperEngine.generate = generate
-                for knob in env:
-                    os.environ.pop(knob, None)
             chunks = result["segments"]
             n_batches = -(-len(chunks) // batch)  # decode batches; align batches too (max batch 8)
             if n_batches < 2 or len(chunks) % batch == 0:
@@ -2610,12 +2557,11 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 raise AssertionError(f"pipeline {arm}: {len(retries)} sampled decode batches {retries}, expected {n_retry}")
             want = {
                 "int8_matmul": 6 * L * (1 + max_new) * (n_batches + n_retry),
-                # The port's default on the card is the kernel: only the JAX package's arm takes the einsum.
-                "cross_attention_decode": L * (1 + max_new) * (n_batches + n_retry) if arm != "default" else 0,
-                # "auto" takes the flash kernel too: every encoder pass (a retry batch encodes
-                # its mel again) and every align batch launches it once a layer.
+                "cross_attention_decode": L * (1 + max_new) * (n_batches + n_retry),
+                # Every encoder pass (a retry batch encodes its mel again) and
+                # every align batch launches the flash kernel once a layer.
                 "flash_self_attention": (cfg.n_audio_layer * (n_batches + n_retry)
-                                         + align_model.model.config.num_layers * n_batches) if arm != "default" else 0,
+                                         + align_model.model.config.num_layers * n_batches),
                 "log_mel": 0,
             }
             if launches != want or loop_graphs != n_batches + n_retry or ctc_launches != n_batches:
@@ -2637,14 +2583,14 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 f"batches, {n_retry} sampled retry batches at temperatures {sorted(set(retries))}), ctc_align "
                 f"{ctc_launches} (one an align batch); {held_loops(model)}: ok"
             )
-    kernel_segs = [dict(s, text=ALIGN_TEXT) for s in runs["kernel"]["segments"]]
+    default_segs = [dict(s, text=ALIGN_TEXT) for s in runs["default"]["segments"]]
     log(same_alignment_as_plain(torch, "pipeline chunks", lambda: alignment.align_begin(
-        [dict(s) for s in kernel_segs], align_model, meta, audio).finish()) + ": ok")
-    if not runs["default"]["vad"] == runs["kernel"]["vad"] == runs["fallback"]["vad"]:
-        raise AssertionError("pipeline: the arms' VAD segments differ")
-    log(f"pipeline: the three arms cut the same {len(runs['kernel']['vad'])} VAD segments: ok")
+        [dict(s) for s in default_segs], align_model, meta, audio).finish()) + ": ok")
+    if runs["default"]["vad"] != runs["fallback"]["vad"]:
+        raise AssertionError("pipeline: the two runs' VAD segments differ")
+    log(f"pipeline: both runs cut the same {len(runs['default']['vad'])} VAD segments: ok")
     fb = runs["fallback"]
-    return runs["kernel"]["launches"], {k: fb[k] for k in ("retry_batches", "peak_gib", "launches")}
+    return runs["default"]["launches"], {k: fb[k] for k in ("retry_batches", "peak_gib", "launches")}
 
 
 def small_train_phase(torch) -> None:
@@ -2918,19 +2864,19 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     6's tone bursts (8 VAD chunks: one full decode batch) → transcribe →
     align_begin(...).finish() on the chunks, then on 4 segments of 0.9 s
     (one 1 s alignment batch of 4 x 49 frames: every int8 projection of
-    wav2vec2 base goes through int8_matmul). Two arms in turns: (a) int4
-    weights with the default KV ("auto" → int8) and the JAX package's
-    defaults (WHISPERX_CROSS_ATTN=xla, WHISPERX_ATTN=xla); (b) int4
-    weights, kv_cache_dtype="int4", WHISPERX_CROSS_ATTN=pallas (int8 cross
-    K/V for the kernel) and WHISPERX_ATTN=flash. Then each arm's beam loop once more, stage by
-    stage, on 8 x 30 s of noise. Returns arm (b)'s launches."""
+    wav2vec2 base goes through int8_matmul). Two arms in turns, both on the
+    port's routes (flash attention in both encoders): (a) int4 weights with
+    the default KV ("auto" → int8), whose cross attention takes the kernel;
+    (b) int4 weights and kv_cache_dtype="int4", which keeps the einsum.
+    Then each arm's beam loop once more, stage by stage, on 8 x 30 s of
+    noise. Returns arm (b)'s launches."""
     from whisperx_tpu_torch.align.alignment import align_begin, load_align_model
     from whisperx_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pcm16
     from whisperx_tpu_torch.decode.engine import WhisperEngine
     from whisperx_tpu_torch.decode.search import beam_decode
     from whisperx_tpu_torch.models import convert
     from whisperx_tpu_torch.models import whisper as tw
-    from whisperx_tpu_torch.ops import attention, flash_attn, graph_loop
+    from whisperx_tpu_torch.ops import flash_attn, graph_loop
     from whisperx_tpu_torch.pipeline.asr import load_model
     from whisperx_tpu_torch.utils import telemetry
 
@@ -2994,12 +2940,11 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     short = [{"start": 25.0 * i + 1.0, "end": 25.0 * i + 1.9, "text": " the quick brown fox"} for i in range(4)]
     n_w2v, L = w2v.config.num_layers, cfg.n_text_layer
     w2v_int8 = 1 + 6 * n_w2v  # feat_projection + 6 projections a layer, in the 1 s batch only
-    arms = {"a": ("int8", {"WHISPERX_CROSS_ATTN": "xla", "WHISPERX_ATTN": "xla"}),
-            "b": ("int4", {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"})}
+    arms = {"a": "int8", "b": "int4"}  # the KV cache
+    flash = cfg.n_audio_layer + 2 * n_w2v  # the encoder and 2 alignment batches
     want = {
-        "a": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": 0, "log_mel": 0},
-        "b": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new),
-              "flash_self_attention": cfg.n_audio_layer + 2 * n_w2v, "log_mel": 0},  # 2 alignment batches
+        "a": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new), "flash_self_attention": flash, "log_mel": 0},
+        "b": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": flash, "log_mel": 0},
     }
     for w in want.values():
         w.update(flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
@@ -3023,33 +2968,27 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     runs: dict = {}
     try:
         for arm in ("a", "b", "b", "a"):  # in turns: two runs each
-            kv, env = arms[arm]
-            pipe.kv_cache_dtype = kv
-            os.environ.update(env)
-            try:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                pipe.telemetry.stages.clear()
-                telemetry.GLOBAL.stages.clear()
-                zero_launches()
-                flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
-                results.clear()
-                finite.fill_(True)
-                t0 = time.perf_counter()
-                result = pipe.transcribe(audio, batch_size=batch)
-                t1 = time.perf_counter()
-                segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
-                aligned = align_begin(segs, am, meta, audio).finish()
-                chunk_int8 = read_launches()["int8_matmul"]
-                t2 = time.perf_counter()
-                aligned_short = align_begin([dict(s) for s in short], am, meta, audio).finish()
-                t3 = time.perf_counter()
-                launches = {**read_launches(), "flash_attention_bwd_dq": flash_attn.launches_bwd_dq,
-                            "flash_attention_bwd_dkv": flash_attn.launches_bwd_dkv}
-                loop_graphs = graph_loop.launches
-            finally:
-                for knob in env:
-                    os.environ.pop(knob, None)
+            kv = pipe.kv_cache_dtype = arms[arm]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pipe.telemetry.stages.clear()
+            telemetry.GLOBAL.stages.clear()
+            zero_launches()
+            flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
+            results.clear()
+            finite.fill_(True)
+            t0 = time.perf_counter()
+            result = pipe.transcribe(audio, batch_size=batch)
+            t1 = time.perf_counter()
+            segs = [dict(s, text=ALIGN_TEXT) for s in result["segments"]]
+            aligned = align_begin(segs, am, meta, audio).finish()
+            chunk_int8 = read_launches()["int8_matmul"]
+            t2 = time.perf_counter()
+            aligned_short = align_begin([dict(s) for s in short], am, meta, audio).finish()
+            t3 = time.perf_counter()
+            launches = {**read_launches(), "flash_attention_bwd_dq": flash_attn.launches_bwd_dq,
+                        "flash_attention_bwd_dkv": flash_attn.launches_bwd_dkv}
+            loop_graphs = graph_loop.launches
             chunks = result["segments"]
             if len(chunks) != INT4_CHUNKS or len(results) != 1:
                 raise AssertionError(f"int4 arm {arm}: {len(chunks)} segments, {len(results)} decode batches; expected {INT4_CHUNKS}, 1")
@@ -3074,7 +3013,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
                                              "launches": {**launches, "decode_while_loop": loop_graphs},
                                              "decode_ms": dec_ms, "align_ms": (t3 - t1) * 1e3})
             log(
-                f"int4 arm ({arm}) kv={kv}{' ' + ' '.join(f'{k}={v}' for k, v in env.items()) if env else ''} [{card}]: "
+                f"int4 arm ({arm}) kv={kv} [{card}]: "
                 f"{len(audio) / 16000:.1f} s -> {len(chunks)} chunks, one decode batch of {batch}; transcribe "
                 f"{(t1 - t0) * 1e3:.1f} ms (vad {stages['vad']['seconds'] * 1e3:.1f}, asr_decode {dec_ms:.1f} ms = "
                 f"{dec_ms / (1 + max_new):.2f} ms a step with the encoder and prompt); align {(t2 - t1) * 1e3:.1f} ms "
@@ -3093,10 +3032,10 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     engine = WhisperEngine(model, pipe.tokenizer)
     raw = pcm16((np.random.default_rng(0).standard_normal((batch, N_SAMPLES)) * 0.1).astype(np.float32))
     split = {}
-    for arm, kv, cross, attn in (("a", "int8", "xla", "xla"), ("b", "int4", "pallas", "flash")):
-        attention.set_attn_impl(model, attn)
+    for arm, kv in arms.items():
         opts = engine.build_options(beam_size=beam, max_new_tokens=max_new, kv_cache_dtype=kv)
-        opts = dataclasses.replace(opts, banned_tokens=opts.banned_tokens + (eot,), cross_attn=cross)
+        opts = dataclasses.replace(opts, banned_tokens=opts.banned_tokens + (eot,))
+        cross = engine._cross_impl(opts)
         with torch.inference_mode():
             stamps = [time.perf_counter()]
 
@@ -3127,13 +3066,12 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
         split[arm] = (dev_ms / max_new, host_ms / max_new)
         graph = model.decode_loops[("beam", batch, prompt.shape[1], opts, cross)][2]
         log(
-            f"int4 stages arm ({arm}) kv={kv} cross={cross} encoder attention={attn} [{card}]: mel {mel_ms:.1f} ms, "
+            f"int4 stages arm ({arm}) kv={kv} cross={cross} [{card}]: mel {mel_ms:.1f} ms, "
             f"encoder {enc_ms:.1f} ms, prompt {prompt_ms:.1f} ms, device loop {dev_ms:.1f} ms ({split[arm][0]:.2f} "
             f"ms/step; its first launch with the capture {capture_ms:.1f} ms: capture {graph.capture_ms:.1f}, "
             f"instantiate {graph.instantiate_ms:.1f} ms, pool {graph.pool_bytes / 2**20:.1f} MiB), host loop "
             f"{host_ms:.1f} ms ({split[arm][1]:.2f} ms/step); tokens, sum_logprobs and lengths equal between the loops"
         )
-    attention.set_attn_impl(model, "auto")
     mean = {arm: {k: float(np.mean([r[k] for r in rs])) for k in ("decode_ms", "align_ms")} for arm, rs in runs.items()}
     log(
         f"int4 summary [{card}]: load_model {load_ms:.1f} ms, Dense weights {w4['dense'] / 2**30:.3f} GiB (int8 "
@@ -3151,7 +3089,6 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
 # card say nothing of multi-card speed: every collective is staged through
 # the host, and both ranks' kernels share one card.
 
-PARALLEL_ENV = {"WHISPERX_CROSS_ATTN": "pallas", "WHISPERX_ATTN": "flash"}  # (b)'s decode: every kernel of the path
 # (b): the first step's log-probs of the split model against the whole one,
 # both bf16 on this card. The row splits sum fp32 partial products in
 # another order (and round to bf16 once, after the sum, where the whole
@@ -3170,7 +3107,7 @@ def parallel_audio(torch):
 def captured_decode(torch, pipe, wavs) -> dict:
     """One ``generate`` of the 8-chunk batch through ``pipe``'s engine and
     front end (beam 5, 112 tokens, EOT suppressed by the pipeline's options),
-    with every kernel of the path (``PARALLEL_ENV``); the beam loop (the host
+    on the port's routes (every kernel of the path); the beam loop (the host
     loop under a model split, else the device loop, whose first use is a
     capture outside the timed call) is wrapped to keep the first step's
     log-probs and time the loop. Returns tokens, log-probs, times, launches
@@ -3198,7 +3135,6 @@ def captured_decode(torch, pipe, wavs) -> dict:
         seen["loop"] = "device"
         return timed(device_loop, init_logits, self, key, init_logits, *a)
 
-    os.environ.update(PARALLEL_ENV)
     engine_mod.beam_decode, engine_mod.WhisperEngine._device_loop = beam, device
     try:
         mel_b = pipe._mel(wavs)
@@ -3212,8 +3148,6 @@ def captured_decode(torch, pipe, wavs) -> dict:
         launches = read_launches()
     finally:
         engine_mod.beam_decode, engine_mod.WhisperEngine._device_loop = host_loop, device_loop
-        for knob in PARALLEL_ENV:
-            os.environ.pop(knob, None)
     if res.tokens.shape != (8, opts.max_new_tokens) or (res.tokens == opts.eot).any():
         raise AssertionError(f"parallel decode: tokens {res.tokens.shape}, EOT present: {(res.tokens == opts.eot).any()}")
     return {"tokens": res.tokens, "logprobs": seen["logprobs"], "generate_ms": ms, "loop_ms": seen["loop_ms"],
@@ -3297,9 +3231,8 @@ def parallel_rank(spec: dict) -> int:
     <json>``), both on cuda:0 over gloo, mesh (1, 2): (b) load_model(<phase
     7's large-v2 directory>, compute_type="int8", mesh=) → the 8-chunk decode
     with every kernel (``captured_decode``); shard_align_model(<phase 7's
-    wav2vec2 base>) alignment of bench.py's transcript over the 8 chunks in
-    the JAX package's default arm (WHISPERX_ATTN=xla) and the flash arm;
-    (c) ``small_fp32_run`` under the mesh.
+    wav2vec2 base>) alignment of bench.py's transcript over the 8 chunks
+    (flash attention); (c) ``small_fp32_run`` under the mesh.
     Prints one ``RANK_RESULT`` JSON line; the first step's log-probs go to
     ``<tmp>/rank<r>_logprobs.npy``."""
     import torch
@@ -3346,23 +3279,16 @@ def parallel_rank(spec: dict) -> int:
         raise AssertionError(f"rank {rank}: wav2vec2 heads {am.model.layers[0].attention.num_heads}")
     audio = wavs.reshape(-1).astype(np.float32) / 32768.0
     meta = {"language": "en", "dictionary": am.dictionary, "type": "torch"}
-    aligned, align_ms, flash = {}, {}, {}
-    for arm, env in (("default", {"WHISPERX_ATTN": "xla"}), ("flash", {"WHISPERX_ATTN": "flash"})):
-        os.environ.update(env)
-        try:
-            flash_attn.launches = int8_mm.launches = 0
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = align(align_transcript(8), am, meta, audio)
-            align_ms[arm] = (time.perf_counter() - t) * 1e3
-            flash[arm] = flash_attn.launches
-        finally:
-            for knob in env:
-                os.environ.pop(knob, None)
-        aligned[arm] = [(w["word"], w.get("start"), w.get("end"), w.get("score")) for w in res["word_segments"]]
-        if not aligned[arm] or any(w[1] is None for w in aligned[arm]):
-            raise AssertionError(f"rank {rank} align {arm}: words without times")
-    if flash != {"default": 0, "flash": am.model.config.num_layers}:
+    flash_attn.launches = int8_mm.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = align(align_transcript(8), am, meta, audio)
+    align_ms = (time.perf_counter() - t) * 1e3
+    flash = flash_attn.launches
+    aligned = [(w["word"], w.get("start"), w.get("end"), w.get("score")) for w in res["word_segments"]]
+    if not aligned or any(w[1] is None for w in aligned):
+        raise AssertionError(f"rank {rank} align: words without times")
+    if flash != am.model.config.num_layers:
         raise AssertionError(f"rank {rank} align: flash launches {flash}")
     small = small_fp32_run(torch, "cuda", mesh)
     result = {
@@ -3465,7 +3391,7 @@ def parallel_phase(torch, card: str, cli: dict, tmp: str) -> dict:
     weights, same kernels) and the token agreement with it, ms a step and
     each kernel's launches a step; (c) the ranks' ``small_fp32_run`` under
     the mesh equal to this process's on the CPU. Returns rank 0's launches
-    in (b) (its decode and its flash alignment arm)."""
+    in (b) (its decode and its alignment)."""
     one = world_of_one_phase(torch, card, cli, tmp)
     ref = captured_decode(torch, one["pipe"], parallel_audio(torch))
     del one
@@ -3524,9 +3450,8 @@ def parallel_phase(torch, card: str, cli: dict, tmp: str) -> dict:
         f"{n['flash_self_attention']} a batch (encoder), log_mel {n['log_mel']}; first-step log-probs max abs diff "
         f"{lp_err:.4g} from the whole model (atol {TP_LOGPROB_ATOL}), top-1 "
         f"agreement {top1:.3f}, token agreement {agree:.3f} of positions; both ranks equal (tokens, log-probs, words); "
-        f"alignment of 8 x 30 s under shard_align_model (6 heads a rank): {len(r0['aligned']['default'])} words, "
-        f"{r0['align_ms']['default']:.1f} ms default, {r0['align_ms']['flash']:.1f} ms flash ({r0['align_flash']['flash']} "
-        f"flash launches), peak {r0['peak_gib']:.2f} GiB a rank; gloo on CUDA tensors: {r0['collectives']}; "
+        f"alignment of 8 x 30 s under shard_align_model (6 heads a rank): {len(r0['aligned'])} words, "
+        f"{r0['align_ms']:.1f} ms ({r0['align_flash']} flash launches), peak {r0['peak_gib']:.2f} GiB a rank; gloo on CUDA tensors: {r0['collectives']}; "
         f"{wall:.1f} s for both ranks: ok"
     )
     log(
@@ -3534,7 +3459,7 @@ def parallel_phase(torch, card: str, cli: dict, tmp: str) -> dict:
         f"single process: {len(small_want['segments'])} chunks, {len(small_want['words'])} words and timestamps: ok"
     )
     launches = dict(r0["launches"])
-    launches["flash_self_attention"] += r0["align_flash"]["flash"]
+    launches["flash_self_attention"] += r0["align_flash"]
     return launches
 
 
@@ -3574,34 +3499,30 @@ def train_phase(torch, card: str) -> dict:
     and depth (1280 wide, 20 heads of 64, 32 + 32 layers, vocab 51,865): fp32
     master parameters from seed 0, bf16 compute, AdamW (optax.adamw's
     defaults, lr 1e-5), five steps on one batch of 2 x 30 s random mel and 129
-    random tokens (mask of ones). Two arms in turns from the same seed: the
-    JAX default "xla" encoder attention, then "flash" (the forward kernel
-    with lse and both backward kernels: exactly 32 launches of each a step;
-    the xla arm launches none). Both arms' losses finite and falling; the
-    flash arm's first loss within 1e-2 relative of the xla arm's, and its
-    first gradients of one encoder layer's attention projections within 10%
-    relative L2 (bf16 through 32 layers; the CPU tests hold the same bound
-    per leaf at 4 layers). Returns each arm's numbers."""
+    random tokens (mask of ones). Two arms from the same seed, each its own
+    model: bf16 compute, whose encoder attention takes "flash" (the forward
+    kernel with lse and both backward kernels: exactly 32 launches of each a
+    step), then fp32 compute, which takes the plain "xla" route (no launch).
+    Both arms' losses finite and falling; the flash arm's first loss within
+    1e-2 relative of the fp32 arm's, and its first gradients of one encoder
+    layer's attention projections within 10% relative L2 (bf16 through 32
+    layers). Returns each arm's numbers."""
     import gc
 
     from whisperx_tpu_torch import train
     from whisperx_tpu_torch.models.configs import get_whisper_config
     from whisperx_tpu_torch.models.whisper import Whisper
-    from whisperx_tpu_torch.ops import attention, cross_attn, flash_attn, int8_mm
+    from whisperx_tpu_torch.ops import cross_attn, flash_attn, int8_mm
     from whisperx_tpu_torch.ops import mel as mel_ops
 
     cfg = get_whisper_config("large-v2")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    model = Whisper(cfg, dtype=torch.bfloat16, device="cuda").trainable()
-    n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch_max = TRAIN_SHAPE[0]
     mel = torch.randn((batch_max, cfg.n_mels, 3000), device="cuda", generator=gen)
     tokens = torch.randint(0, cfg.n_vocab, (batch_max, TRAIN_TOKENS), device="cuda", generator=gen)
     mask = torch.ones((batch_max, TRAIN_TOKENS), device="cuda")
     probe = cfg.n_audio_layer // 2  # the encoder layer whose attention gradients the arms compare
-    log(f"train: large-v2 ({n_params / 1e9:.3f} B fp32 parameters) on the card in {time.perf_counter() - t0:.1f} s")
 
     def zero():
         flash_attn.launches = flash_attn.launches_lse = flash_attn.launches_bwd_dq = flash_attn.launches_bwd_dkv = 0
@@ -3615,8 +3536,11 @@ def train_phase(torch, card: str) -> dict:
         }
 
     def run(impl: str, batch: int) -> dict:
+        # The compute type picks the encoder attention's route: bf16 "flash", fp32 "xla".
+        t0 = time.perf_counter()
+        model = Whisper(cfg, dtype=torch.bfloat16 if impl == "flash" else torch.float32, device="cuda").trainable()
         seed_params_(torch, model, 0)
-        attention.set_attn_impl(model, impl)
+        build_s = time.perf_counter() - t0
         opt = train.make_optimizer(model.parameters(), lr=TRAIN_LR)
         timings: dict = {}
         step = train.make_train_step(model, opt, timings=timings)
@@ -3634,20 +3558,22 @@ def train_phase(torch, card: str) -> dict:
         out = {
             "impl": impl, "batch": batch, "losses": losses, "grads": grads, "launches": counts(),
             "step_ms": float(np.median(step_ms)), "split_ms": {k: float(np.median(v)) for k, v in timings.items()},
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "build_s": build_s,
+            "n_params": sum(p.numel() for p in model.parameters()),
         }
         # One more step under torch.profiler (outside the counted run): where its device time goes.
         out["profile"] = profiled(torch, lambda: step(mel[:batch], tokens[:batch], mask[:batch]))
-        del opt, step
-        model.zero_grad(set_to_none=True)
-        torch.cuda.empty_cache()
+        del opt, step, model
+        cleanup()
         return out
 
     def cleanup():
-        model.zero_grad(set_to_none=True)
         gc.collect()
         torch.cuda.empty_cache()
 
+    flash = run("flash", batch_max)
+    log(f"train: large-v2 ({flash['n_params'] / 1e9:.3f} B fp32 parameters) built and seeded on the card in "
+        f"{flash['build_s']:.1f} s")
     try:
         xla = run("xla", batch_max)
     except torch.cuda.OutOfMemoryError:
@@ -3656,13 +3582,9 @@ def train_phase(torch, card: str) -> dict:
     if xla is None:
         cleanup()
         cmp_batch = 1
-        log(f"train: the xla arm does not fit at batch {batch_max} (its (B, H, T, T) logits): it runs batch 1")
+        log(f"train: the fp32 xla arm does not fit at batch {batch_max} (its (B, H, T, T) logits): it runs batch 1")
         xla = run("xla", 1)
-    flash = run("flash", batch_max)
     flash_cmp = flash if cmp_batch == batch_max else run("flash", cmp_batch)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
 
     L, steps = cfg.n_audio_layer, TRAIN_STEPS
     want = {
@@ -3680,8 +3602,8 @@ def train_phase(torch, card: str) -> dict:
             raise AssertionError(f"train {arm['impl']}: losses not finite and falling: {losses}")
         split = arm["split_ms"]
         log(
-            f"train {arm['impl']} arm [{card}], large-v2, batch {arm['batch']} x 30 s, {TRAIN_TOKENS} tokens, bf16 over fp32 "
-            f"masters, AdamW lr {TRAIN_LR}: {arm['step_ms']:.1f} ms a step (median of {steps}; forward "
+            f"train {arm['impl']} arm [{card}], large-v2, batch {arm['batch']} x 30 s, {TRAIN_TOKENS} tokens, "
+            f"{'bf16' if arm['impl'] == 'flash' else 'fp32'} compute over fp32 masters, AdamW lr {TRAIN_LR}: {arm['step_ms']:.1f} ms a step (median of {steps}; forward "
             f"{split['forward']:.1f}, backward {split['backward']:.1f}, optimizer {split['optimizer']:.1f} ms), peak "
             f"{arm['peak_gib']:.2f} GiB, losses {[round(x, 5) for x in losses]}, launches {arm['launches']}: ok"
         )
@@ -3700,15 +3622,15 @@ def train_phase(torch, card: str) -> dict:
             log(f"train {arm['impl']} arm: the profiler recorded no device time; busy share not measured")
     loss_err = abs(flash_cmp["losses"][0] - xla["losses"][0]) / abs(xla["losses"][0])
     if loss_err > 1e-2:
-        raise AssertionError(f"train: flash first loss {flash_cmp['losses'][0]} vs xla {xla['losses'][0]} (rtol 1e-2)")
+        raise AssertionError(f"train: flash first loss {flash_cmp['losses'][0]} vs fp32 xla {xla['losses'][0]} (rtol 1e-2)")
     grad_err = {}
     for n, w in xla["grads"].items():
         g = flash_cmp["grads"][n]
         grad_err[n] = float((g - w).norm() / w.norm())
         if not (torch.isfinite(g).all() and grad_err[n] < 0.1):
-            raise AssertionError(f"train: encoder layer {probe} attention {n} gradient, flash vs xla: relative L2 {grad_err[n]}")
+            raise AssertionError(f"train: encoder layer {probe} attention {n} gradient, flash vs fp32 xla: relative L2 {grad_err[n]}")
     log(
-        f"train flash vs xla at batch {cmp_batch}: first loss within {loss_err:.3g} (rtol 1e-2); encoder layer {probe} "
+        f"train bf16 flash vs fp32 xla at batch {cmp_batch}: first loss within {loss_err:.3g} (rtol 1e-2); encoder layer {probe} "
         f"attention gradients within relative L2 "
         + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items())
         + " (< 0.1): ok"
@@ -3731,8 +3653,7 @@ def main() -> int:
     # Stated references: fp32 products in full fp32 (no TF32) on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for knob in ("WHISPERX_CROSS_ATTN", "WHISPERX_ATTN", "WHISPERX_CTC_BACKTRACK", "WHISPERX_WAV_INT16"):
-        os.environ.pop(knob, None)  # each run picks its path itself
+    os.environ.pop("WHISPERX_WAV_INT16", None)  # int16 uploads, the default
 
     card = card_line()
     log(card)
@@ -3760,11 +3681,11 @@ def main() -> int:
     small_cli_phase(torch)
     small_train_phase(torch)
     model = large_v2(torch)
-    launches, profile, loops = main_path_phase(torch, card, model)  # the decode path's kernel arm
+    launches, profile, loop = main_path_phase(torch, card, model)  # the decode path
     sampled = sampled_path_phase(torch, card, model)
     flash_align, ctc_align, align_model = align_path_phase(torch, card)
-    pipeline_launches, fallback = pipeline_phase(torch, card, model, align_model)  # its kernel arm, its fallback arm
-    kernels.append(loop_entry(loops, sampled, fallback))
+    pipeline_launches, fallback = pipeline_phase(torch, card, model, align_model)  # its default run, its fallback run
+    kernels.append(loop_entry(loop, sampled, fallback))
     del model, align_model
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(torch, card, tmp)
@@ -3775,20 +3696,19 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches.get(k["name"], trained["flash"]["launches"].get(k["name"]))
         if k["name"] in STEP_KERNELS and k["name"] in profile:
-            k["beam_step_device_ms"] = profile[k["name"]]  # per beam step, profiled kernel arm
+            k["beam_step_device_ms"] = profile[k["name"]]  # per beam step, profiled host loop
     if profile:
-        log(f"beam loop (kernel arm) device busy {profile['busy_ms_per_step']:.3f} ms/step under torch.profiler")
+        log(f"beam loop device busy {profile['busy_ms_per_step']:.3f} ms/step under torch.profiler")
     kernels[2]["launches_align"] = flash_align  # flash also serves the alignment path
     kernels[2]["launches_train"] = trained["flash"]["launches"]["flash_forward_lse"]  # with lse, phase 8's flash arm
     for k in kernels:
         if k["name"] in pipeline_launches:
             k["launches_pipeline"] = pipeline_launches[k["name"]]
             k["launches_cli"] = cli_launches[k["name"]]
-        k["launches_train_xla"] = trained["xla"]["launches"].get(k["name"], 0)
         k["launches_int4"] = int4_launches[k["name"]]  # phase 9's arm (b)
         k["launches_parallel"] = parallel_launches.get(k["name"], 0)  # phase 10 (b), rank 0
-    # The CTC kernel: phase 5's run (the alignment path), phase 6's kernel and
-    # fallback arms, phase 7's CLI (one launch an align batch in each);
+    # The CTC kernel: phase 5's run (the alignment path), phase 6's default
+    # and fallback runs, phase 7's CLI (one launch an align batch in each);
     # phases 9 and 10 align too, but their counts are not read.
     ctc_entry.update(launches=ctc_align, launches_pipeline=pipeline_launches["ctc_align"],
                      launches_fallback=fallback["launches"]["ctc_align"], launches_cli=cli_launches["ctc_align"],

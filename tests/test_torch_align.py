@@ -102,24 +102,53 @@ def test_deferred_and_windowed_equal_sync(models, monkeypatch):
     _ = torch.ones(64, 64) @ torch.ones(64, 64)  # unrelated work between begin and finish
     deferred = job.finish()
     assert deferred == sync and job.finish() is deferred
-    monkeypatch.setenv("WHISPERX_ALIGN_INFLIGHT", "1")
+    monkeypatch.setattr(ta, "MAX_INFLIGHT", 1)
     assert ta.align_begin([dict(s) for s in transcript], tm2, _meta(tm2), audio, "cpu").finish() == sync
     assert telemetry.GLOBAL.stages["align"].calls >= 3
 
 
 def test_host_backtrack_identical_to_device_and_jax(models, monkeypatch):
+    """The port's one walk (the device route) against both of the JAX
+    package's: its device walk and, under its ``WHISPERX_CTC_BACKTRACK=host``,
+    its numpy walk."""
     transcript = [{"start": 0.1, "end": 1.4, "text": " hello there"}, {"start": 1.5, "end": 2.8, "text": " general kenobi"}]
     audio = _audio(5, 3)
-    device, _ = _both(models, transcript, audio)
+    monkeypatch.delenv("WHISPERX_CTC_BACKTRACK", raising=False)
+    device, jdevice = _both(models, transcript, audio)
     monkeypatch.setenv("WHISPERX_CTC_BACKTRACK", "host")
-    host, jhost = _both(models, transcript, audio)
-    assert host == jhost == device
+    again, jhost = _both(models, transcript, audio)
+    assert device == again == jdevice == jhost
+
+
+def test_align_takes_the_device_walk_whatever_the_jax_variable_says(models, monkeypatch):
+    """``WHISPERX_CTC_BACKTRACK=host`` is the JAX package's: the port's
+    ``align_begin`` still runs one ``ctc_align_batch_device`` a batch."""
+    _, tm = models
+    calls = []
+    walk = ta.ctc_align_batch_device
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return walk(*args, **kw)
+
+    monkeypatch.setattr(ta, "ctc_align_batch_device", counted)
+    monkeypatch.setenv("WHISPERX_CTC_BACKTRACK", "host")
+    tm2 = dataclasses.replace(tm, max_batch=2)
+    transcript = [{"start": 2.0 * i + 0.1, "end": 2.0 * i + 1.9, "text": " " + w} for i, w in enumerate(WORDS)]
+    out = ta.align(transcript, tm2, _meta(tm2), _audio(6, 10), "cpu")
+    assert calls == [2, 2, ta._ladder_rows(1, 2)]  # five segments: two full batches and one on the ladder
+    assert all(seg["words"] for seg in out["segments"])
+
+
+@pytest.mark.parametrize("seconds,padded", [(0.3, 1), (1.0, 1), (1.2, 2)])
+def test_bucket_len_pads_to_whole_seconds(seconds, padded):
+    assert ta._bucket_len(int(seconds * SR)) == padded * SR
 
 
 def test_int16_uploads_equal_float(monkeypatch):
     """A large-style model (conv bias: not scale-invariant) on int16-grid
-    audio: int16 uploads divided on the device give the float result, for
-    the device and the host backtrack, and equal the JAX package's."""
+    audio: int16 uploads divided on the device give the float result, and
+    equal the JAX package's with its device walk and with its host walk."""
     cfg = dataclasses.replace(
         WAV2VEC2_LARGE, name="test-tiny", vocab_size=29, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64,
         conv_layers=((16, 10, 5), (16, 3, 2), (16, 2, 2)), num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
@@ -133,13 +162,13 @@ def test_int16_uploads_equal_float(monkeypatch):
 
     def run(int16, backtrack):
         monkeypatch.setenv("WHISPERX_WAV_INT16", "1" if int16 else "0")
-        monkeypatch.setenv("WHISPERX_CTC_BACKTRACK", backtrack)
+        monkeypatch.setenv("WHISPERX_CTC_BACKTRACK", backtrack)  # the JAX package's walk
         return _both((jm, tm), transcript, audio)
 
     got16, want16 = run(True, "device")
     got32, _ = run(False, "device")
-    host16, _ = run(True, "host")
-    assert got16 == got32 == host16 == want16
+    _, jhost16 = run(True, "host")
+    assert got16 == got32 == want16 == jhost16
     assert got16["word_segments"] and "start" in got16["word_segments"][0]
 
 

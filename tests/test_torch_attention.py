@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu.ops import attention as ja
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.configs import TEST_CONFIG
@@ -46,9 +47,10 @@ def test_naive_matches_jax_naive(T, masked):
 
 @pytest.mark.parametrize("T", [512, 200])
 @pytest.mark.parametrize("masked", [False, True])
-def test_flash_plain_matches_jax_naive_and_pallas_flash(T, masked):
+def test_flash_plain_matches_jax_naive_and_pallas_flash(monkeypatch, T, masked):
     """bf16 inputs (the kernel's type) on both sides; the port's flash route
     on CPU tensors is the kernel's plain version."""
+    force_routes(monkeypatch, attn="flash")
     q, k, v = _qkv(2, T, 2, 64, seed=T + 1)
     mask = _mask(2, T, [T, 77]) if masked else None
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
@@ -57,7 +59,7 @@ def test_flash_plain_matches_jax_naive_and_pallas_flash(T, masked):
     pallas = np.asarray(ja.fused_self_attention(jq, jk, jv, jmask, impl="flash", interpret=True).astype(jnp.float32))
     tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
     before = flash_attn.launches
-    got = ta.fused_self_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask), impl="flash")
+    got = ta.fused_self_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
     assert got.dtype == torch.bfloat16 and flash_attn.launches == before  # CPU: no launch
     got = got.float().numpy()
     np.testing.assert_allclose(got, naive, atol=2e-3, rtol=2e-3)
@@ -65,16 +67,16 @@ def test_flash_plain_matches_jax_naive_and_pallas_flash(T, masked):
 
 
 def test_resolve_attn_impl_matches_jax(monkeypatch):
+    """On CPU tensors the port's rule gives the JAX package's default route,
+    "xla". ``WHISPERX_ATTN`` moves the JAX package's route and not the
+    port's, which reads no variable."""
     monkeypatch.delenv("WHISPERX_ATTN", raising=False)
-    for impl in ("auto", "xla", "flash"):
-        assert ta.resolve_attn_impl(impl) == ja.resolve_attn_impl(impl)
-    assert ta.resolve_attn_impl() == "xla"
-    with pytest.raises(ValueError, match="unknown attention impl"):
-        ta.resolve_attn_impl("pallas")
+    for facts in ((torch.device("cpu"), torch.bfloat16, 64), (torch.device("cpu"), torch.float32, 64)):
+        assert ta.resolve_attn_impl(*facts) == ja.resolve_attn_impl("auto") == "xla"
     for env in ("flash", "xla"):
         monkeypatch.setenv("WHISPERX_ATTN", env)
-        for impl in ("auto", "xla", "flash"):
-            assert ta.resolve_attn_impl(impl) == ja.resolve_attn_impl(impl) == env
+        assert ja.resolve_attn_impl("auto") == env
+        assert ta.resolve_attn_impl(torch.device("cpu"), torch.bfloat16, 64) == "xla"
 
 
 def test_flash_contract():
@@ -92,25 +94,25 @@ def test_flash_contract():
     assert torch.equal(out, torch.zeros_like(out))
 
 
-def test_set_attn_impl_and_whisper_encoder_flash():
+def test_set_attn_impl_and_whisper_encoder_flash(monkeypatch):
     """The Whisper encoder at bf16 through the flash route stays within bf16
-    noise of its "xla" route (same weights, same mel)."""
+    noise of its "xla" route (same weights, same mel), each forced through
+    the tests' seam; no model option picks the route."""
     cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
     params = tw.random_params(cfg, seed=0, scale=0.05)
-    model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, attn_impl="flash", device="cpu")
-    assert model.encoder.layers[0].attn.attn_impl == "flash"
+    model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cpu")
     mel = torch.from_numpy((np.random.default_rng(0).standard_normal((2, cfg.n_mels, 3000)) * 0.5).astype(np.float32))
     with torch.no_grad():
+        force_routes(monkeypatch, attn="flash")
         flash = model.encode(mel).float()
-        ta.set_attn_impl(model, "xla")
-        assert all(m.attn_impl == "xla" for m in model.modules() if hasattr(m, "attn_impl"))
+        force_routes(monkeypatch, attn="xla")
         xla = model.encode(mel).float()
     assert torch.isfinite(flash).all()
     # Two bf16 layers apart in where the weights are rounded: a few bf16 ulps.
     torch.testing.assert_close(flash, xla, atol=0.1, rtol=0.05)
     assert (flash - xla).abs().mean() < 0.01
-    with pytest.raises(ValueError):
-        ta.set_attn_impl(model, "pallas")
+    with pytest.raises(ValueError, match="attn_impl"):
+        tw.Whisper(cfg, dtype=torch.bfloat16, attn_impl="flash", device="cpu")
 
 
 # ---- gradients (training): the stock kernel's custom_vjp against the port's ----
@@ -127,15 +129,15 @@ def _grad_inputs(T, lengths, seed):
     return q, k, v, dout, mask
 
 
-def _port_grads(q, k, v, dout, mask, impl="flash"):
+def _port_grads(q, k, v, dout, mask):
     tq, tk, tv = (torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v))
-    out = ta.fused_self_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask), impl=impl)
+    out = ta.fused_self_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
     out.backward(torch.from_numpy(dout).bfloat16())
     return out, tuple(t.grad for t in (tq, tk, tv))
 
 
 @pytest.mark.parametrize("T,lengths", GRAD_CASES)
-def test_flash_grads_match_jax_stock_kernels(T, lengths):
+def test_flash_grads_match_jax_stock_kernels(monkeypatch, T, lengths):
     """bf16 ``jax.grad`` through the stock flash kernel (its forward with
     residuals and both backward kernels, interpreted) against the port's
     autograd through ``FlashAttention`` (the plain versions on the CPU).
@@ -159,6 +161,7 @@ def test_flash_grads_match_jax_stock_kernels(T, lengths):
     with pltpu.force_tpu_interpret_mode():
         want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
     before = (flash_attn.launches, flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv)
+    force_routes(monkeypatch, attn="flash")
     _, got = _port_grads(q, k, v, dout, mask)
     assert (flash_attn.launches, flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv) == before  # CPU: no launch
     rows = [b for b in range(2) if mask is None or mask[b].any()]

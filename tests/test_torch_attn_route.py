@@ -1,4 +1,4 @@
-"""The encoders' self-attention route: which path "auto" takes, and what wins.
+"""The encoders' self-attention route: which path the rule takes.
 
 ``ops/attention.py:resolve_attn_impl`` decides from what the call's tensors
 show (device, dtype, head dim), so these cases need no card: a CUDA device
@@ -11,55 +11,60 @@ import dataclasses
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu_torch.ops import attention as ta
 from whisperx_tpu_torch.ops import flash_attn
 
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 
-# (device, dtype, head dim, impl, WHISPERX_ATTN) → route
+# (device, dtype, head dim, WHISPERX_ATTN) → route
 CASES = [
-    # "auto" on the card takes the kernel for bf16 heads of 64.
-    ("cuda", BF16, 64, "auto", None, "flash"),  # Whisper large-v2 and wav2vec2 base, whole or split over ranks
-    ("cuda:1", BF16, 64, "auto", None, "flash"),  # another card
-    # Everywhere else "auto" keeps the JAX package's default.
-    ("cpu", BF16, 64, "auto", None, "xla"),
-    ("cpu", F32, 64, "auto", None, "xla"),
-    ("cuda", F32, 64, "auto", None, "xla"),  # an fp32 model: the kernel takes bf16
-    ("cuda", F16, 64, "auto", None, "xla"),
-    ("cuda", BF16, 32, "auto", None, "xla"),  # heads of 32
-    ("cuda", BF16, 80, "auto", None, "xla"),
-    ("cuda", BF16, 128, "auto", None, "xla"),
-    (None, None, None, "auto", None, "xla"),  # no tensors: the JAX package's answer
-    # An explicit route is kept, on any device, dtype and head dim.
-    ("cuda", BF16, 64, "xla", None, "xla"),
-    ("cpu", F32, 32, "flash", None, "flash"),
-    (None, None, None, "flash", None, "flash"),
-    # WHISPERX_ATTN wins over the impl, both ways; other values are ignored.
-    ("cuda", BF16, 64, "auto", "xla", "xla"),
-    ("cuda", BF16, 64, "flash", "xla", "xla"),
-    ("cpu", F32, 64, "auto", "flash", "flash"),
-    ("cpu", BF16, 64, "xla", "flash", "flash"),
-    ("cuda", BF16, 64, "auto", "auto", "flash"),
-    ("cpu", BF16, 64, "auto", "auto", "xla"),
-    ("cuda", BF16, 64, "xla", "kernel", "xla"),
+    # The card takes the kernel for bf16 heads of 64.
+    ("cuda", BF16, 64, None, "flash"),  # Whisper large-v2 and wav2vec2 base, whole or split over ranks
+    ("cuda:1", BF16, 64, None, "flash"),  # another card
+    # Everywhere else the JAX package's default.
+    ("cpu", BF16, 64, None, "xla"),
+    ("cpu", F32, 64, None, "xla"),
+    ("cuda", F32, 64, None, "xla"),  # an fp32 model: the kernel takes bf16
+    ("cuda", F16, 64, None, "xla"),
+    ("cuda", BF16, 32, None, "xla"),  # heads of 32
+    ("cuda", BF16, 80, None, "xla"),
+    ("cuda", BF16, 128, None, "xla"),
+    ("meta", BF16, 64, None, "xla"),  # no card behind the tensors
+    # WHISPERX_ATTN is the JAX package's variable, which its tests set in
+    # the same process: the port's rule reads none, whatever its value.
+    ("cuda", BF16, 64, "xla", "flash"),
+    ("cuda:1", BF16, 64, "xla", "flash"),
+    ("cpu", F32, 64, "flash", "xla"),
+    ("cpu", BF16, 64, "flash", "xla"),
+    ("cuda", BF16, 64, "auto", "flash"),
+    ("cpu", BF16, 64, "auto", "xla"),
+    ("cuda", BF16, 64, "kernel", "flash"),
 ]
 
 
-@pytest.mark.parametrize("device,dtype,head_dim,impl,env,want", CASES)
-def test_attn_route(monkeypatch, device, dtype, head_dim, impl, env, want):
+@pytest.mark.parametrize("device,dtype,head_dim,env,want", CASES)
+def test_attn_route(monkeypatch, device, dtype, head_dim, env, want):
     if env is None:
         monkeypatch.delenv("WHISPERX_ATTN", raising=False)
     else:
         monkeypatch.setenv("WHISPERX_ATTN", env)
-    facts = () if device is None else (torch.device(device), dtype, head_dim)
-    assert ta.resolve_attn_impl(impl, *facts) == want
+    assert ta.resolve_attn_impl(torch.device(device), dtype, head_dim) == want
 
 
-def test_attn_route_refuses_an_unknown_impl(monkeypatch):
-    monkeypatch.delenv("WHISPERX_ATTN", raising=False)
-    for facts in ((), (torch.device("cuda"), BF16, 64), (torch.device("cpu"), F32, 64)):
-        with pytest.raises(ValueError, match="unknown attention impl"):
-            ta.resolve_attn_impl("pallas", *facts)
+@pytest.mark.parametrize("model", ["whisper", "wav2vec2"])
+def test_attn_route_refuses_an_unknown_impl(model):
+    """``Whisper`` and ``Wav2Vec2ForCTC`` take ``attn_impl="auto"`` alone: no
+    value picks a route."""
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_TEST
+    from whisperx_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+    from whisperx_tpu_torch.models.whisper import Whisper
+
+    cls, cfg = {"whisper": (Whisper, TEST_CONFIG), "wav2vec2": (Wav2Vec2ForCTC, WAV2VEC2_TEST)}[model]
+    for impl in ("xla", "flash", "pallas"):
+        with pytest.raises(ValueError, match="attn_impl"):
+            cls(cfg, attn_impl=impl, device="cpu")
+    assert not any(hasattr(m, "attn_impl") for m in cls(cfg, attn_impl="auto", device="cpu").modules())
 
 
 @pytest.fixture
@@ -77,7 +82,6 @@ def routes(monkeypatch):
 
     monkeypatch.setattr(ta, "_naive", counted("xla", naive))
     monkeypatch.setattr(ta, "flash_attention", counted("flash", flash))
-    monkeypatch.delenv("WHISPERX_ATTN", raising=False)
     return calls
 
 
@@ -104,17 +108,16 @@ def _wav2vec2():
 
 
 @pytest.mark.parametrize("build", [_whisper_encoder, _wav2vec2], ids=["whisper_encoder", "wav2vec2"])
-def test_cpu_bf16_encoders_keep_the_naive_path_under_auto(routes, build):
-    """A bf16 encoder with heads of 64 on the CPU, built with the default
-    "auto", runs ``_naive`` once a layer and never the flash path: the rule
-    takes the kernel only on a CUDA device. An explicit "flash" on the same
-    model takes the flash path, and launches nothing on the CPU."""
+def test_cpu_bf16_encoders_keep_the_naive_path_under_auto(monkeypatch, routes, build):
+    """A bf16 encoder with heads of 64 on the CPU runs ``_naive`` once a
+    layer and never the flash path: the rule takes the kernel only on a
+    CUDA device. Forced to "flash" (the tests' seam), the same model takes
+    the flash path, and launches nothing on the CPU."""
     model, forward, n_layers = build()
-    assert {m.attn_impl for m in model.modules() if hasattr(m, "attn_impl")} == {"auto"}
     before = flash_attn.launches
     with torch.inference_mode():
         forward()
         assert routes == {"xla": n_layers, "flash": 0}
-        ta.set_attn_impl(model, "flash")
+        force_routes(monkeypatch, attn="flash")
         forward()
     assert routes == {"xla": n_layers, "flash": n_layers} and flash_attn.launches == before

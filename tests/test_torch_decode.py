@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu.decode.engine import WhisperEngine as JEngine
 from whisperx_tpu.decode.tokenizer import WhisperTokenizer as JTokenizer
 from whisperx_tpu.models.configs import TEST_CONFIG
@@ -48,9 +49,10 @@ def test_slice_tokens_match_jax(engines, monkeypatch, beam, cross):
     jengine, jparams, tengine, mel = engines
     monkeypatch.setenv("WHISPERX_INT8_MM", "pallas")
     monkeypatch.delenv("WHISPERX_CROSS_ATTN", raising=False)
+    force_routes(monkeypatch, cross=cross)
     kw = dict(beam_size=beam, max_new_tokens=6, kv_cache_dtype="int8")
     jopts = dataclasses.replace(jengine.build_options(**kw), cross_attn=cross)
-    topts = dataclasses.replace(tengine.build_options(**kw), cross_attn=cross)
+    topts = tengine.build_options(**kw)
     want = jengine.generate(jparams, jnp.asarray(mel), options=jopts)
     got = tengine.generate(torch.from_numpy(mel), options=topts)
     np.testing.assert_array_equal(got.tokens, want.tokens)
@@ -70,13 +72,11 @@ def test_beam_differs_from_greedy_on_this_model(engines):
     assert (beam.sum_logprobs >= greedy.sum_logprobs - 1e-4).all()
 
 
-def test_cpu_slice_launches_no_kernel(engines):
+def test_cpu_slice_launches_no_kernel(engines, monkeypatch):
     _, _, tengine, mel = engines
     before = (int8_mm.launches, cross_attn.launches)
-    opts = dataclasses.replace(
-        tengine.build_options(beam_size=2, max_new_tokens=2, kv_cache_dtype="int8"), cross_attn="pallas"
-    )
-    res = tengine.generate(mel, options=opts)
+    force_routes(monkeypatch, cross="pallas")
+    res = tengine.generate(mel, options=tengine.build_options(beam_size=2, max_new_tokens=2, kv_cache_dtype="int8"))
     assert res.tokens.shape == (2, 2) and np.isfinite(res.sum_logprobs).all()
     assert (int8_mm.launches, cross_attn.launches) == before
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu.decode.engine import WhisperEngine as JEngine
 from whisperx_tpu.decode.tokenizer import WhisperTokenizer as JTokenizer
 from whisperx_tpu.models import whisper as jw
@@ -87,8 +88,9 @@ def _assert_same(pair, mel, monkeypatch, **kw):
     monkeypatch.setenv("WHISPERX_INT8_MM", "pallas")
     monkeypatch.delenv("WHISPERX_CROSS_ATTN", raising=False)
     cross = kw.pop("cross")
+    force_routes(monkeypatch, cross=cross)
     jopts = dataclasses.replace(jengine.build_options(max_new_tokens=6, **kw), cross_attn=cross)
-    topts = dataclasses.replace(tengine.build_options(max_new_tokens=6, **kw), cross_attn=cross)
+    topts = tengine.build_options(max_new_tokens=6, **kw)
     want = jengine.generate(jparams, jnp.asarray(mel), options=jopts)
     got = tengine.generate(torch.from_numpy(mel), options=topts)
     np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))

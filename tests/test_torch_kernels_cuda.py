@@ -8,6 +8,7 @@ Every test needs a CUDA device and skips without one.
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu_torch.audio import log_mel_spectrogram
 from whisperx_tpu_torch.models.whisper import flat_cross_kv, pack_int4, unpack_int4
 from whisperx_tpu_torch.ops import cross_attn, ctc, flash_attn, int8_mm, mel
@@ -360,7 +361,8 @@ def test_device_loop_equals_host_loop(gen, monkeypatch, beam, cross):
     model = whisper_from_jax(params, cfg, device="cuda")
     tok = WhisperTokenizer.dummy(cfg.n_vocab, language="en")
     engine = WhisperEngine(model, tok)
-    opts = dataclasses.replace(engine.build_options(beam_size=beam, max_new_tokens=24, kv_cache_dtype="int8"), cross_attn=cross)
+    force_routes(monkeypatch, cross=cross)
+    opts = engine.build_options(beam_size=beam, max_new_tokens=24, kv_cache_dtype="int8")
     mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
     assert engine.uses_device_loop(opts)
     graph_loop.reset_counts()
@@ -376,11 +378,11 @@ def test_device_loop_equals_host_loop(gen, monkeypatch, beam, cross):
 
 @pytest.mark.cuda
 def test_default_options_take_the_cross_attention_kernel_in_the_device_loop(gen, monkeypatch):
-    """A bf16 int8 Whisper with the default options ("auto") runs its beam
-    loop's cross attention on the kernel: the captured step launches
-    cross_attention_decode once a decoder layer, the ``decode.loop`` span
-    counts as many, and the tokens and statistics are those of an explicit
-    ``cross_attn="pallas"``."""
+    """A bf16 int8 Whisper with the default options runs its beam loop's
+    cross attention on the kernel: the captured step launches
+    cross_attention_decode once a decoder layer and the ``decode.loop`` span
+    counts as many. The einsum, forced through the tests' seam, is a loop
+    of its own under its own key and launches none."""
     import dataclasses
 
     from whisperx_tpu_torch.decode.engine import WhisperEngine
@@ -389,32 +391,33 @@ def test_default_options_take_the_cross_attention_kernel_in_the_device_loop(gen,
     from whisperx_tpu_torch.models.configs import TEST_CONFIG
     from whisperx_tpu_torch.models.convert import whisper_from_jax
 
-    monkeypatch.delenv("WHISPERX_CROSS_ATTN", raising=False)
     cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
     params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
     model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
     engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
     opts = engine.build_options(beam_size=5, max_new_tokens=24, kv_cache_dtype="int8")
-    assert opts.cross_attn == "auto" and engine._cross_impl(opts) == "pallas"
+    assert engine._cross_impl(opts) == "pallas"
     mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
     got = engine.generate(mel, options=opts)
     ((key, (_, cross, graph)),) = model.decode_loops.items()
     assert key[-1] == "pallas" and all(isinstance(kv, tw.FlatCrossKV) for kv in cross)
     assert graph.body_launches["cross_attention_decode"] == cfg.n_text_layer
     assert got.loop_span.counts["cross_attn_per_step"] == cfg.n_text_layer
-    want = engine.generate(mel, options=dataclasses.replace(opts, cross_attn="pallas"))
-    assert len(model.decode_loops) == 2 and want.loop_span.counts["cross_attn_per_step"] == cfg.n_text_layer
-    assert (got.tokens == want.tokens).all() and (got._stats == want._stats).all()
-    einsum = engine.generate(mel, options=dataclasses.replace(opts, cross_attn="xla"))
+    again = engine.generate(mel, options=opts)
+    assert len(model.decode_loops) == 1 and again.loop_span.counts["cross_attn_per_step"] == cfg.n_text_layer
+    assert (got.tokens == again.tokens).all() and (got._stats == again._stats).all()
+    force_routes(monkeypatch, cross="xla")
+    einsum = engine.generate(mel, options=opts)
     assert einsum.loop_span.counts["cross_attn_per_step"] == 0
+    assert len(model.decode_loops) == 2 and list(model.decode_loops)[-1][-1] == "xla"
 
 
 @pytest.mark.cuda
 def test_default_options_take_the_flash_kernel_in_both_encoders(gen, monkeypatch):
-    """Built with the default "auto", a bf16 Whisper encoder and a bf16
-    wav2vec2 base (heads of 64) run their self-attention on the flash kernel:
-    one launch a layer, an output bit-equal to an explicit "flash", none
-    under "xla". Through the pipeline, each ``asr.prepare`` span counts the
+    """A bf16 Whisper encoder and a bf16 wav2vec2 base (heads of 64) run
+    their self-attention on the flash kernel: one launch a layer, an output
+    bit-equal to "flash" forced through the tests' seam, none under a forced
+    "xla". Through the pipeline, each ``asr.prepare`` span counts the
     Whisper encoder's launches and each ``align.emissions`` span wav2vec2
     base's 12."""
     import dataclasses
@@ -427,17 +430,14 @@ def test_default_options_take_the_flash_kernel_in_both_encoders(gen, monkeypatch
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import TEST_CONFIG, WAV2VEC2_BASE
     from whisperx_tpu_torch.models.convert import whisper_from_jax
-    from whisperx_tpu_torch.ops.attention import set_attn_impl
     from whisperx_tpu_torch.pipeline.asr import TranscriptionOptions, WhisperPipeline
     from whisperx_tpu_torch.utils import telemetry
     from whisperx_tpu_torch.vad.model import EnergyVAD, VadPipeline
 
-    monkeypatch.delenv("WHISPERX_ATTN", raising=False)
     cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
     params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
     model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
     am = alignment.test_align_model("en", seed=0, config=WAV2VEC2_BASE, dtype=torch.bfloat16, device="cuda")
-    assert {m.attn_impl for net in (model, am.model) for m in net.modules() if hasattr(m, "attn_impl")} == {"auto"}
 
     def launched(fn):
         before = flash_attn.launches
@@ -449,11 +449,11 @@ def test_default_options_take_the_flash_kernel_in_both_encoders(gen, monkeypatch
     with torch.inference_mode():
         got, n = launched(lambda: model.encode(mel))
         assert n == cfg.n_audio_layer
-        set_attn_impl(model, "flash")
+        force_routes(monkeypatch, attn="flash")
         assert torch.equal(got, model.encode(mel))
-        set_attn_impl(model, "xla")
+        force_routes(monkeypatch, attn="xla")
         assert launched(lambda: model.encode(mel))[1] == 0
-    set_attn_impl(model, "auto")
+    monkeypatch.undo()  # the rule again
 
     # Tone bursts 4 s apart: one VAD chunk each at chunk_size=5.
     rng, parts = np.random.default_rng(0), []
@@ -479,9 +479,9 @@ def test_default_options_take_the_flash_kernel_in_both_encoders(gen, monkeypatch
     assert len(segs) == 5 and len(prepare) == 3 and len(emissions) == 1
     assert prepare == [cfg.n_audio_layer] * 3 and sum(prepare) == n_asr
     assert emissions == [WAV2VEC2_BASE.num_layers] == [12] and n_align == 12
-    set_attn_impl(am.model, "flash")
+    force_routes(monkeypatch, attn="flash")
     assert alignment.align([dict(s) for s in segs], am, meta, audio, "cuda") == aligned
-    set_attn_impl(am.model, "xla")
+    force_routes(monkeypatch, attn="xla")
     assert launched(lambda: alignment.align([dict(s) for s in segs], am, meta, audio, "cuda"))[1] == 0
 
 

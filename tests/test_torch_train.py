@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu import train as jtrain
 from whisperx_tpu.models.configs import TEST_CONFIG
 from whisperx_tpu.models.whisper import Whisper as JWhisper
@@ -53,14 +54,14 @@ def _jax_run(params, mel, tokens, mask, dtype):
     return losses, _flat(p)
 
 
-def _port_model(params, dtype, impl="xla"):
-    return whisper_from_jax(params, SMALL, dtype=dtype, attn_impl=impl, device="cpu").trainable()
+def _port_model(params, dtype):
+    return whisper_from_jax(params, SMALL, dtype=dtype, device="cpu").trainable()
 
 
-def _port_run(params, mel, tokens, mask, dtype, impl="xla"):
+def _port_run(params, mel, tokens, mask, dtype):
     """The port's train step, STEPS times: (losses, params after, the first
     step's gradients as a flat JAX-layout dict)."""
-    model = _port_model(params, dtype, impl)
+    model = _port_model(params, dtype)
     step = ttrain.make_train_step(model, ttrain.make_optimizer(model.parameters(), lr=LR))
     losses, grads = [], None
     for i in range(STEPS):
@@ -158,7 +159,7 @@ def test_bf16_xla_train_step_matches_jax(batch):
     _assert_bf16_params_close(got, want, _flat(params), "bf16 xla vs JAX")
 
 
-def test_bf16_flash_train_step_matches_xla_step(batch):
+def test_bf16_flash_train_step_matches_xla_step(monkeypatch, batch):
     """The port's bf16 "flash" step (gradients through ``FlashAttention``,
     the backward kernels' plain versions here) against its bf16 "xla" step:
     losses within 5e-4 relative (measured 1.6e-4 at the third step),
@@ -166,11 +167,13 @@ def test_bf16_flash_train_step_matches_xla_step(batch):
     projections (what the flash backward feeds) within 2% relative L2
     (measured 0.5%). The whole bf16 flash step is not held against JAX's
     interpreted one (minutes on the CPU): the stock kernels' gradients are
-    held to the port's in ``test_torch_attention.py``."""
+    held to the port's in ``test_torch_attention.py``. The CPU's rule gives
+    "xla"; the tests' seam forces "flash"."""
     params, mel, tokens, mask = batch
-    xla_losses, xla, xla_grads = _port_run(params, mel, tokens, mask, torch.bfloat16, "xla")
+    xla_losses, xla, xla_grads = _port_run(params, mel, tokens, mask, torch.bfloat16)
     before = (flash_attn.launches, flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv)
-    losses, got, grads = _port_run(params, mel, tokens, mask, torch.bfloat16, "flash")
+    force_routes(monkeypatch, attn="flash")
+    losses, got, grads = _port_run(params, mel, tokens, mask, torch.bfloat16)
     assert (flash_attn.launches, flash_attn.launches_bwd_dq, flash_attn.launches_bwd_dkv) == before  # CPU: plain
     np.testing.assert_allclose(losses, xla_losses, rtol=5e-4)
     _assert_bf16_grads_close(grads, xla_grads, "bf16 flash vs xla")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_routes import force_routes
 from whisperx_tpu.models.configs import WAV2VEC2_LARGE, WAV2VEC2_TEST
 from whisperx_tpu.models.wav2vec2 import Wav2Vec2ForCTC as JW2V
 from whisperx_tpu.models.wav2vec2 import init_wav2vec2_params
@@ -94,19 +95,19 @@ def test_random_params_tree_matches_flax_init(flax_params, norm):
     assert model.layers[0].attention.q_proj.kernel.shape == (cfg.hidden_size, cfg.hidden_size)
 
 
-def test_flash_route_matches_xla_at_bf16():
+def test_flash_route_matches_xla_at_bf16(monkeypatch):
     """wav2vec2 with a 64-wide head (the flash kernel's) and padded rows:
-    the flash route (its plain version on CPU) against the "xla" route."""
+    the flash route (its plain version on CPU) against the "xla" route, each
+    forced through the tests' seam."""
     cfg = Wav2Vec2Config(name="test-128", vocab_size=32, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
-    model = wav2vec2_from_jax(tw2.random_params(cfg, seed=1), cfg, dtype=torch.bfloat16, attn_impl="flash", device="cpu")
+    model = wav2vec2_from_jax(tw2.random_params(cfg, seed=1), cfg, dtype=torch.bfloat16, device="cpu")
     rng = np.random.default_rng(1)
     x = torch.from_numpy((rng.standard_normal((2, 16000)) * 0.1).astype(np.float32))
     lens = torch.tensor([16000, 6000])
     with torch.no_grad():
+        force_routes(monkeypatch, attn="flash")
         flash = model(x, lens)
-        for m in model.modules():
-            if hasattr(m, "attn_impl"):
-                m.attn_impl = "xla"
+        force_routes(monkeypatch, attn="xla")
         xla = model(x, lens)
     valid = torch.arange(flash.shape[1])[None, :] < model.feature_lengths(lens)[:, None]
     assert torch.isfinite(flash).all()

@@ -7,12 +7,12 @@ semantics, word/sentence aggregation, NaN interpolation, same-timestamp
 sentence merging and degraded-output fallbacks.
 
 Alignable segments are sorted by length and packed into padded batches
-(length buckets of ``WHISPERX_ALIGN_BUCKET_S`` seconds, tail batches on the
-halving ladder); for each batch one device function runs int16 → float
+(length buckets of :data:`BUCKET_S` seconds, tail batches on the halving
+ladder); for each batch one device function runs int16 → float
 audio, wav2vec2 emissions, the CTC trellis and the backtrack, and returns a
 small (3, B, T'+1) pack that is fetched to the host once. ``align_begin``
 launches every batch without waiting (PyTorch's launches are asynchronous;
-uploads go through pinned memory) and keeps at most ``WHISPERX_ALIGN_INFLIGHT``
+uploads go through pinned memory) and keeps at most :data:`MAX_INFLIGHT`
 packs pending; ``AlignJob.finish()`` fetches them and aggregates on the host.
 
 ``load_align_model`` reads a local HF wav2vec2-CTC checkpoint
@@ -44,11 +44,16 @@ from ..io.types import AlignedTranscriptionResult, SingleAlignedSegment, SingleS
 from ..models.configs import WAV2VEC2_TEST
 from ..models.wav2vec2 import Wav2Vec2ForCTC
 from ..ops import flash_attn
-from ..ops.ctc import PathPoint, align_tokens_batch, ctc_align_batch_device, merge_repeats
+from ..ops.ctc import PathPoint, ctc_align_batch_device, merge_repeats
 from ..parallel.mesh import axis_size, gather_rows, mesh_device, shard_batch
 from ..utils import interpolate_nans, telemetry
 from .registry import TORCH_BUNDLE_TO_HF, default_align_model
 from .sentences import PUNKT_ABBREVIATIONS, sentence_spans
+
+# Align batches pad their audio to a multiple of BUCKET_S seconds, and
+# align_begin keeps at most MAX_INFLIGHT launched batches unfetched.
+BUCKET_S = 1
+MAX_INFLIGHT = 8
 
 
 @dataclass
@@ -84,10 +89,7 @@ def shard_align_model(align_model: AlignModel, mesh) -> AlignModel:
     if align_model.mesh is not None:
         raise ValueError("shard_align_model: the align model is already on a mesh")
     m = align_model.model
-    model = wav2vec2_from_jax(
-        whisper_to_jax(m), m.config, dtype=m.dtype, attn_impl=m.layers[0].attention.attn_impl,
-        device=mesh_device(mesh), mesh=mesh,
-    )
+    model = wav2vec2_from_jax(whisper_to_jax(m), m.config, dtype=m.dtype, device=mesh_device(mesh), mesh=mesh)
     # Round the batch up to a data-axis multiple so rows tile the mesh.
     n_data = axis_size(mesh, "data")
     max_batch = -(-align_model.max_batch // n_data) * n_data
@@ -143,7 +145,6 @@ def test_align_model(
     config=None,
     dtype: torch.dtype = None,
     *,
-    attn_impl: str = "auto",
     device: DeviceLike = None,
 ) -> AlignModel:
     """Random-weight align model with an a-z dictionary (tests/benchmarks).
@@ -156,9 +157,7 @@ def test_align_model(
     from ..models.wav2vec2 import random_params
 
     cfg = config or WAV2VEC2_TEST
-    model = wav2vec2_from_jax(
-        random_params(cfg, seed), cfg, dtype=dtype or torch.float32, attn_impl=attn_impl, device=device
-    )
+    model = wav2vec2_from_jax(random_params(cfg, seed), cfg, dtype=dtype or torch.float32, device=device)
     chars = ["[pad]", "|", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
     dictionary = {c: i for i, c in enumerate(chars)}
     return AlignModel(model, dictionary, language, blank_id=0)
@@ -269,35 +268,9 @@ def _run_rows(align_model: AlignModel, fn, *host_arrays, dim: int = 0) -> torch.
 
 
 def _bucket_len(n: int) -> int:
-    """Pad to the next multiple of WHISPERX_ALIGN_BUCKET_S seconds (default 1 s)."""
-    b = int(float(os.environ.get("WHISPERX_ALIGN_BUCKET_S", "1")) * SAMPLE_RATE)
+    """Pad to the next multiple of :data:`BUCKET_S` seconds."""
+    b = BUCKET_S * SAMPLE_RATE
     return max(b, -(-n // b) * b)
-
-
-@torch.inference_mode()
-def _batched_emissions(align_model: AlignModel, slices: List[np.ndarray]):
-    """Run wav2vec2 over length-sorted padded batches → per-segment
-    (log_probs (T', V), T') on the host."""
-    model = align_model.model
-    order = sorted(range(len(slices)), key=lambda i: len(slices[i]))
-    results: List[Any] = [None] * len(slices)
-    B = align_model.max_batch
-    for i in range(0, len(order), B):
-        batch_idx = order[i : i + B]
-        max_len = _bucket_len(max(len(slices[j]) for j in batch_idx))
-        rows = _ladder_rows(len(batch_idx), B, align_model.mesh)
-        # Keep the slices' dtype: int16 PCM is rescaled on the device.
-        wavs = np.zeros((rows, max_len), slices[batch_idx[0]].dtype)
-        lens = np.zeros((rows,), np.int64)
-        for row, j in enumerate(batch_idx):
-            wavs[row, : len(slices[j])] = slices[j]
-            lens[row] = len(slices[j])
-        lens = np.maximum(lens, 400)  # avoid zero-length conv edge on pad rows
-        logp = _run_rows(align_model, lambda w, n: _emissions(model, w, n)[0], wavs, lens).cpu().numpy()
-        frame_lens = model.feature_lengths(lens)
-        for row, j in enumerate(batch_idx):
-            results[j] = (logp[row], int(frame_lens[row]))
-    return results
 
 
 class AlignJob:
@@ -417,34 +390,7 @@ def align_begin(
     paths_by_sdx = {}
     frames_by_sdx = {}
     pendings: List[tuple] = []
-    consume = None
-    host_backtrack = None
-    if alignable and os.environ.get("WHISPERX_CTC_BACKTRACK", "device") == "host":
-        # Two-stage route: emissions to the host, the trellis on the model's
-        # device, the numpy reference walk. Runs at finish() time: it blocks on
-        # device results by construction.
-        def host_backtrack():
-            emissions = _batched_emissions(model, slices)
-            B = model.max_batch
-            for i in range(0, len(alignable), B):
-                idx = list(range(i, min(i + B, len(alignable))))
-                T_max = max(emissions[j][0].shape[0] for j in idx)
-                logp = np.stack(
-                    [np.pad(emissions[j][0], ((0, T_max - emissions[j][0].shape[0]), (0, 0))) for j in idx]
-                )
-                n_real = len(idx)
-                if n_real < B:
-                    logp = np.pad(logp, ((0, B - n_real), (0, 0), (0, 0)))
-                group_tokens = [token_lists[j] for j in idx] + [[model.blank_id or 1]] * (B - n_real)
-                group_tlens = [emissions[j][1] for j in idx] + [1] * (B - n_real)
-                paths = align_tokens_batch(
-                    logp, group_tokens, group_tlens, blank=model.blank_id, backtrack_impl="host", device=model.device
-                )
-                for row, j in enumerate(idx):
-                    paths_by_sdx[alignable[j]] = paths[row]
-                    frames_by_sdx[alignable[j]] = emissions[j][1]
-
-    elif alignable:
+    if alignable:
         B = model.max_batch
         order = sorted(range(len(alignable)), key=lambda k: len(slices[k]))
 
@@ -475,7 +421,6 @@ def align_begin(
                     PathPoint(int(tok_idx[row, x]), int(times[x]), float(probs[row, x])) for x in ks
                 ][::-1]
 
-        max_inflight = max(1, int(os.environ.get("WHISPERX_ALIGN_INFLIGHT", "8")))
         for i in range(0, len(order), B):
             idx = order[i : i + B]
             max_len = _bucket_len(max(len(slices[k]) for k in idx))
@@ -499,8 +444,8 @@ def align_begin(
                 pendings.append((idx, out))
                 # Bound the launch window: each pending batch keeps its upload
                 # alive on the device. Consuming the oldest blocks on a batch
-                # launched WHISPERX_ALIGN_INFLIGHT batches ago.
-                while len(pendings) > max_inflight:
+                # launched MAX_INFLIGHT batches ago.
+                while len(pendings) > MAX_INFLIGHT:
                     consume(pendings.pop(0))
 
     # Telemetry counts only time inside align's own phases: the begin span
@@ -510,8 +455,6 @@ def align_begin(
     def _finish() -> AlignedTranscriptionResult:
         tf = time.perf_counter()
         with telemetry.within(root):
-            if host_backtrack is not None:
-                host_backtrack()
             for pending in pendings:
                 consume(pending)
             with telemetry.span("align.aggregate"):

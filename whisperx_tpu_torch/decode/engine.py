@@ -13,7 +13,6 @@ The weights live in the model, so no call takes a parameter tree.
 from __future__ import annotations
 
 import dataclasses
-import os
 import weakref
 from typing import Optional, Sequence
 
@@ -96,21 +95,15 @@ class DecodeResult:
 _KV_BITS = {"model": 0, "int8": 8, "int4": 4}
 
 
-def resolve_cross_impl(pref: str, device, dtype: torch.dtype, kv_bits: int, width: int, n_head: int) -> str:
-    """The decode cross-attention route for a preference of "auto", "xla"
-    (the einsum path) or "pallas" (``ops/cross_attn.py``'s kernel), given a
-    decoder layer's local ``width`` and ``n_head`` (a rank's heads under
-    tensor parallelism). An explicit route is kept. "auto" takes the kernel
-    where it computes the einsum path's function: on a CUDA device, bf16
-    compute (the kernel reads bf16 queries), cross K/V int8 or in the
-    model's dtype (under the kernel an int4 request gets int8 cross K/V),
-    and shapes inside the kernel's contract (heads of 64, an even head
-    count, a width that is a multiple of 128). Elsewhere "auto" is the
-    einsum path, as the JAX package's TPU default is everywhere."""
-    if pref not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown cross_attn {pref!r}: expected auto|xla|pallas")
-    if pref != "auto":
-        return pref
+def resolve_cross_impl(device, dtype: torch.dtype, kv_bits: int, width: int, n_head: int) -> str:
+    """The decode cross-attention route: "pallas" (``ops/cross_attn.py``'s
+    kernel) or "xla" (the einsum path), given a decoder layer's local
+    ``width`` and ``n_head`` (a rank's heads under tensor parallelism). The
+    kernel is taken where it computes the einsum path's function: on a CUDA
+    device, bf16 compute (the kernel reads bf16 queries), cross K/V int8 or
+    in the model's dtype, and shapes inside the kernel's contract (heads of
+    64, an even head count, a width that is a multiple of 128). Elsewhere
+    the einsum path, as the JAX package's TPU default is everywhere."""
     kernel = (
         torch.device(device).type == "cuda"
         and dtype == torch.bfloat16
@@ -140,16 +133,13 @@ class WhisperEngine:
         return self.model.encode(torch.as_tensor(mel).to(self.device))
 
     def _cross_impl(self, opts: SearchOptions) -> str:
-        """Decode cross-attention impl: WHISPERX_CROSS_ATTN ("xla" or
-        "pallas"), then the options; "auto" by :func:`resolve_cross_impl`
-        over the model and the options. On the card that is the kernel (bf16
-        compute, int8 or bf16 cross K/V), where the JAX package's TPU default
-        is the einsum: here the einsum casts each layer's whole K and V to
-        bf16 every step, and the kernel reads them once."""
-        env = os.environ.get("WHISPERX_CROSS_ATTN", "")
-        pref = env if env in ("pallas", "xla") else opts.cross_attn
+        """Decode cross-attention route, :func:`resolve_cross_impl` over the
+        model and the options. On the card that is the kernel (bf16 compute,
+        int8 or bf16 cross K/V), where the JAX package's TPU default is the
+        einsum: here the einsum casts each layer's whole K and V to bf16
+        every step, and the kernel reads them once."""
         attn = self.model.decoder.layers[0].cross_attn
-        return resolve_cross_impl(pref, self.device, self.model.dtype, self._kv_bits(opts), attn.width, attn.n_head)
+        return resolve_cross_impl(self.device, self.model.dtype, self._kv_bits(opts), attn.width, attn.n_head)
 
     @staticmethod
     def _kv_bits(opts: SearchOptions) -> int:

@@ -54,7 +54,9 @@ NEG_INF = float(np.finfo(np.float32).min)
 
 @dataclass(frozen=True)
 class SearchOptions:
-    """Decode configuration; the same fields as the JAX package's."""
+    """Decode configuration: the JAX package's fields without its route
+    knobs (``cross_attn``, ``topk``); the routes here follow from the model
+    and these options."""
 
     beam_size: int = 5
     patience: float = 1.0
@@ -70,15 +72,6 @@ class SearchOptions:
     # "model" keeps KV in the model compute dtype; "int8" and "int4" quantize
     # the self cache and cross K/V per (token, head) (int4 packed along Dh).
     kv_cache_dtype: str = "model"
-    # Decode cross attention: "xla" → the einsum path; "pallas" → the fused
-    # kernel (ops/cross_attn.py); "auto" → the kernel on the card where it
-    # computes the einsum's function (bf16 compute, int8 or bf16 cross K/V,
-    # the kernel's shapes), else the einsum, the JAX package's TPU default
-    # (decode/engine.py:resolve_cross_impl). WHISPERX_CROSS_ATTN overrides.
-    cross_attn: str = "auto"
-    # Candidate top-k: "auto" and "exact" are the exact top-k ("approx" is a
-    # TPU-only knob and is not ported).
-    topk: str = "auto"
 
 
 # The draw's 32-bit lanes are held in int64: every multiplier is below 2**31
@@ -163,11 +156,6 @@ def _candidate_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     idx, _ = torch.sort(idx, dim=-1)
     vals, order = torch.sort(torch.gather(x, -1, idx), dim=-1, descending=True, stable=True)
     return vals, torch.gather(idx, -1, order)
-
-
-def _check_topk(opts: SearchOptions) -> None:
-    if opts.topk not in ("auto", "exact"):
-        raise ValueError(f"unknown top-k impl {opts.topk!r}: the port has auto|exact")
 
 
 class LoopResult(tuple):
@@ -377,7 +365,6 @@ class BeamLoop(_Loop):
     """
 
     def __init__(self, step_fn, cache, batch: int, vocab: int, prompt_len: int, opts: SearchOptions):
-        _check_topk(opts)
         super().__init__(step_fn, cache, vocab, prompt_len, opts)
         dev, B, K, L = self.device, batch, opts.beam_size, self.max_new
         self.shape = (B, K, vocab)

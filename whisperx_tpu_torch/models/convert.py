@@ -325,14 +325,13 @@ def load_whisper(
     dtype: torch.dtype = torch.float32,
     cache_dir: Optional[str] = None,
     *,
-    attn_impl: str = "auto",
     device: DeviceLike = None,
 ):
     """Local HF Whisper checkpoint → (port ``Whisper`` holding the weights,
     config). ``device=None`` means the card."""
     device = resolve_device(device)
     params, config = read_whisper(name_or_path, dtype, cache_dir)
-    return whisper_from_jax(params, config, dtype=dtype, attn_impl=attn_impl, device=device), config
+    return whisper_from_jax(params, config, dtype=dtype, device=device), config
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +417,6 @@ def load_wav2vec2(
     cache_dir: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
     *,
-    attn_impl: str = "auto",
     device: DeviceLike = None,
 ):
     """Local HF wav2vec2-CTC checkpoint → (port ``Wav2Vec2ForCTC`` holding
@@ -439,7 +437,7 @@ def load_wav2vec2(
     params = convert_wav2vec2(load_state_dict(path), config)
     with open(os.path.join(path, "vocab.json")) as f:
         dictionary = json.load(f)
-    return wav2vec2_from_jax(params, config, dtype=dtype, attn_impl=attn_impl, device=device), dictionary
+    return wav2vec2_from_jax(params, config, dtype=dtype, device=device), dictionary
 
 
 # ---------------------------------------------------------------------------
@@ -715,7 +713,6 @@ def whisper_from_jax(
     config: WhisperConfig,
     *,
     dtype: torch.dtype = torch.float32,
-    attn_impl: str = "auto",
     quant_bits: Optional[int] = None,
     device: DeviceLike = None,
     mesh=None,
@@ -740,8 +737,7 @@ def whisper_from_jax(
     if quant_bits is None:
         quant_bits = 4 if any(_is_int4(leaf) for _, leaf in _flatten(params)) else 8
     model = Whisper(
-        config, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused, attn_impl=attn_impl,
-        device=device, mesh=mesh,
+        config, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused, device=device, mesh=mesh
     )
     return load_jax_params(model, params)
 
@@ -751,7 +747,6 @@ def wav2vec2_from_jax(
     config: Wav2Vec2Config,
     *,
     dtype: torch.dtype = torch.float32,
-    attn_impl: str = "auto",
     device: DeviceLike = None,
     mesh=None,
 ) -> Wav2Vec2ForCTC:
@@ -763,7 +758,7 @@ def wav2vec2_from_jax(
     if mesh is not None:
         params = local_params(params, mesh, W2V2_RULES)
     quantized = _has_key(params, "kernel_scale")
-    model = Wav2Vec2ForCTC(config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, device=device, mesh=mesh)
+    model = Wav2Vec2ForCTC(config, dtype=dtype, quantized=quantized, device=device, mesh=mesh)
     return load_jax_params(model, params)
 
 

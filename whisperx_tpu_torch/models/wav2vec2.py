@@ -112,17 +112,12 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class W2VAttention(nn.Module):
-    def __init__(
-        self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str = "auto", group=None, device
-    ):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, group=None, device):
         super().__init__()
         d = config.hidden_size
         self.head_dim = d // config.num_heads
         self.num_heads = local_heads(d, config.num_heads, group)  # this rank's heads
         width = self.num_heads * self.head_dim
-        # ops/attention.py:fused_self_attention's impl ("auto" | "xla" | "flash";
-        # "auto": the flash kernel for bf16 on the card, "xla" elsewhere).
-        self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, device=device)
         self.q_proj = Dense(d, width, **kw)
         self.k_proj = Dense(d, width, **kw)
@@ -136,7 +131,7 @@ class W2VAttention(nn.Module):
         q = self.q_proj(x).reshape(B, T, H, Dh) * scale
         k = self.k_proj(x).reshape(B, T, H, Dh) * scale
         v = self.v_proj(x).reshape(B, T, H, Dh)
-        out = fused_self_attention(q, k, v, pad_mask, impl=self.attn_impl, neg_mask=NEG_MASK)
+        out = fused_self_attention(q, k, v, pad_mask, neg_mask=NEG_MASK)
         return self.out_proj(out.reshape(B, T, H * Dh))
 
 
@@ -154,13 +149,11 @@ class W2VFeedForward(nn.Module):
 
 
 class W2VEncoderLayer(nn.Module):
-    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, attn_impl: str, group=None, device):
+    def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, group=None, device):
         super().__init__()
         self.config, self.dtype = config, dtype
         eps = config.layer_norm_eps
-        self.attention = W2VAttention(
-            config, dtype=dtype, quantized=quantized, attn_impl=attn_impl, group=group, device=device
-        )
+        self.attention = W2VAttention(config, dtype=dtype, quantized=quantized, group=group, device=device)
         self.layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
         self.feed_forward = W2VFeedForward(config, dtype=dtype, quantized=quantized, group=group, device=device)
         self.final_layer_norm = LayerNorm(config.hidden_size, device, eps=eps)
@@ -178,9 +171,9 @@ class W2VEncoderLayer(nn.Module):
 class Wav2Vec2ForCTC(nn.Module):
     """Full CTC model: conv features → projection → transformer → vocab logits.
 
-    ``attn_impl`` selects the encoder attention ("auto" | "xla" | "flash";
-    "auto" is the flash kernel on the card at bf16 with heads of 64, "xla"
-    elsewhere; ``ops.attention.set_attn_impl`` changes it later). ``quantized``: int8
+    ``attn_impl`` takes "auto" alone, and only for callers that still pass
+    it: the attention path follows from its tensors
+    (``ops/attention.py:resolve_attn_impl``). ``quantized``: int8
     weight-only projections in the transformer and ``feat_projection``
     (the convolutions and the ``lm_head`` emissions projection stay fp).
     ``device=None`` means the card (the rank's device under a ``mesh``, whose
@@ -198,6 +191,8 @@ class Wav2Vec2ForCTC(nn.Module):
         mesh=None,
     ):
         super().__init__()
+        if attn_impl != "auto":
+            raise ValueError(f"attn_impl={attn_impl!r}: the encoder's attention path follows from its tensors")
         device = resolve_device(mesh_device(mesh) if device is None and mesh is not None else device)
         group = model_group(mesh)
         cfg = config
@@ -209,7 +204,7 @@ class Wav2Vec2ForCTC(nn.Module):
         self.pos_conv_embed = ConvPositionalEmbedding(cfg, dtype=dtype, device=device)
         self.encoder_layer_norm = LayerNorm(cfg.hidden_size, device, eps=eps)
         self.layers = nn.ModuleList(
-            W2VEncoderLayer(cfg, dtype=dtype, quantized=quantized, attn_impl=attn_impl, group=group, device=device)
+            W2VEncoderLayer(cfg, dtype=dtype, quantized=quantized, group=group, device=device)
             for _ in range(cfg.num_layers)
         )
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=dtype, device=device)
@@ -333,10 +328,8 @@ def quantize_wav2vec2_params(params: dict) -> dict:
 
 def quantize_wav2vec2(model: Wav2Vec2ForCTC) -> Wav2Vec2ForCTC:
     """fp model → the int8 weight-only model on the same device, with the
-    same compute dtype and attention impl (its tree through
-    :func:`quantize_wav2vec2_params`)."""
+    same compute dtype (its tree through :func:`quantize_wav2vec2_params`)."""
     from .convert import wav2vec2_from_jax, whisper_to_jax  # convert imports this module
 
     params = quantize_wav2vec2_params(whisper_to_jax(model))
-    impl = model.layers[0].attention.attn_impl
-    return wav2vec2_from_jax(params, model.config, dtype=model.dtype, attn_impl=impl, device=model.device)
+    return wav2vec2_from_jax(params, model.config, dtype=model.dtype, device=model.device)

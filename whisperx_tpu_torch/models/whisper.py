@@ -29,10 +29,10 @@ Differences in mechanism, not in value:
   (``decode/engine.py:resolve_cross_impl``; the JAX package's TPU default is
   the einsum, which here would cast each layer's whole K and V to bf16 every
   step); the encoder's self-attention through
-  ``ops/attention.py:fused_self_attention`` with the module's ``attn_impl``
-  ("flash" launches ``ops/flash_attn.py``'s kernel, and so does the default
-  "auto" on the card for a bf16 model with heads of 64; the JAX package's
-  default is "xla", which here would write (B, H, T, T) fp32 logits).
+  ``ops/attention.py:fused_self_attention``, which launches
+  ``ops/flash_attn.py``'s kernel on the card for a bf16 model with heads of
+  64 (the JAX package's default is "xla", which here would write (B, H, T, T)
+  fp32 logits).
 - int4 values (``Dense(quant_bits=4)`` kernels, the int4 KV cache and cross
   K/V) are stored packed two to a byte (:data:`PACKED_INT4`, see
   :func:`pack_int4`): torch has no int4 type. They are unpacked where the JAX
@@ -323,7 +323,6 @@ class MultiHeadAttention(nn.Module):
         quantized: bool,
         quant_bits: int = 8,
         fused_qkv: bool = False,
-        attn_impl: str = "auto",
         group=None,
         device: DeviceLike,
     ):
@@ -334,9 +333,6 @@ class MultiHeadAttention(nn.Module):
         self.width = self.n_head * self.head_dim
         self.dtype = dtype
         self.fused_qkv = fused_qkv
-        # Full self-attention (encoder) impl, as ops/attention.py:resolve_attn_impl reads it
-        # with the call's tensors ("auto": the flash kernel for bf16 on the card).
-        self.attn_impl = attn_impl
         kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, device=device)
         if fused_qkv and self.width != d_model:
             raise ValueError("fused QKV is not split under tensor parallelism; load the unfused tree")
@@ -403,7 +399,7 @@ class MultiHeadAttention(nn.Module):
 
         # Encoder path: full bidirectional self-attention, no cache.
         if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
-            out = fused_self_attention(q, k * scale, v, impl=self.attn_impl)
+            out = fused_self_attention(q, k * scale, v)
             return self.out(out.reshape(x.shape[0], x.shape[1], self.width)), None
 
         new_cache = None
@@ -461,13 +457,13 @@ class MLP(nn.Module):
 
 class EncoderBlock(nn.Module):
     def __init__(
-        self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl, group=None, device
+        self, d_model: int, n_head: int, *, dtype, quantized, quant_bits=8, fused_qkv, group=None, device
     ):
         super().__init__()
         self.dtype = dtype
         kw = dict(dtype=dtype, quantized=quantized, quant_bits=quant_bits, group=group, device=device)
         self.attn_ln = LayerNorm(d_model, device)
-        self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, attn_impl=attn_impl, **kw)
+        self.attn = MultiHeadAttention(d_model, n_head, fused_qkv=fused_qkv, **kw)
         self.mlp_ln = LayerNorm(d_model, device)
         self.mlp = MLP(d_model, **kw)
 
@@ -479,7 +475,7 @@ class EncoderBlock(nn.Module):
 
 class AudioEncoder(nn.Module):
     def __init__(
-        self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, attn_impl="auto", group=None, device
+        self, config: WhisperConfig, *, dtype, quantized, quant_bits=8, fused_qkv, group=None, device
     ):
         super().__init__()
         cfg = config
@@ -490,7 +486,7 @@ class AudioEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderBlock(
                 D, cfg.n_audio_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
-                attn_impl=attn_impl, group=group, device=device,
+                group=group, device=device,
             )
             for _ in range(cfg.n_audio_layer)
         )
@@ -635,12 +631,12 @@ class Whisper(nn.Module):
     ``quantized``: False | True (both stacks) | "decoder" | "encoder";
     ``quant_bits``: 8 or 4, the quantized projections' width.
     ``fused_qkv``: one (D, 3D) projection for every self-attention block;
-    pair with :func:`fuse_qkv_params`. ``attn_impl``: the encoder's
-    self-attention path ("auto" | "xla" | "flash"; "auto" is the flash
-    kernel on the card at bf16, "xla" elsewhere; ``ops.attention.
-    set_attn_impl`` changes it later). ``device=None`` means the card (the
-    rank's device under a ``mesh``). ``mesh``: a ``parallel.make_mesh``
-    mesh whose "model" axis the module splits over (module docstring);
+    pair with :func:`fuse_qkv_params`. ``attn_impl`` takes "auto" alone,
+    and only for callers that still pass it: the encoder's attention path
+    follows from its tensors (``ops/attention.py:resolve_attn_impl``).
+    ``device=None`` means the card (the rank's device under a ``mesh``).
+    ``mesh``: a ``parallel.make_mesh`` mesh whose "model" axis the module
+    splits over (module docstring);
     ``tp_group`` is that axis's process group, None without a split.
     """
 
@@ -657,6 +653,8 @@ class Whisper(nn.Module):
         mesh=None,
     ):
         super().__init__()
+        if attn_impl != "auto":
+            raise ValueError(f"attn_impl={attn_impl!r}: the encoder's attention path follows from its tensors")
         device = resolve_device(mesh_device(mesh) if device is None and mesh is not None else device)
         self.mesh = mesh
         self.tp_group = group = model_group(mesh)
@@ -668,7 +666,7 @@ class Whisper(nn.Module):
         q_enc = quantized is True or quantized == "encoder"
         q_dec = quantized is True or quantized == "decoder"
         kw = dict(dtype=dtype, quant_bits=quant_bits, fused_qkv=fused_qkv, group=group, device=device)
-        self.encoder = AudioEncoder(config, quantized=q_enc, attn_impl=attn_impl, **kw)
+        self.encoder = AudioEncoder(config, quantized=q_enc, **kw)
         self.decoder = TextDecoder(config, quantized=q_dec, **kw)
         # Captured device decode loops by shape key (decode/engine.py), least recently used first.
         self.decode_loops: OrderedDict = OrderedDict()

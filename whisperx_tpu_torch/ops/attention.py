@@ -10,57 +10,29 @@ carry Dh**-0.25:
 - "flash": ``ops/flash_attn.py``, the hand-written Hopper flash kernel (on
   CPU tensors its plain version), which never materializes the logits.
 
-:func:`resolve_attn_impl` picks the path. "auto" takes the kernel where the
-call's tensors are in its contract: bf16 on a CUDA device with heads of
+:func:`resolve_attn_impl` picks the path from the call's tensors: the kernel
+where they are in its contract, bf16 on a CUDA device with heads of
 :data:`~.flash_attn.HEAD_DIM`. Everywhere else, the CPU and fp32 models
-among them, "auto" is "xla", the JAX package's default.
+among them, "xla", the JAX package's default.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
 
 from .flash_attn import HEAD_DIM, flash_attention
 
-ATTN_IMPLS = ("auto", "xla", "flash")
 
-
-def resolve_attn_impl(impl: str = "auto", device=None, dtype: Optional[torch.dtype] = None,
-                      head_dim: Optional[int] = None) -> str:
-    """``WHISPERX_ATTN=flash|xla`` first, then ``impl``. An explicit "xla"
-    or "flash" is kept. "auto" is "flash" where the call's q, k, v are on a
-    CUDA ``device``, of ``dtype`` bf16 and ``head_dim`` 64 (the kernel's
-    contract): there the kernel reads q, k and v once, where "xla" writes
-    and reads (B, H, T, T) fp32 logits, their softmax and its bf16 copy.
-    Elsewhere "auto" is "xla", the JAX package's default (``whisperx_tpu/
-    ops/attention.py:41-64``), and so it is without the tensors' facts."""
-    env = os.environ.get("WHISPERX_ATTN", "")
-    if env in ("flash", "xla"):
-        return env
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r}: expected one of {ATTN_IMPLS}")
-    if impl != "auto":
-        return impl
-    kernel = (
-        device is not None
-        and torch.device(device).type == "cuda"
-        and dtype == torch.bfloat16
-        and head_dim == HEAD_DIM
-    )
+def resolve_attn_impl(device, dtype: torch.dtype, head_dim: int) -> str:
+    """"flash" where the call's q, k, v are on a CUDA ``device``, of
+    ``dtype`` bf16 and ``head_dim`` 64 (the kernel's contract): there the
+    kernel reads q, k and v once, where "xla" writes and reads (B, H, T, T)
+    fp32 logits, their softmax and its bf16 copy. Elsewhere "xla", the JAX
+    package's default (``whisperx_tpu/ops/attention.py:41-64``)."""
+    kernel = torch.device(device).type == "cuda" and dtype == torch.bfloat16 and head_dim == HEAD_DIM
     return "flash" if kernel else "xla"
-
-
-def set_attn_impl(module: torch.nn.Module, impl: str) -> torch.nn.Module:
-    """Set ``attn_impl`` on every submodule of ``module`` that has one."""
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r}: expected one of {ATTN_IMPLS}")
-    for m in module.modules():
-        if hasattr(m, "attn_impl"):
-            m.attn_impl = impl
-    return module
 
 
 class _BmmF32(torch.autograd.Function):
@@ -133,11 +105,10 @@ def fused_self_attention(
     v: torch.Tensor,  # (B, T, H, Dh)
     pad_mask: Optional[torch.Tensor] = None,  # (B, T) bool/int, 1 = valid key
     *,
-    impl: str = "auto",
     neg_mask: float = -1e9,
 ) -> torch.Tensor:
     """Bidirectional self-attention, (B, T, H, Dh) → (B, T, H, Dh), on the
-    path :func:`resolve_attn_impl` gives ``impl`` for these tensors."""
-    if resolve_attn_impl(impl, q.device, q.dtype, q.shape[-1]) == "xla":
+    path :func:`resolve_attn_impl` gives for these tensors."""
+    if resolve_attn_impl(q.device, q.dtype, q.shape[-1]) == "xla":
         return _naive(q, k, v, pad_mask, neg_mask)
     return flash_attention(q, k, v, pad_mask)

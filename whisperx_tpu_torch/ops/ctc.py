@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -503,20 +502,19 @@ def align_tokens_batch(
     token_lists: List[List[int]],
     t_lens: List[int],
     blank: int = 0,
-    backtrack_impl: str = None,
+    backtrack_impl: str = "device",
     *,
     device=None,
 ):
     """Batched trellis + backtrack for a padded batch of segments.
 
-    ``backtrack_impl`` is "device" (the vectorised walk,
-    default) or "host" (numpy reference walk, $WHISPERX_CTC_BACKTRACK).
+    ``backtrack_impl`` is "device" (the vectorised walk) or "host" (the
+    numpy reference walk), as in the JAX package's signature.
     ``device`` is where the trellis runs: a tensor's own device by default,
     the CPU for numpy input. Returns a list (one per segment) of path lists
     (or None on failure). On the card the "device" walk needs blank
     log-probs of at most 0 (:func:`ctc_align_batch_device`).
     """
-    backtrack_impl = backtrack_impl or os.environ.get("WHISPERX_CTC_BACKTRACK", "device")
     lp = torch.as_tensor(log_probs)
     dev = torch.device(device) if device is not None else lp.device
     lp = lp.to(dev)

@@ -4,10 +4,9 @@ Port of ``whisperx_tpu/train.py``: the same loss, the same teacher forcing
 and optax.adamw's update, as an in-place PyTorch step on the model's device
 (the card unless the model was built with ``device="cpu"``). The model must
 be a float one made trainable (``Whisper.trainable()``); its parameters are
-the fp32 masters and ``Whisper(dtype=...)`` the compute type. With
-``attn_impl="flash"``, or the default "auto" at bf16 compute on the card,
-the encoder's attention takes its gradient through the backward kernels of
-``csrc/flash_attn_bwd.cu`` (``ops/flash_attn.py``).
+the fp32 masters and ``Whisper(dtype=...)`` the compute type. At bf16
+compute on the card the encoder's attention takes its gradient through the
+backward kernels of ``csrc/flash_attn_bwd.cu`` (``ops/flash_attn.py``).
 """
 
 from __future__ import annotations
