@@ -626,3 +626,44 @@ def test_ctc_shuffle_probe_runs(gen):
     one warp: a shuffle, an add, a compare-select) runs and takes time."""
     ms = ctc.shuffle_steps_ms(8, 1499, iters=3)
     assert ms > 0
+
+
+@pytest.mark.cuda
+# 15-minute files, and one cut to the prime length below 15 minutes.
+@pytest.mark.parametrize("traffic,samples", [("longform-dense", None), ("sparse-speech", None),
+                                             ("sparse-speech", 14_399_999)])
+def test_vad_band_on_the_card_cuts_as_numpy(gen, traffic, samples):
+    """Files of the benchmark's burst shapes through the scorer
+    ``load_vad_model`` builds for the card: the chunks of the numpy route to
+    the millisecond, frame energies within the CPU test's tolerance
+    (``test_torch_vad.py::test_torch_band_path_matches_numpy``), one
+    ``vad.band`` span with ``on_card`` 1 a call, and every card tensor freed
+    before the call returns."""
+    import numpy as np
+    from traffic_files import traffic_audio
+    from whisperx_tpu_torch.utils import telemetry
+    from whisperx_tpu_torch.vad import model as vad
+
+    audio = traffic_audio(traffic, 15.0)[:samples]
+    card = vad.load_vad_model("cuda")
+    assert vad.band_route(card.scorer.device) == "torch"
+    host = vad.VadPipeline(vad.SpeechBandVAD())
+
+    def rounded(chunks):
+        return [(round(c["start"], 3), round(c["end"], 3)) for c in chunks]
+
+    start = max((s.span_id for s in telemetry.spans()), default=0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = card(audio)
+    assert torch.cuda.memory_allocated() == before
+    want = host(audio)
+    assert len(want) >= 3 and rounded(got) == rounded(want)
+    bands = [s for s in telemetry.spans() if s.span_id > start and s.name == "vad.band"]
+    assert len(bands) == 1 and bands[0].device.startswith("cuda") and bands[0].device_ms > 0
+    assert dict(bands[0].counts) == {"samples": len(audio), "on_card": 1}
+
+    starts = np.arange((len(audio) - vad.FRAME_SIZE) // vad.FRAME_STEP + 1) * vad.FRAME_STEP
+    e_host = vad.band_energies_numpy(audio, vad.SpeechBandVAD().band, starts)
+    e_card = vad.band_energies_torch(audio, vad.SpeechBandVAD().band, torch.device("cuda"))
+    np.testing.assert_allclose(e_card, e_host, rtol=1e-3, atol=1e-8 * e_host.max())

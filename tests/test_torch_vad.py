@@ -4,9 +4,15 @@ segments, on the same seeded numpy audio."""
 
 import numpy as np
 import pytest
+import torch
 
+from torch_routes import force_routes
+from traffic_files import traffic_audio
 from whisperx_tpu.vad import model as jv
+from whisperx_tpu_torch.utils import telemetry
 from whisperx_tpu_torch.vad import model as tv
+
+torch.set_num_threads(2)
 
 SR = 16000
 
@@ -153,3 +159,105 @@ def test_frame_helpers_equal():
     np.testing.assert_array_equal(tv._frame_sq_sums(x, starts, tv.FRAME_SIZE), jv._frame_sq_sums(x, starts, jv.FRAME_SIZE))
     for w in (3, 14, 47):
         np.testing.assert_array_equal(tv._rolling_mean(x[:1000], w), jv._rolling_mean(x[:1000], w))
+
+
+def test_band_route_is_the_device():
+    """A CUDA device takes the torch band-pass; the CPU and a scorer built
+    without a device keep numpy, which records no ``vad.band`` span and
+    stays bit-equal to the JAX package."""
+    assert tv.band_route(torch.device("cuda")) == tv.band_route(torch.device("cuda:1")) == "torch"
+    assert tv.band_route(torch.device("cpu")) == tv.band_route(None) == "numpy"
+    assert tv.load_vad_model("cuda").scorer.device == torch.device("cuda")
+    assert tv.load_vad_model("cpu").scorer.device == torch.device("cpu")
+    assert tv.load_vad_model().scorer.device is None and tv.SpeechBandVAD().device is None
+    audio = _speech_band(40)
+    start = max((s.span_id for s in telemetry.spans()), default=0)
+    for scorer in (tv.SpeechBandVAD(), tv.load_vad_model("cpu").scorer):
+        got, want = scorer(audio), jv.SpeechBandVAD()(audio)
+        np.testing.assert_array_equal(got.scores, want.scores)
+        np.testing.assert_array_equal(got.timestamps, want.timestamps)
+    assert not [s for s in telemetry.spans() if s.span_id > start and s.name == "vad.band"]
+
+
+@pytest.mark.parametrize("n", [991, 1000, 1001, 16000, 16001, 48000, 1_200_007, 14_400_011, 17_280_000])
+def test_band_bins_are_the_numpy_mask(n):
+    freqs = np.fft.rfftfreq(n, 1.0 / SR)
+    kept = np.flatnonzero((freqs >= 300.0) & (freqs <= 3500.0))
+    assert tv.band_bins(n, (300.0, 3500.0)) == (kept[0], kept[-1] + 1)
+
+
+def _rounded(chunks):
+    return [(round(c["start"], 3), round(c["end"], 3)) for c in chunks]
+
+
+@pytest.mark.parametrize("n", [991, 1000, 16001, 100_003, 1_000_000])
+@pytest.mark.parametrize("band", [(300.0, 3500.0), (0.0, 8000.0), (0.0, 1000.0), (4000.0, 8000.0), (3500.0, 300.0)])
+def test_band_kernel_is_the_mask_response(n, band):
+    """The kernel in closed form against the float64 inverse rFFT of the
+    kept bins, laid out for a circular convolution at ``conv_length``; the
+    0 Hz and n / 2 bins included where a band holds them, none where it
+    holds no bin."""
+    lo, hi = tv.band_bins(n, band)
+    mask = np.zeros(n // 2 + 1)
+    mask[lo:hi] = 1.0
+    want = np.fft.irfft(mask, n)
+    m = tv.conv_length(n)
+    g = tv.band_kernel(n, lo, hi, m, torch.device("cpu")).numpy()
+    assert g.dtype == np.float32 and g.shape == (m,)
+    np.testing.assert_allclose(g[:n], want.astype(np.float32), rtol=0, atol=1e-7 * np.abs(want).max())
+    np.testing.assert_array_equal(g[m - n + 1 :], g[1:n][::-1])
+    assert not g[n : m - n + 1].any()
+
+
+@pytest.mark.parametrize("n", [991, 1000, 1001, 6_719_989, 14_400_000, 14_400_011, 17_280_000])
+def test_conv_length_holds_a_linear_convolution(n):
+    m = tv.conv_length(n)
+    k = m.bit_length() - 1
+    assert m >= 2 * n - 1 and m in (1 << k, 3 << (k - 1))
+    assert not [c for c in (1 << (k - 1), 3 << (k - 2), 1 << k, 3 << (k - 1)) if 2 * n - 1 <= c < m]
+
+
+# The benchmark's burst shapes (perfbench/traffic/): dense speech, and turns
+# between minutes of noise floor; one cut to a prime length, as a recording
+# of any length may be.
+TRAFFIC = {"dense 3 min": ("longform-dense", 3.0), "dense 7 min": ("longform-dense", 7.0),
+           "sparse 10 min": ("sparse-speech", 10.0), "sparse 4 min": ("sparse-speech", 4.0)}
+BAND_AUDIO = {**AUDIO, **{k: (lambda t=t: traffic_audio(*t)) for k, t in TRAFFIC.items()},
+              "dense 3 min cut to a prime length": lambda: traffic_audio("longform-dense", 3.0)[:2_879_999]}
+
+
+@pytest.mark.parametrize("what", list(BAND_AUDIO))
+def test_torch_band_path_matches_numpy(monkeypatch, what):
+    """The card's band-pass, run by torch on the CPU through the seam: the
+    same chunks and speech turns as the numpy route to the millisecond, one
+    ``vad.band`` span a call. Frame energies: both routes are float32 FFTs,
+    whose rounding is a noise near eps32 * log2(n) of the file's amplitude
+    spread over every sample, so a frame far below the file's loudest
+    carries a larger relative error (up to 1.6e-4 measured, at frames 1e-6
+    of the loudest in "tone bursts 75 s") and a frame of pure rounding
+    differs wholly; hence 1e-3 relative with a floor of 1e-8 of the
+    loudest frame's energy (measured at most 4.7e-10)."""
+    audio = BAND_AUDIO[what]()
+    n = max(len(audio), tv.FRAME_SIZE)
+    padded = np.pad(audio, (0, n - len(audio)))
+    starts = np.arange((n - tv.FRAME_SIZE) // tv.FRAME_STEP + 1) * tv.FRAME_STEP
+    want = tv.band_energies_numpy(padded, (300.0, 3500.0), starts)
+    start = max((s.span_id for s in telemetry.spans()), default=0)
+    got = tv.band_energies_torch(padded, (300.0, 3500.0), torch.device("cpu"))
+    assert got.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-8 * want.max())
+
+    pipe = tv.VadPipeline(tv.SpeechBandVAD(device="cpu"))
+
+    def cuts():
+        return ([_rounded(pipe(audio, chunk_size=c)) for c in (30.0, 5.0)],
+                [(round(t.start, 3), round(t.end, 3)) for t in pipe.speech_turns(audio)])
+
+    numpy_cuts = cuts()
+    force_routes(monkeypatch, vad="torch")
+    assert cuts() == numpy_cuts
+    bands = [s for s in telemetry.spans() if s.span_id > start and s.name == "vad.band"]
+    assert len(bands) == 1 + 3  # band_energies_torch, then two chunk sizes and speech_turns
+    assert all(s.counts == {"samples": n, "on_card": 0} and s.device == "cpu" for s in bands)
+    if what not in AUDIO:
+        assert numpy_cuts[0][0]  # every burst file holds speech

@@ -248,9 +248,11 @@ class WhisperPipeline:
         verbose: bool = False,
     ) -> TranscriptionResult:
         """The request's root telemetry span is ``transcribe`` (count
-        ``audio_s``): under it the stages ``vad`` and ``asr_decode``, and in
-        ``asr_decode`` one ``asr.batch`` per decode batch (counts ``rows``,
-        ``rows_valid``) holding ``asr.prepare`` (device: upload, log-mel,
+        ``audio_s``): under it the stages ``vad`` (holding ``vad.band``, the
+        device span of the scorer's band-pass, where that runs on the card)
+        and ``asr_decode``, and in ``asr_decode`` one ``asr.batch`` per
+        decode batch (counts ``rows``, ``rows_valid``) holding
+        ``asr.prepare`` (device: upload, log-mel,
         encoder, cross K/V and prompt, up to the loop's launch; counts
         ``flash_launches``, the encoder's flash kernel launches),
         ``decode.loop``, ``asr.fetch`` (the host's wait for the batch's

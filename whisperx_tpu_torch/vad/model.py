@@ -8,20 +8,25 @@ memory, ``device.map_rows``), max-reduces the classes and overlap-averages
 the window scores with Hamming weights onto the global 16.875 ms frame grid
 on the host, as the JAX package does. The weight-free scorers
 (``EnergyVAD``, ``SpeechBandVAD``) are numpy on the host, as in the JAX
-package, so their scores are bit-equal to it; ``VadPipeline`` turns scores
-into the ≤chunk_size windows the batched decode takes (``binarize.py`` is a
-verbatim copy).
+package, so their scores are bit-equal to it; on a CUDA device
+``SpeechBandVAD`` computes its sample-rate half (the whole-file band-pass
+and the frame energies) on the card instead (``band_route``).
+``VadPipeline`` turns scores into the ≤chunk_size windows the batched
+decode takes (``binarize.py`` is a verbatim copy).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..audio.constants import SAMPLE_RATE
 from ..device import map_rows
+from ..utils import telemetry
 from .binarize import SpeechTurn, binarize, merge_chunks
 
 # PyanNet frame grid (see whisperx_tpu/models/vad_net.py conv arithmetic).
@@ -162,6 +167,117 @@ def _frame_sq_sums(x: np.ndarray, starts: np.ndarray, win: int) -> np.ndarray:
     return hi - lo
 
 
+def band_route(device) -> str:
+    """Where ``SpeechBandVAD`` band-passes the file and sums its frame
+    energies: "torch" (``band_energies_torch``) on a CUDA device, else
+    "numpy" (``band_energies_numpy``, the JAX package's arithmetic; also
+    for a scorer built without a device)."""
+    return "torch" if device is not None and device.type == "cuda" else "numpy"
+
+
+def band_energies_numpy(audio: np.ndarray, band: tuple, starts: np.ndarray) -> np.ndarray:
+    """Sums of squares of the band-passed samples over the frames at
+    ``starts``: one float32 rFFT over the file with the bins outside
+    ``band`` zeroed, then ``_frame_sq_sums``."""
+    n = len(audio)
+    spec = np.fft.rfft(audio.astype(np.float32))
+    freqs = np.fft.rfftfreq(n, 1.0 / SAMPLE_RATE)
+    spec[(freqs < band[0]) | (freqs > band[1])] = 0.0
+    banded = np.fft.irfft(spec, n).astype(np.float32)
+    return _frame_sq_sums(banded, starts, FRAME_SIZE)
+
+
+def band_bins(n: int, band: tuple) -> tuple:
+    """[lo, hi): the rFFT bins of an ``n``-sample signal that
+    ``band_energies_numpy`` keeps, those whose frequency as
+    ``np.fft.rfftfreq(n, 1 / SAMPLE_RATE)`` computes it (k times
+    ``1 / (n * (1 / SAMPLE_RATE))`` in float64) lies in ``band``, found
+    without building that n/2-long array. The frequencies rise with k, so
+    the kept bins are one run (empty, lo == hi, where the band holds no
+    bin)."""
+    step = 1.0 / (n * (1.0 / SAMPLE_RATE))
+    bins = n // 2 + 1
+
+    def first(edge, inclusive):  # the first bin at (or above) ``edge``, from a guess just below it
+        k = min(bins, max(0, int(edge / step) - 2))
+        while k < bins and (k * step < edge if inclusive else k * step <= edge):
+            k += 1
+        return k
+
+    lo = first(band[0], True)
+    return lo, max(lo, first(band[1], False))
+
+
+def conv_length(n: int) -> int:
+    """The transform length of ``band_energies_torch`` for ``n`` samples:
+    the least 2^k or 3 * 2^k that holds a linear convolution of two
+    ``n``-long sequences (2n - 1), so that every file length maps to one of
+    a few dozen lengths with small factors."""
+    p = 1 << (2 * n - 2).bit_length()
+    return 3 * p // 4 if 3 * p // 4 >= 2 * n - 1 else p
+
+
+def band_kernel(n: int, lo: int, hi: int, m: int, device: torch.device) -> torch.Tensor:
+    """The impulse response of keeping rFFT bins [lo, hi) of an ``n``-sample
+    signal: h[t] = (1 / n) * sum over kept k of c_k cos(2 pi k t / n), c_k
+    2 but 1 at the 0 Hz bin and at n / 2, in closed form and float64 (the
+    phases t * (2k - 1) are whole numbers, so their remainders are exact
+    below 2^53, files under ~2.5 hours; beyond, an angle moves by a few
+    multiples of pi / n), laid out for a circular convolution of length
+    ``m``: h[|d|] at d mod m for |d| < n, zeros between, in float32."""
+    t = torch.arange(n, dtype=torch.float64, device=device)
+    h = (t * (2 * hi - 1)).remainder_(2 * n).mul_(math.pi / n).sin_()
+    h.sub_((t * (2 * lo - 1)).remainder_(2 * n).mul_(math.pi / n).sin_())
+    h.div_(t.mul_(math.pi / n).sin_().mul_(n))
+    h[0] = 2.0 * (hi - lo) / n
+    if lo == 0 < hi:
+        h -= 1.0 / n
+    if n % 2 == 0 and lo <= n // 2 < hi:
+        h[0::2] -= 1.0 / n
+        h[1::2] += 1.0 / n
+    g = torch.zeros(m, dtype=torch.float32, device=device)
+    g[:n] = h
+    g[m - n + 1 :] = h[1:].flip(0)
+    return g
+
+
+def band_energies_torch(audio: np.ndarray, band: tuple, device: torch.device) -> np.ndarray:
+    """``band_energies_numpy``'s sums computed on ``device``. Keeping the
+    rFFT bins of ``band`` (``band_bins``) and transforming back is a
+    circular convolution of the file with ``band_kernel``; it runs as one
+    at the padded length ``conv_length(n)``: the float32 samples uploaded
+    once, ``torch.fft.rfft`` of them and of the kernel, their product,
+    ``irfft``, and the first n samples squared in float32 and summed over
+    each frame as the difference of their float64 running sum at the
+    frame's ends. Only the frame sums come back, and every tensor is freed
+    before it returns. (A transform at the file's own length takes cuFFT's
+    Bluestein path wherever n has a large prime factor, as most lengths
+    do: for a prime length of 15 minutes its plans took 2.26 s to build and
+    kept 1.9 GB of the card outside PyTorch's allocator, NVIDIA H100.) The
+    device span ``vad.band`` covers upload to fetch (counts ``samples``;
+    ``on_card`` 1 on a CUDA device)."""
+    n = len(audio)
+    lo, hi = band_bins(n, band)
+    m = conv_length(n)
+    span = telemetry.begin("vad.band", device=device, samples=n, on_card=int(device.type == "cuda"))
+    kernel = torch.fft.rfft(band_kernel(n, lo, hi, m, device))
+    x = torch.zeros(m, dtype=torch.float32, device=device)
+    x[:n] = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
+    spec = torch.fft.rfft(x)
+    del x
+    spec *= kernel
+    del kernel
+    sq = torch.fft.irfft(spec, m)[:n].square_()
+    del spec
+    cum = torch.zeros(n + 1, dtype=torch.float64, device=device)
+    torch.cumsum(sq, 0, dtype=torch.float64, out=cum[1:])
+    del sq
+    energies = (cum[FRAME_SIZE::FRAME_STEP] - cum[: n + 1 - FRAME_SIZE : FRAME_STEP]).cpu().numpy()
+    del cum
+    telemetry.end(span)
+    return energies
+
+
 class SpeechBandVAD:
     """Speech-band energy x syllabic-modulation scores (weight-free default).
 
@@ -188,6 +304,10 @@ class SpeechBandVAD:
     ``min_duration_on=0.5`` is the scorer's recommended binarize floor
     (VadPipeline reads it): residual false turns are sub-0.6 s transition
     blips, while real speech turns are longer.
+
+    ``device``: where ``band_route`` sends the sample-rate half (band-pass
+    and frame energies); the frame-rate arithmetic after it is numpy on the
+    host on every route.
     """
 
     min_duration_on = 0.5  # recommended binarize floor (see class docstring)
@@ -203,7 +323,9 @@ class SpeechBandVAD:
         mod_knee: float = 0.3,
         gate_smooth: int = 29,
         close_s: float = 0.22,
+        device=None,
     ):
+        self.device = None if device is None else torch.device(device)
         self.band = band
         self.env_smooth = env_smooth
         self.env_fill = env_fill
@@ -218,15 +340,13 @@ class SpeechBandVAD:
         if n < FRAME_SIZE:
             audio = np.pad(audio, (0, FRAME_SIZE - n))
             n = len(audio)
-        # Band-pass via one rFFT over the file (O(n log n), float32).
-        spec = np.fft.rfft(audio.astype(np.float32))
-        freqs = np.fft.rfftfreq(n, 1.0 / SAMPLE_RATE)
-        spec[(freqs < self.band[0]) | (freqs > self.band[1])] = 0.0
-        banded = np.fft.irfft(spec, n).astype(np.float32)
-
         total_frames = (n - FRAME_SIZE) // FRAME_STEP + 1
         starts = np.arange(total_frames) * FRAME_STEP
-        rms = np.sqrt(_frame_sq_sums(banded, starts, FRAME_SIZE) / FRAME_SIZE)
+        if band_route(self.device) == "torch":
+            energies = band_energies_torch(audio, self.band, self.device)
+        else:
+            energies = band_energies_numpy(audio, self.band, starts)
+        rms = np.sqrt(energies / FRAME_SIZE)
         frame_rate = SAMPLE_RATE / FRAME_STEP  # ~59 Hz
         if self.env_smooth > 1:
             rms = _convolve_same(rms, np.ones(self.env_smooth) / self.env_smooth)
@@ -386,7 +506,9 @@ def load_vad_model(
     ``expected_sha256`` is given) and loads them into the port's PyanNet on
     ``device`` (``None`` means the card) for the neural scorer; a checkpoint
     that does not load raises. Otherwise the weight-free ``SpeechBandVAD``
-    scores on the host, as in the JAX package.
+    scores, its band-pass and frame energies on ``device`` where that is a
+    CUDA device, else (the CPU, or ``None``) all on the host as in the JAX
+    package.
     """
     path = checkpoint or model_fp
     if path:
@@ -403,5 +525,5 @@ def load_vad_model(
         # (benchmarks/vad_eval.py — frame F1 0.92-0.95 vs 0.56-0.85 across
         # seeds). EnergyVAD remains for tests whose synthetic tones sit below
         # the speech band.
-        scorer = SpeechBandVAD()
+        scorer = SpeechBandVAD(device=device)
     return VadPipeline(scorer, onset=vad_onset, offset=vad_offset)
