@@ -565,6 +565,32 @@ def test_device_loop_span_counts_the_steps_and_the_trace_brackets_each_launch(ge
     assert sum("loop_enter" in n for n in kernels) == 2 and sum("loop_exit" in n for n in kernels) == 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv,int8_per_step,cross_per_step", [("large-v2", "int8", 192, 32), ("large-v3-turbo", "model", 0, 4)])
+def test_loop_span_counts_the_steps_projection_and_cross_kernels(gen, name, kv, int8_per_step, cross_per_step):
+    """At the published decoder widths and depth (one encoder layer: the
+    encoder launches nothing in the loop), the ``decode.loop`` span counts
+    the captured step's ``int8_matmul`` launches (6 a layer of an int8
+    model with fused QKV, none where the weights are bf16: cuBLAS) and its
+    ``cross_attention_decode`` launches (one a layer). Zero weights: only
+    the launches are read."""
+    import dataclasses
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import WHISPER_CONFIGS
+
+    cfg = dataclasses.replace(WHISPER_CONFIGS[name], n_audio_layer=1)
+    model = tw.Whisper(cfg, dtype=torch.bfloat16, quantized=kv == "int8", fused_qkv=True, device="cuda")
+    engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    opts = engine.build_options(beam_size=5, max_new_tokens=8, kv_cache_dtype=kv)
+    got = engine.generate(torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen), options=opts)
+    counts = got.loop_span.counts
+    assert (counts["int8_mm_per_step"], counts["cross_attn_per_step"]) == (int8_per_step, cross_per_step)
+    assert counts["steps"] >= 1
+
+
 def ctc_operands(gen, T, V, N, t_lens, n_lens):
     """Log-softmax emissions (B, T, V) peaked enough that paths move, token
     ids in [1, V), and the lengths, all on the card."""

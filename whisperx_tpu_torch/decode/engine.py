@@ -164,7 +164,7 @@ class WhisperEngine:
             elif kv_bits:
                 kv = (*store_kv(k, kv_bits), *store_kv(v, kv_bits))
             else:
-                kv = (k, v)
+                kv = (k.to(self.model.dtype), v.to(self.model.dtype))
             if out is None:
                 cross.append(kv)
             else:

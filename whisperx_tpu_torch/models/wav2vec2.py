@@ -12,7 +12,10 @@ Numerics follow the Flax module: ``dtype`` is the compute type, parameters
 stay fp32 (or int8 with per-channel scales in the transformer's projections
 of the ``quantized`` model, :func:`quantize_wav2vec2`) and are cast where
 Flax casts them, the norms run in fp32, the CTC
-logits come out in fp32. Batches carry ``sample_lengths``: padded samples are
+logits come out in fp32. ``models/whisper.py:Dense`` returns fp32 (Whisper's
+precision rule); this module rounds each projection's output to the compute
+type at once, so that its residual stream stays in that type, as Flax's
+does. Batches carry ``sample_lengths``: padded samples are
 zeroed, the GroupNorm of base models runs over all frames (padded ones too,
 as Flax's does), and padded frames are excluded as attention keys.
 
@@ -118,6 +121,7 @@ class W2VAttention(nn.Module):
         self.head_dim = d // config.num_heads
         self.num_heads = local_heads(d, config.num_heads, group)  # this rank's heads
         width = self.num_heads * self.head_dim
+        self.dtype = dtype
         kw = dict(dtype=dtype, quantized=quantized, device=device)
         self.q_proj = Dense(d, width, **kw)
         self.k_proj = Dense(d, width, **kw)
@@ -128,16 +132,18 @@ class W2VAttention(nn.Module):
         B, T, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
         scale = Dh**-0.25
-        q = self.q_proj(x).reshape(B, T, H, Dh) * scale
-        k = self.k_proj(x).reshape(B, T, H, Dh) * scale
-        v = self.v_proj(x).reshape(B, T, H, Dh)
+        dt = self.dtype
+        q = self.q_proj(x).to(dt).reshape(B, T, H, Dh) * scale
+        k = self.k_proj(x).to(dt).reshape(B, T, H, Dh) * scale
+        v = self.v_proj(x).to(dt).reshape(B, T, H, Dh)
         out = fused_self_attention(q, k, v, pad_mask, neg_mask=NEG_MASK)
-        return self.out_proj(out.reshape(B, T, H * Dh))
+        return self.out_proj(out.reshape(B, T, H * Dh)).to(dt)
 
 
 class W2VFeedForward(nn.Module):
     def __init__(self, config: Wav2Vec2Config, *, dtype, quantized: bool = False, group=None, device):
         super().__init__()
+        self.dtype = dtype
         kw = dict(dtype=dtype, quantized=quantized, device=device)
         F_ = config.intermediate_size
         hidden = F_ // split_factor(F_, group)
@@ -145,7 +151,7 @@ class W2VFeedForward(nn.Module):
         self.output = Dense(hidden, config.hidden_size, reduce_group=group if hidden != F_ else None, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output(F.gelu(self.intermediate(x)))
+        return self.output(F.gelu(self.intermediate(x).to(self.dtype))).to(self.dtype)
 
 
 class W2VEncoderLayer(nn.Module):
@@ -232,7 +238,7 @@ class Wav2Vec2ForCTC(nn.Module):
             pad_mask = torch.arange(feats.shape[1], device=feats.device)[None, :] < frame_len[:, None]
 
         x = self.feat_layer_norm(feats)
-        x = self.feat_projection(x.to(self.dtype))
+        x = self.feat_projection(x.to(self.dtype)).to(self.dtype)
         x = x + self.pos_conv_embed(x)
         if not cfg.do_stable_layer_norm:
             x = self.encoder_layer_norm(x).to(self.dtype)

@@ -8,9 +8,17 @@ Parameters are created inference-only (``requires_grad=False``);
 :meth:`Whisper.trainable` turns a float model into a trainable one
 (``train.py``).
 
-Numerics follow the JAX module: ``dtype`` is the compute type (fp32 or bf16),
-parameters keep the type they were stored in and are cast where the JAX code
-casts them, LayerNorms run in fp32, attention logits and softmax in fp32.
+Numerics: ``dtype`` is the compute type (fp32 or bf16), parameters keep the
+type they were stored in and are cast at the products that read them. One
+precision rule holds for every compute type: a value is rounded to ``dtype``
+only as the input of a product (a projection's input and weight, q, k and v
+going into attention, the probabilities going into their product with V,
+the self cache and cross K/V); every product accumulates and returns fp32,
+and everything between products (biases, GELU, LayerNorm, the residual
+stream, the positional embeddings) stays fp32. An fp32 model is therefore
+computed as before, and a bf16 one as whisperX's float16 computes it, at
+bf16's significand only where a tensor core reads a value. The JAX module
+keeps its residual stream and GELU in the compute type.
 
 Differences in mechanism, not in value:
 - The self-attention KV cache is a per-layer dict of tensors written in place
@@ -226,7 +234,7 @@ class Dense(nn.Module):
     def _row_parallel(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's partial product in fp32, without the bias (through the
         int8 kernel where :func:`use_int8_kernel` holds), all-reduced over
-        the group; then the bias, once, and the cast to the model dtype."""
+        the group; then the bias, once, in fp32."""
         if self.quantized and self.quant_bits == 8 and use_int8_kernel(x, self.features):
             lead = x.shape[:-1]
             x2 = x.reshape(-1, self.in_features)
@@ -236,31 +244,24 @@ class Dense(nn.Module):
             if self.quantized:
                 y = y * self.kernel_scale
         dist.all_reduce(y, group=self.reduce_group)
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(self.dtype)
+        return y if self.bias is None else y + self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 ``x @ kernel (* kernel_scale) + bias``: x and the kernel
+        enter the product in ``dtype``, the product and the bias stay fp32
+        (the module docstring's precision rule)."""
         if self.reduce_group is not None:
             return self._row_parallel(x)
+        if self.quantized and self.quant_bits == 8 and use_int8_kernel(x, self.features):
+            lead = x.shape[:-1]
+            y = int8_matmul(
+                x.reshape(-1, self.in_features), self.kernel, self.kernel_scale, self.bias, out_dtype=torch.float32
+            )
+            return y.reshape(*lead, self.features)
+        y = matmul_f32(x.to(self.dtype), self._weight().to(self.dtype))
         if self.quantized:
-            if self.quant_bits == 8 and use_int8_kernel(x, self.features):
-                lead = x.shape[:-1]
-                y = int8_matmul(
-                    x.reshape(-1, self.in_features),
-                    self.kernel,
-                    self.kernel_scale,
-                    self.bias,
-                    out_dtype=self.dtype,
-                )
-                return y.reshape(*lead, self.features)
-            y = torch.matmul(x.to(self.dtype), self._weight().to(self.dtype))
-            y = y * self.kernel_scale.to(self.dtype)
-        else:
-            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
-        return y
+            y = y * self.kernel_scale
+        return y if self.bias is None else y + self.bias
 
 
 class LayerNorm(nn.Module):
@@ -285,6 +286,9 @@ class Conv(nn.Module):
     never meets cuDNN's default TF32 convolution, and no path depends on a
     backend's grouped or low-precision convolution (PyTorch's CPU bf16
     grouped ``conv1d`` returned wrong values in the port's wav2vec2 tests).
+    Returns ``dtype`` values: wav2vec2's feature extractor keeps its
+    (B, T, 512) activations, which set its memory peak, in the compute
+    type. Whisper's encoder takes :class:`AudioConv`.
     """
 
     def __init__(self, cin, cout, width, stride=1, *, padding=0, groups=1, use_bias=True, dtype, device):
@@ -302,9 +306,19 @@ class Conv(nn.Module):
         cols = x.unfold(1, W, self.stride)  # (B, T', Cin, W): cols[b, t, c, j] = x[b, t*s + j, c]
         B, T = cols.shape[:2]
         w = self.kernel.to(self.dtype).reshape(G, O // G, Ig * W)
-        ys = [torch.matmul(cols[:, :, g * Ig : (g + 1) * Ig].reshape(B, T, Ig * W), w[g].t()) for g in range(G)]
+        ys = [self._product(cols[:, :, g * Ig : (g + 1) * Ig].reshape(B, T, Ig * W), w[g].t()) for g in range(G)]
         y = ys[0] if G == 1 else torch.cat(ys, dim=-1)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    _product = staticmethod(torch.matmul)
+
+
+class AudioConv(Conv):
+    """Whisper's front-end convolution under the precision rule: the
+    products accumulate and return fp32, and the bias is added in fp32, so
+    that GELU and the positional embedding act on fp32 values."""
+
+    _product = staticmethod(matmul_f32)
 
 
 class MultiHeadAttention(nn.Module):
@@ -355,7 +369,8 @@ class MultiHeadAttention(nn.Module):
         return self.query(x), self.key(x), self.value(x)
 
     def compute_kv(self, src: torch.Tensor):
-        """Project K/V once (cross-attention precompute)."""
+        """Project K/V once (cross-attention precompute), in fp32: the cache
+        they go into sets their width (``decode/engine.py:_cross_kv``)."""
         return self._split(self.key(src)), self._split(self.value(src))
 
     def forward(
@@ -376,7 +391,7 @@ class MultiHeadAttention(nn.Module):
             Bkv = fkv.k.shape[0]
             Tq = x.shape[1]
             group = x.shape[0] // Bkv
-            q = self.query(x) * (head_dim**-0.5)  # full 1/sqrt(Dh): exact in bf16
+            q = self.query(x) * (head_dim**-0.5)  # full 1/sqrt(Dh), then one rounding
             q = q.reshape(Bkv, group * Tq, self.width).to(torch.bfloat16).contiguous()
             out = cross_attention_decode(q, fkv.k, fkv.v, fkv.k_scale, fkv.v_scale)
             out = out.to(self.dtype).reshape(x.shape[0], Tq, self.width)
@@ -397,10 +412,13 @@ class MultiHeadAttention(nn.Module):
             q = self._split(qp) * scale
             k, v = self._split(kp), self._split(vp)
 
-        # Encoder path: full bidirectional self-attention, no cache.
+        # Encoder path: full bidirectional self-attention, no cache. q, k and
+        # v are scaled in fp32 and rounded once, at the kernel's input.
+        dt = self.dtype
         if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
-            out = fused_self_attention(q, k * scale, v)
+            out = fused_self_attention(q.to(dt), (k * scale).to(dt), v.to(dt))
             return self.out(out.reshape(x.shape[0], x.shape[1], self.width)), None
+        q = q.to(dt)
 
         new_cache = None
         if cache is not None:
@@ -432,17 +450,18 @@ class MultiHeadAttention(nn.Module):
             logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
         if mask is not None:
             logits = logits + mask
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        weights = torch.softmax(logits, dim=-1)
         if vs is not None:
-            weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :].to(self.dtype)
-        out = torch.matmul(weights, v.to(self.dtype).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
+            weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :]
+        out = torch.matmul(weights.to(dt), v.to(dt).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
         out = out.permute(0, 2, 1, 3).reshape(x.shape[0], Tq, self.width)
         return self.out(out), new_cache
 
 
 class MLP(nn.Module):
-    """fc1 → GELU → fc2; under a tensor-parallel ``group`` fc1 holds this
-    rank's hidden units and fc2 is row-parallel."""
+    """fc1 → GELU → fc2, GELU on fc1's fp32 output (fc2 rounds its input);
+    under a tensor-parallel ``group`` fc1 holds this rank's hidden units and
+    fc2 is row-parallel."""
 
     def __init__(self, d_model: int, *, dtype, quantized, quant_bits=8, group=None, device):
         super().__init__()
@@ -481,8 +500,8 @@ class AudioEncoder(nn.Module):
         cfg = config
         self.dtype = dtype
         D = cfg.n_audio_state
-        self.conv1 = Conv(cfg.n_mels, D, 3, 1, padding=1, dtype=dtype, device=device)
-        self.conv2 = Conv(D, D, 3, 2, padding=1, dtype=dtype, device=device)
+        self.conv1 = AudioConv(cfg.n_mels, D, 3, 1, padding=1, dtype=dtype, device=device)
+        self.conv2 = AudioConv(D, D, 3, 2, padding=1, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             EncoderBlock(
                 D, cfg.n_audio_head, dtype=dtype, quantized=quantized, quant_bits=quant_bits, fused_qkv=fused_qkv,
@@ -494,11 +513,13 @@ class AudioEncoder(nn.Module):
         self.positional_embedding = _param((cfg.n_audio_ctx, D), torch.float32, device)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, n_mels, 3000) log-mel → (B, 1500, D) audio states."""
+        """(B, n_mels, 3000) log-mel → (B, 1500, D) audio states, in the
+        compute dtype: they are only ever the input of the cross K/V
+        projections. The residual stream between is fp32."""
         x = mel.to(self.dtype).transpose(1, 2)  # (B, T, n_mels): conv over time
         x = F.gelu(self.conv1(x))
         x = F.gelu(self.conv2(x))
-        x = x + self.positional_embedding.to(self.dtype)[None, : x.shape[1]]
+        x = x + self.positional_embedding[None, : x.shape[1]]
         for block in self.layers:
             x = block(x)
         return self.ln_post(x).to(self.dtype)
@@ -562,22 +583,22 @@ class TextDecoder(nn.Module):
         self.ln = LayerNorm(D, device)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token rows in the compute dtype. A vocab-split table looks up the
-        ids in its own rows, zeros the others and all-reduces: exactly one
-        rank contributes each row, so the sum is the unsplit lookup."""
+        """Token rows in fp32, the residual stream's type. A vocab-split
+        table looks up the ids in its own rows, zeros the others and
+        all-reduces: exactly one rank contributes each row, so the sum is
+        the unsplit lookup."""
         emb = self.token_embedding
         ids = tokens
         if self.vocab_group is not None:
             ids = tokens - self.vocab_start
             mine = (ids >= 0) & (ids < emb.shape[0])
             ids = torch.where(mine, ids, 0)
-        x = emb[ids].to(self.dtype)
+        x = emb[ids].float()
         if self.quantized:
-            x = x * self.token_embedding_scale[ids][..., None].to(self.dtype)
+            x = x * self.token_embedding_scale[ids][..., None]
         if self.vocab_group is not None:
-            x = torch.where(mine[..., None], x.float(), 0.0)
+            x = torch.where(mine[..., None], x, 0.0)
             dist.all_reduce(x, group=self.vocab_group)
-            x = x.to(self.dtype)
         return x
 
     def forward(self, tokens: torch.Tensor, cache: Cache, cache_index: Union[int, torch.Tensor]):
@@ -592,7 +613,7 @@ class TextDecoder(nn.Module):
         emb = self.token_embedding
         x = self._embed(tokens)
         positions = cache_index + torch.arange(T, device=tokens.device)
-        x = x + self.positional_embedding.index_select(0, positions).to(self.dtype)
+        x = x + self.positional_embedding.index_select(0, positions)
 
         # Causal mask against the static cache: the query at absolute position
         # cache_index + t sees cache slots [0, cache_index + t].

@@ -165,10 +165,14 @@ class DeviceLoop:
         before and just after the launch (the steps it runs are the loop's
         ``step`` counter, read back with the batch's result), counting
         ``cross_attn_per_step``, the captured step's launches of
-        ``cross_attention_decode`` (0 on the einsum route)."""
+        ``cross_attention_decode`` (0 on the einsum route), and
+        ``int8_mm_per_step``, its launches of ``int8_matmul`` (0 where the
+        step's projections have bf16 weights)."""
         global launches
         dev = self.loop.cont.device
-        span = telemetry.begin("decode.loop", device=dev, cross_attn_per_step=self.body_launches["cross_attention_decode"])
+        body = self.body_launches
+        span = telemetry.begin("decode.loop", device=dev, cross_attn_per_step=body["cross_attention_decode"],
+                               int8_mm_per_step=body["int8_matmul"])
         with torch.cuda.device(dev):
             code = self._lib.graph_loop_launch(self._exec, torch.cuda.current_stream(dev).cuda_stream)
         telemetry.end(span)
