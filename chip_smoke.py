@@ -16,7 +16,11 @@ Phases:
      training shape (large-v2 encoder, batch 2); the CTC alignment kernel
      (csrc/ctc_align.cu, trellis + walk) at the alignment path's shapes,
      at a ragged batch and with its decision bits in a scratch buffer,
-     beside its dependency bound;
+     beside its dependency bound; the decoder's self-attention kernel
+     (csrc/self_attn_decode.cu) at the beam step's shapes on int8 and bf16
+     caches: stored values and scales equal to the plain version's, the
+     output within a bf16 ulp, timed over 32 layers' caches beside its
+     byte bound;
   3. on small models, check that the card gives the CPU's results: decode
      tokens (kernels against plain versions) and fp32 alignment segments,
      words and timestamps; then bf16 alignment emissions (the flash route)
@@ -126,7 +130,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet)
-KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel", "graph_loop", "ctc_align")
+KERNEL_SOURCES = ("int8_mm", "cross_attn", "flash_attn", "flash_attn_bwd", "log_mel", "graph_loop", "ctc_align", "self_attn_decode")
 # bench.py's alignment transcript (bench.py:277-285): ~70 words per 30 s chunk.
 _WORDS = ("the quick brown fox jumps over the lazy dog and runs far away "
           "while seven silent watchers record every single word spoken here ").split()
@@ -773,6 +777,104 @@ def cross_attn_phase(torch, card: str) -> dict:
     }
 
 
+def self_attn_decode_phase(torch, card: str) -> dict:
+    from whisperx_tpu_torch.ops import self_attn_decode as sad
+    from whisperx_tpu_torch.ops.quant import store_kv
+
+    rows, S, H, Dh = 40, 128, 20, 64  # large-v2 beam step (batch 8, beam 5) over the 112-token horizon's cache
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def operands(kv_int8, s_len, h):
+        """A cache whose every slot holds an earlier token (int8 with its
+        scales, or bf16), and q, k, v as views of one fused fp32 QKV output."""
+        old_k = torch.randn((rows, s_len, h, Dh), device="cuda", generator=gen)
+        old_v = torch.randn((rows, s_len, h, Dh), device="cuda", generator=gen)
+        if kv_int8:
+            (k, ks), (v, vs) = store_kv(old_k, 8), store_kv(old_v, 8)
+            cache = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+        else:
+            cache = {"k": old_k.bfloat16(), "v": old_v.bfloat16()}
+        qkv = torch.randn((rows, 1, 3 * h * Dh), device="cuda", generator=gen) * 1.5
+        return cache, qkv.split(h * Dh, dim=-1)
+
+    def causal(pos, s_len):
+        return torch.where(torch.arange(s_len, device="cuda")[None, :] <= pos[:, None], 0.0, -1e9)
+
+    # fp32 sums in another order: a weight or an output may round one bf16 ulp apart.
+    atol, rtol = 1e-3, 2**-7
+    path_err = 0.0
+    # The beam step at slots 0, the mean fill (59) and the last; turbo's
+    # longest cache (n_text_ctx); a rank's heads under a model axis of 2.
+    cases = [(S, H, p) for p in (0, 59, S - 1)] + [(448, H, 0), (448, H, 447), (S, 10, 59)]
+    for kv_int8 in (True, False):
+        for s_len, h, p in cases:
+            cache, (q, k, v) = operands(kv_int8, s_len, h)
+            plain_cache = {name: t.clone() for name, t in cache.items()}
+            pos = torch.tensor([p], device="cuda")
+            got = sad.self_attention_decode(q, k, v, cache, pos, causal(pos, s_len), torch.bfloat16)
+            want = sad.self_attention_plain(q, k, v, plain_cache, pos, causal(pos, s_len), torch.bfloat16)
+            torch.cuda.synchronize()
+            what = f"self_attn_decode {'int8' if kv_int8 else 'bf16'} cache rows={rows} S={s_len} H={h} position {p}"
+            differ = [name for name in cache if not torch.equal(cache[name], plain_cache[name])]
+            if differ:
+                raise AssertionError(f"{what}: the stored {differ} differ from store_kv + index_copy_")
+            err = max_err_within(torch, what, got, want, atol, rtol)
+            if kv_int8 and (s_len, h) == (S, H):
+                path_err = max(path_err, err)
+        log(f"self_attn_decode {'int8' if kv_int8 else 'bf16'} cache, rows={rows}: (S, H, position) in {cases}: stored "
+            f"values{' and scales' if kv_int8 else ''} equal to the plain version's, output within atol {atol}, "
+            f"rtol {rtol:.4g}: ok")
+
+    # One int8 cache a decoder layer (32, 446 MB) in turn: out of L2, as in
+    # the step. Timed at the mean fill over the horizon and full.
+    layers = 32
+    caches = [operands(True, S, H)[0] for _ in range(layers)]
+    _, (q, k, v) = operands(True, S, H)
+    timed = {}
+    for p in (59, S - 1):
+        pos = torch.tensor([p], device="cuda")
+        mask = causal(pos, S)
+
+        def kernel():
+            for c in caches:
+                sad.self_attention_decode(q, k, v, c, pos, mask, torch.bfloat16)
+
+        def plain():
+            for c in caches:
+                sad.self_attention_plain(q, k, v, c, pos, mask, torch.bfloat16)
+
+        # K, V and their scales of the filled slots; the fp32 q, k, v read; the bf16 output written.
+        nbytes = rows * H * (p + 1) * (2 * Dh + 2 * 4) + rows * 3 * H * Dh * 4 + rows * H * Dh * 2
+        flops = 2 * (2 * rows * H * (p + 1) * Dh)
+        timed[p] = (graph_ms(torch, kernel, 50) / layers, graph_ms(torch, plain, 10) / layers, *bound_ms(nbytes, flops), nbytes)
+    (ms, plain_ms, bms, by, nbytes), (ms_full, plain_full, bms_full, _, nbytes_full) = timed[59], timed[S - 1]
+    log(
+        f"self_attn_decode timing [{card}], rows={rows} H={H} S={S} int8 cache, {layers} caches in turn (cold), device "
+        f"time (CUDA graph replay) a call: at the mean fill (position 59) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB); full (position {S - 1}) kernel {ms_full:.4f} ms, plain "
+        f"{plain_full:.4f} ms, bound {bms_full:.4f} ms ({nbytes_full / 1e6:.2f} MB)"
+    )
+    return {
+        "name": "self_attn_decode",
+        "route": "cuda",
+        "design": "one CTA of 128 threads a (row, head); the new k and v quantized as store_kv (or rounded to bf16) "
+                  "and stored at the position read on the card; cp.async of the filled slots only, K then V; "
+                  "two-pass fp32 softmax in shared memory",
+        "source": "whisperx_tpu_torch/csrc/self_attn_decode.cu",
+        "replaces": "none: the self cache's store and both einsums, whisperx_tpu/models/whisper.py:400-446, run in XLA",
+        "launches": None,
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": None,
+        "ms_full": ms_full,
+        "plain_ms_full": plain_full,
+        "bound_ms_full": bms_full,
+        "unit": f"one call, rows={rows} H={H} S={S} int8 cache at position 59 (the mean fill); *_full at {S - 1}",
+    }
+
 def flash_phase(torch, card: str) -> dict:
     from whisperx_tpu_torch.models.configs import WAV2VEC2_BASE
     from whisperx_tpu_torch.ops import flash_attn
@@ -1371,9 +1473,10 @@ def small_int4_phase(torch) -> None:
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.models.configs import TEST_CONFIG
     from whisperx_tpu_torch.models.convert import whisper_from_jax
+    from whisperx_tpu_torch.ops.quant import unpack_int4
 
     p = torch.arange(256, dtype=torch.int32).to(torch.uint8)
-    if not torch.equal(tw.unpack_int4(p.cuda()).cpu(), tw.unpack_int4(p)):
+    if not torch.equal(unpack_int4(p.cuda()).cpu(), unpack_int4(p)):
         raise AssertionError("unpack_int4 of the 256 byte values: the card's nibbles differ from the CPU's")
     cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
     fp = tw.random_params(cfg, seed=0, scale=0.2)
@@ -1808,6 +1911,7 @@ def main_path_phase(torch, card: str, model) -> dict:
         "cross_attention_decode": L * (1 + max_new),
         "flash_self_attention": cfg.n_audio_layer,  # one per encoder layer
         "log_mel": 1,  # one call for the batch
+        "self_attn_decode": L * max_new,  # every step; the prompt pass keeps the plain route
     }
     for run in (1, 2):
         torch.cuda.synchronize()
@@ -1938,7 +2042,7 @@ def sampled_path_phase(torch, card: str, model) -> dict:
     audio = np.concatenate([np.repeat(chunks[:1], BEST_OF, axis=0), np.repeat(chunks[1:], batch - BEST_OF, axis=0)])
     mel_b = mel.log_mel_kernel(audio, n_mels=cfg.n_mels).to(torch.bfloat16)
     want = {"int8_matmul": 6 * L * (1 + max_new), "cross_attention_decode": L * (1 + max_new),
-            "flash_self_attention": cfg.n_audio_layer, "log_mel": 0}
+            "flash_self_attention": cfg.n_audio_layer, "log_mel": 0, "self_attn_decode": L * max_new}
     out = {}
     for t_i, temp in enumerate(SAMPLED_TEMPERATURES):
         o = dataclasses.replace(base, temperature=temp)
@@ -2160,7 +2264,8 @@ def loop_entry(k: dict, sampled: dict, fallback: dict) -> dict:
 
 
 # The CUDA kernels of the port by their device names, as the profiler lists them.
-STEP_KERNELS = {"int8_matmul": "int8_mm_kernel", "cross_attention_decode": "cross_attn_kernel"}
+STEP_KERNELS = {"int8_matmul": "int8_mm_kernel", "cross_attention_decode": "cross_attn_kernel",
+                "self_attn_decode": "self_attn_decode_kernel"}
 
 
 def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card: str, steps: int = 8) -> dict:
@@ -2198,11 +2303,13 @@ def profile_beam_loop(torch, engine, logits, cache, prompt_len: int, opts, card:
 
 
 def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, replays: int = 8,
-                        pause_s: float = 0.05) -> dict:
+                        pause_s: float = 0.05, warm: int = 50) -> dict:
     """One launch of the device loop ``key`` timed by CUDA events, then its
     captured step traced: the step's CUDA graph (``DeviceLoop._graph``, the
-    child of the WHILE body) replayed alone ``replays`` times from the loop's
-    start under torch.profiler, a synchronize and ``pause_s`` of sleep after
+    child of the WHILE body) replayed ``warm`` times untraced from the loop's
+    start (the self cache fills to about its mean over the 112-step
+    horizon), then alone ``replays`` times under torch.profiler, a
+    synchronize and ``pause_s`` of sleep after
     each, after one more replay in the same trace that is left out (CUPTI
     dropped a few kernel events at the start of a trace: 188 of 192
     ``int8_mm`` events in the first replay of one run). The kernels split
@@ -2217,7 +2324,9 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
     CUPTI's kernel tracing inside a conditional body kept a varying share of
     the iterations (1 and 34.7 of 112) and once ended in an illegal memory
     access on this card. Each step's events of the port's kernels must equal
-    the launches the capture recorded, which also checks the split."""
+    the launches the capture recorded, which also checks the split. Each
+    step's kernels are also grouped (:func:`step_groups`): device ms and
+    launches a step of each group."""
     from torch.profiler import ProfilerActivity, profile
 
     loop, cross, graph = engine.model.decode_loops[key]
@@ -2234,8 +2343,10 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
         torch.cuda.synchronize()
         wall_ms, steps = start.elapsed_time(end), int(loop.step)
         loop.start(logits, cache["self"])
-        graph._graph.replay()  # instantiates the step graph: outside the trace
+        for _ in range(warm):  # the first instantiates the step graph: outside the trace
+            graph._graph.replay()
         torch.cuda.synchronize()
+        first = int(loop.step)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(replays + 1):  # the first: the trace's own start, left out
                 graph._graph.replay()
@@ -2275,6 +2386,12 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
             f"({widest})"
         )
     idle = 1 - busy_ms / span_ms
+    groups = {}
+    for ks in per_step:
+        for name, members in step_groups(ks, engine.model.config.n_text_layer).items():
+            ms, n = groups.get(name, (0.0, 0))
+            groups[name] = (ms + sum(b - a for a, b, _ in members) / 1e3 / replays, n + len(members) / replays)
+    groups = dict(sorted(groups.items(), key=lambda g: -g[1][0]))
     log(
         f"device loop cross={route} [{card}]: one WHILE-graph launch, {steps} steps in {wall_ms:.2f} ms "
         f"({wall_ms / steps:.3f} ms/step, CUDA events); its captured step replayed alone {replays} times (after one "
@@ -2283,9 +2400,57 @@ def profile_device_loop(torch, engine, logits, cache, key: tuple, card: str, rep
         f"to its last ({sum(map(len, per_step)) / replays:.0f} kernels a step, {widest}, narrowest cut between replays "
         f"{cut_us:.1f} us), idle share {idle:.3f}; the port's kernel events "
         f"in every step {counts[0]} == the captured step's launches: ok; in the replay left out "
-        f"{ {name: sum(dev in k for _, _, k in left_out) for name, dev in STEP_KERNELS.items()} }"
+        f"{ {name: sum(dev in k for _, _, k in left_out) for name, dev in STEP_KERNELS.items()} }; steps {first + 1}-"
+        f"{first + replays} of the loop, by group (device ms / launches a step): "
+        + "; ".join(f"{name} {ms:.3f} / {n:g}" for name, (ms, n) in groups.items())
     )
-    return {**out, "idle_share": idle, "busy_ms_per_step": busy_ms, "span_ms_per_step": span_ms}
+    return {**out, "idle_share": idle, "busy_ms_per_step": busy_ms, "span_ms_per_step": span_ms,
+            "groups": {name: {"ms": ms, "launches": n} for name, (ms, n) in groups.items()}}
+
+
+def step_groups(step: list, n_layer: int) -> dict:
+    """{group: kernels} of one traced beam step of an int8 model with fused
+    QKV and the int8 self cache, (start, end, name) in order: by where each
+    kernel sits between the six ``int8_mm_kernel`` launches of each decoder
+    layer (q/k/v, out, cross query, cross out, fc1, fc2) and by name. The
+    self-attention lies between q/k/v and out, the cross attention between
+    the cross query and its out, GELU between fc1 and fc2, the LayerNorms,
+    their casts and the residual adds elsewhere inside the layers.
+    Before the first layer: the beam search's top-k, gathers and token
+    histories, then ``reorder_cache_`` (an index_select and a copy back
+    for each of a layer's four cache buffers, layer after layer: the run of
+    8 L kernels whose names repeat every 8), then the embedding, positions,
+    causal mask and first LayerNorm; after the last layer its LayerNorm,
+    the logits, ``log_softmax`` and the loop's condition."""
+    mm = [i for i, k in enumerate(step) if "int8_mm_kernel" in k[2]]
+    if len(mm) != 6 * n_layer:
+        raise AssertionError(f"step groups: {len(mm)} int8_mm kernels in a step, not {6 * n_layer}")
+    out = {"int8_mm": [step[i] for i in mm]}
+
+    def add(group, members):
+        out.setdefault(group, []).extend(members)
+
+    for layer in range(n_layer):
+        qkv, o, cq, co, fc1, fc2 = mm[6 * layer : 6 * layer + 6]
+        for k in step[qkv + 1 : o]:
+            add("self_attn_decode" if "self_attn_decode_kernel" in k[2] else "self-attention, plain kernels", [k])
+        for k in step[cq + 1 : co]:
+            add("cross_attn" if "cross_attn_kernel" in k[2] else "cross-attention query scale and casts", [k])
+        add("LayerNorms, casts, residual adds", step[o + 1 : cq] + step[co + 1 : fc1])
+        add("GELU and its cast", step[fc1 + 1 : fc2])
+        if layer + 1 < n_layer:
+            add("LayerNorms, casts, residual adds", step[fc2 + 1 : mm[6 * layer + 6]])
+        else:
+            add("last LayerNorm, logits, log_softmax, cond", step[fc2 + 1 :])
+    pre, run = step[: mm[0]], 8 * n_layer
+    at = next((i for i in range(len(pre) - run + 1)
+               if all(pre[i + j][2] == pre[i + j + 8][2] for j in range(run - 8))), None)
+    if at is None:
+        raise AssertionError(f"step groups: no run of {run} kernels repeating every 8 before the first layer")
+    add("beam search: top-k, gathers, token histories", pre[:at])
+    add("reorder_cache_ (index_select + copy)", pre[at : at + run])
+    add("embedding, positions, causal mask, first LayerNorm", pre[at + run :])
+    return out
 
 
 # ---- phase 5: the alignment path -------------------------------------------
@@ -2563,6 +2728,7 @@ def pipeline_phase(torch, card: str, model, align_model) -> dict:
                 "flash_self_attention": (cfg.n_audio_layer * (n_batches + n_retry)
                                          + align_model.model.config.num_layers * n_batches),
                 "log_mel": 0,
+                "self_attn_decode": L * max_new * (n_batches + n_retry),
             }
             if launches != want or loop_graphs != n_batches + n_retry or ctc_launches != n_batches:
                 raise AssertionError(
@@ -2784,7 +2950,7 @@ def cli_phase(torch, card: str, tmp: str) -> dict:
     # The default "auto" launches flash once an encoder layer: every decode batch and every align batch.
     want = {"int8_matmul": 6 * L * (1 + steps) * n_batches, "cross_attention_decode": L * (1 + steps) * n_batches,
             "flash_self_attention": cfg.n_audio_layer * n_batches + WAV2VEC2_BASE.num_layers * seen["align_batches"],
-            "log_mel": 0}
+            "log_mel": 0, "self_attn_decode": L * steps * n_batches}
     if written != sorted(f"conversation.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")) or len(written_all) != 6:
         raise AssertionError(f"cli: wrote {written}, then {written_all}")
     if seen["generate"] != n_batches or n_batches < 2:
@@ -2877,6 +3043,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     from whisperx_tpu_torch.models import convert
     from whisperx_tpu_torch.models import whisper as tw
     from whisperx_tpu_torch.ops import flash_attn, graph_loop
+    from whisperx_tpu_torch.ops.quant import PACKED_INT4
     from whisperx_tpu_torch.pipeline.asr import load_model
     from whisperx_tpu_torch.utils import telemetry
 
@@ -2917,7 +3084,7 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     denses = [m for m in model.modules() if isinstance(m, tw.Dense)]
     for m in denses:
         stored = m.kernel.numel() * m.kernel.element_size()
-        if m.kernel.dtype != tw.PACKED_INT4 or stored * 2 != m.in_features * m.features:
+        if m.kernel.dtype != PACKED_INT4 or stored * 2 != m.in_features * m.features:
             raise AssertionError(f"int4 Dense {m.in_features}x{m.features}: {stored} bytes of {m.kernel.dtype}")
     w4 = weight_bytes(model)
     log(
@@ -2943,8 +3110,10 @@ def int4_phase(torch, card: str, whisper_dir: str, w2v_dir: str, int8: dict) -> 
     arms = {"a": "int8", "b": "int4"}  # the KV cache
     flash = cfg.n_audio_layer + 2 * n_w2v  # the encoder and 2 alignment batches
     want = {
-        "a": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new), "flash_self_attention": flash, "log_mel": 0},
-        "b": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": flash, "log_mel": 0},
+        "a": {"int8_matmul": w2v_int8, "cross_attention_decode": L * (1 + max_new), "flash_self_attention": flash, "log_mel": 0,
+              "self_attn_decode": L * max_new},
+        "b": {"int8_matmul": w2v_int8, "cross_attention_decode": 0, "flash_self_attention": flash, "log_mel": 0,
+              "self_attn_decode": 0},
     }
     for w in want.values():
         w.update(flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
@@ -3268,7 +3437,7 @@ def parallel_rank(spec: dict) -> int:
     L, steps = model.config.n_text_layer, dec["steps"]
     # Unfused q/k/v: 8 projections a layer and step (prompt + every step).
     want = {"int8_matmul": 8 * L * (1 + steps), "cross_attention_decode": L * (1 + steps),
-            "flash_self_attention": model.config.n_audio_layer, "log_mel": 0}
+            "flash_self_attention": model.config.n_audio_layer, "log_mel": 0, "self_attn_decode": L * steps}
     if dec["launches"] != want or dec["loop"] != "host":
         raise AssertionError(f"rank {rank} decode: launches {dec['launches']} on the {dec['loop']} loop, expected {want} on the host loop")
     del pipe, model
@@ -3672,6 +3841,7 @@ def main() -> int:
 
     kernels = [int8_mm_phase(torch, card), cross_attn_phase(torch, card), flash_phase(torch, card), log_mel_phase(torch, card)]
     kernels += flash_bwd_phase(torch, card, kernels[2])
+    kernels.append(self_attn_decode_phase(torch, card))
     ctc_entry = ctc_phase(torch, card)
     small_reference_phase(torch)
     small_int4_phase(torch)

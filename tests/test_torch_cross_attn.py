@@ -12,8 +12,9 @@ import torch
 from whisperx_tpu.models.whisper import flat_cross_kv as j_flat_cross_kv
 from whisperx_tpu.models.whisper import quantize_kv as j_quantize_kv
 from whisperx_tpu.ops.pallas_cross_attn import cross_attention_decode as j_cross
-from whisperx_tpu_torch.models.whisper import flat_cross_kv, quantize_kv
+from whisperx_tpu_torch.models.whisper import flat_cross_kv
 from whisperx_tpu_torch.ops import cross_attn
+from whisperx_tpu_torch.ops.quant import quantize_kv
 
 torch.set_num_threads(2)
 

@@ -27,6 +27,7 @@ from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.convert import whisper_from_jax
 from whisperx_tpu_torch.ops import int8_mm
+from whisperx_tpu_torch.ops.quant import PACKED_INT4, pack_int4, unpack_int4
 
 torch.set_num_threads(2)
 
@@ -143,7 +144,7 @@ def test_int4_cache_layout(pairs, mel, cross):
         _, cache, _ = tengine._prompt_cache(states, prompt, 64, kv_bits=4, cross_impl=cross)
     H, Dh = SMALL.n_text_head, SMALL.n_text_state // SMALL.n_text_head
     layer = cache["self"][0]
-    assert layer["k"].dtype == layer["v"].dtype == tw.PACKED_INT4
+    assert layer["k"].dtype == layer["v"].dtype == PACKED_INT4
     assert layer["k"].shape == (2, 64, H, Dh // 2) and layer["k_scale"].shape == (2, 64, H, 1)
     cross_kv = cache["cross"][0]
     if cross == "pallas":
@@ -151,7 +152,7 @@ def test_int4_cache_layout(pairs, mel, cross):
         assert cross_kv.k.shape == (2, 1500, H * Dh)
     else:
         k, ks, v, vs = cross_kv
-        assert k.dtype == v.dtype == tw.PACKED_INT4 and k.shape == (2, 1500, H, Dh // 2)
+        assert k.dtype == v.dtype == PACKED_INT4 and k.shape == (2, 1500, H, Dh // 2)
         assert ks.shape == (2, 1500, H, 1)
 
 
@@ -161,15 +162,15 @@ def test_beam_reorder_on_packed_buffers():
     rng = np.random.default_rng(5)
     vals = torch.from_numpy(rng.integers(-7, 8, (6, 16, 2, 64)).astype(np.int8))
     scales = torch.from_numpy(rng.random((6, 16, 2, 1)).astype(np.float32))
-    cache = [{"k": tw.pack_int4(vals), "v": tw.pack_int4(-vals), "k_scale": scales.clone(), "v_scale": 2 * scales}]
+    cache = [{"k": pack_int4(vals), "v": pack_int4(-vals), "k_scale": scales.clone(), "v_scale": 2 * scales}]
     idx = torch.tensor([2, 2, 0, 5, 1, 1])
     buffers = dict(cache[0])
     reorder_cache_(cache, idx, {(tuple(b.shape), b.dtype): torch.empty_like(b) for b in buffers.values()})
     out = cache[0]
     assert all(out[n] is b for n, b in buffers.items())  # the same buffers, reordered in place
-    assert out["k"].dtype == tw.PACKED_INT4 and out["k"].shape == (6, 16, 2, 32)
-    assert torch.equal(tw.unpack_int4(out["k"]), vals[idx])
-    assert torch.equal(tw.unpack_int4(out["v"]), -vals[idx])
+    assert out["k"].dtype == PACKED_INT4 and out["k"].shape == (6, 16, 2, 32)
+    assert torch.equal(unpack_int4(out["k"]), vals[idx])
+    assert torch.equal(unpack_int4(out["v"]), -vals[idx])
     assert torch.equal(out["v_scale"], 2 * scales[idx])
 
 

@@ -10,8 +10,9 @@ import torch
 
 from torch_routes import force_routes
 from whisperx_tpu_torch.audio import log_mel_spectrogram
-from whisperx_tpu_torch.models.whisper import flat_cross_kv, pack_int4, unpack_int4
-from whisperx_tpu_torch.ops import cross_attn, ctc, flash_attn, int8_mm, mel
+from whisperx_tpu_torch.models.whisper import flat_cross_kv
+from whisperx_tpu_torch.ops import cross_attn, ctc, flash_attn, int8_mm, mel, self_attn_decode
+from whisperx_tpu_torch.ops.quant import pack_int4, store_kv, unpack_int4
 
 torch.set_num_threads(2)
 
@@ -154,6 +155,102 @@ def test_cross_attn_kernel_matches_plain(gen, kv_int8, B, G, S, H):
     # fp32 sums in another order; the bf16 rounding of the weights can land
     # one ulp apart.
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+def self_cache_operands(gen, kv_int8, rows, S, H):
+    """A self cache whose every slot holds an earlier token (int8 with its
+    scales, or bf16) and one fused fp32 QKV projection output (rows, 1,
+    3 W) for the new token."""
+    old_k = torch.randn((rows, S, H, 64), device="cuda", generator=gen)
+    old_v = torch.randn((rows, S, H, 64), device="cuda", generator=gen)
+    if kv_int8:
+        (k, ks), (v, vs) = store_kv(old_k, 8), store_kv(old_v, 8)
+        cache = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        cache = {"k": old_k.bfloat16(), "v": old_v.bfloat16()}
+    qkv = torch.randn((rows, 1, 3 * H * 64), device="cuda", generator=gen) * 1.5
+    return cache, qkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_int8", [True, False])
+# large-v2's and turbo's beam step (40 rows, 20 heads) over the 128-slot
+# cache of the benchmark's horizon and the 448 of n_text_ctx; a rank's 10
+# heads under a model axis of 2.
+@pytest.mark.parametrize("rows,S,H", [(40, 128, 20), (40, 448, 20), (40, 128, 10)])
+@pytest.mark.parametrize("at", [0, 1, 63, 64, -1])
+def test_self_attn_decode_kernel_matches_plain(gen, kv_int8, rows, S, H, at):
+    """The kernel stores the new k and v bit for bit as store_kv and
+    index_copy_ do on the card (int8 values and fp32 scales, or bf16), and
+    its output is the plain version's within a bf16 ulp: only the order of
+    the fp32 sums differs, and a weight or an output can round one bf16
+    ulp apart."""
+    position = at % S
+    cache, qkv = self_cache_operands(gen, kv_int8, rows, S, H)
+    plain_cache = {name: t.clone() for name, t in cache.items()}
+    W = H * 64
+    q, k, v = qkv[..., :W], qkv[..., W : 2 * W], qkv[..., 2 * W :]
+    pos = torch.tensor([position], device="cuda")
+    mask = torch.where(torch.arange(S, device="cuda")[None, :] <= pos[:, None], 0.0, -1e9)
+    before = self_attn_decode.launches
+    got = self_attn_decode.self_attention_decode(q, k, v, cache, pos, mask, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert self_attn_decode.launches == before + 1
+    want = self_attn_decode.self_attention_plain(q, k, v, plain_cache, pos, mask, torch.bfloat16)
+    for name in cache:
+        assert torch.equal(cache[name], plain_cache[name]), name
+    assert got.shape == want.shape == (rows, 1, W) and got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+def test_self_attn_decode_kernel_reads_unfused_projections(gen):
+    """q, k and v from three projections (the tensor-parallel layout): the
+    kernel takes each pointer with their common row stride."""
+    cache, qkv = self_cache_operands(gen, True, 8, 128, 4)
+    plain_cache = {name: t.clone() for name, t in cache.items()}
+    q, k, v = (t.contiguous() for t in qkv.split(256, dim=-1))
+    pos = torch.tensor([77], device="cuda")
+    mask = torch.where(torch.arange(128, device="cuda")[None, :] <= pos[:, None], 0.0, -1e9)
+    got = self_attn_decode.self_attention_decode(q, k, v, cache, pos, mask, torch.bfloat16)
+    want = self_attn_decode.self_attention_plain(q, k, v, plain_cache, pos, mask, torch.bfloat16)
+    assert all(torch.equal(cache[name], plain_cache[name]) for name in cache)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "model"])
+def test_beam_decode_on_the_self_attention_kernel_matches_the_plain_route(gen, monkeypatch, kv):
+    """A bf16 Whisper's beam decode takes the self-attention kernel by
+    default on the device loop (one launch a layer a step, none in the
+    prompt pass) and gives the tokens of the plain route, forced through
+    the tests' seam; the scores agree within the fp32 sums' order."""
+    import dataclasses
+
+    import numpy as np
+
+    from whisperx_tpu_torch.decode.engine import WhisperEngine
+    from whisperx_tpu_torch.decode.tokenizer import WhisperTokenizer
+    from whisperx_tpu_torch.models import whisper as tw
+    from whisperx_tpu_torch.models.configs import TEST_CONFIG
+    from whisperx_tpu_torch.models.convert import whisper_from_jax
+
+    cfg = dataclasses.replace(TEST_CONFIG, n_text_state=128, n_audio_state=128, n_text_head=2, n_audio_head=2)
+    params = tw.fuse_qkv_params(tw.quantize_params(tw.random_params(cfg, seed=0, scale=0.1)))
+    model = whisper_from_jax(params, cfg, dtype=torch.bfloat16, device="cuda")
+    engine = WhisperEngine(model, WhisperTokenizer.dummy(cfg.n_vocab, language="en"))
+    opts = engine.build_options(beam_size=5, max_new_tokens=24, kv_cache_dtype=kv)
+    mel = torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen)
+    got = engine.generate(mel, options=opts)
+    ((_, _, graph),) = model.decode_loops.values()
+    assert graph.body_launches["self_attn_decode"] == cfg.n_text_layer
+    assert got.loop_span.counts["self_attn_per_step"] == cfg.n_text_layer
+    force_routes(monkeypatch, self_attn="plain")
+    model.decode_loops.clear()
+    want = engine.generate(mel, options=opts)
+    assert want.loop_span.counts["self_attn_per_step"] == 0
+    assert (got.tokens == want.tokens).all()
+    np.testing.assert_allclose(got.sum_logprobs, want.sum_logprobs, atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda
@@ -571,9 +668,10 @@ def test_loop_span_counts_the_steps_projection_and_cross_kernels(gen, name, kv, 
     """At the published decoder widths and depth (one encoder layer: the
     encoder launches nothing in the loop), the ``decode.loop`` span counts
     the captured step's ``int8_matmul`` launches (6 a layer of an int8
-    model with fused QKV, none where the weights are bf16: cuBLAS) and its
-    ``cross_attention_decode`` launches (one a layer). Zero weights: only
-    the launches are read."""
+    model with fused QKV, none where the weights are bf16: cuBLAS), its
+    ``cross_attention_decode`` launches (one a layer) and its
+    ``self_attn_decode`` launches (one a layer, on the int8 and on the bf16
+    self cache). Zero weights: only the launches are read."""
     import dataclasses
 
     from whisperx_tpu_torch.decode.engine import WhisperEngine
@@ -588,6 +686,7 @@ def test_loop_span_counts_the_steps_projection_and_cross_kernels(gen, name, kv, 
     got = engine.generate(torch.randn((2, cfg.n_mels, 3000), device="cuda", generator=gen), options=opts)
     counts = got.loop_span.counts
     assert (counts["int8_mm_per_step"], counts["cross_attn_per_step"]) == (int8_per_step, cross_per_step)
+    assert counts["self_attn_per_step"] == cfg.n_text_layer  # the self-attention kernel, one a layer
     assert counts["steps"] >= 1
 
 

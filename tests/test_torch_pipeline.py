@@ -29,6 +29,7 @@ from whisperx_tpu_torch.decode import engine as tengine
 from whisperx_tpu_torch.decode.tokenizer import ByteBackend as TByteBackend
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.convert import wav2vec2_from_jax, whisper_from_jax
+from whisperx_tpu_torch.ops.quant import PACKED_INT4
 from whisperx_tpu_torch.pipeline import asr as tasr
 
 torch.set_num_threads(2)
@@ -133,7 +134,7 @@ def test_int4_weights_equal(monkeypatch, kv):
     int8 kernel on either side."""
     monkeypatch.setenv("WHISPERX_INT8_MM", "pallas")
     pair = _pair(cfg=SMALL, beam_size=2, quantized=True, bits=4, kv=kv, max_new=4)
-    assert pair[1].model.decoder.layers[0].mlp.fc1.kernel.dtype == tw.PACKED_INT4
+    assert pair[1].model.decoder.layers[0].mlp.fc1.kernel.dtype == PACKED_INT4
     got, want = _both(pair, _islands(3), batch_size=2, chunk_size=5)
     assert got == want and len(got["segments"]) == 3
     assert _distinct_texts(got) >= 2

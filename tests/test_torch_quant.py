@@ -26,6 +26,7 @@ from whisperx_tpu_torch.align import alignment as ta
 from whisperx_tpu_torch.models import wav2vec2 as tw2
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.convert import load_jax_params, wav2vec2_from_jax, whisper_from_jax, whisper_to_jax
+from whisperx_tpu_torch.ops.quant import PACKED_INT4, pack_int4, quantize_kv, store_kv, unpack_int4
 
 torch.set_num_threads(2)
 
@@ -63,21 +64,21 @@ def _assert_trees_equal(got, want, path=""):
 def test_unpack_all_256_bytes():
     """Both nibbles of every byte value sign-extend as two's complement int4."""
     p = torch.arange(256, dtype=torch.int32).to(torch.uint8)
-    got = tw.unpack_int4(p)
+    got = unpack_int4(p)
     want = [v for b in range(256) for v in (_nibble(b & 0xF), _nibble(b >> 4))]
     assert got.dtype == torch.int8
     assert got.tolist() == want
-    assert torch.equal(tw.pack_int4(got), p)  # and back, byte for byte
+    assert torch.equal(pack_int4(got), p)  # and back, byte for byte
 
 
 @pytest.mark.parametrize("dim", [0, 1, -1])
 def test_pack_round_trip_along_any_dim(dim):
     vals = torch.from_numpy(np.random.default_rng(1).integers(-8, 8, (4, 6, 8)).astype(np.int8))
-    packed = tw.pack_int4(vals, dim=dim)
+    packed = pack_int4(vals, dim=dim)
     shape = list(vals.shape)
     shape[dim] //= 2
-    assert packed.dtype == tw.PACKED_INT4 and list(packed.shape) == shape
-    assert torch.equal(tw.unpack_int4(packed, dim=dim), vals)
+    assert packed.dtype == PACKED_INT4 and list(packed.shape) == shape
+    assert torch.equal(unpack_int4(packed, dim=dim), vals)
     # Element 2i in the low nibble, 2i + 1 in the high one.
     first = vals.movedim(dim, -1)[..., 0]
     second = vals.movedim(dim, -1)[..., 1]
@@ -109,7 +110,7 @@ def test_quantize_kv_equals_jax(bits):
     x = (np.random.default_rng(4).standard_normal((2, 7, 3, 64)) * 2).astype(np.float32)
     x[0, 1, 2] = 0.0  # an all-zero head: the 1e-8 floor under the divide
     qj, sj = jw.quantize_kv(jnp.asarray(x), bits=bits)
-    qt, st = tw.quantize_kv(torch.from_numpy(x), bits=bits)
+    qt, st = quantize_kv(torch.from_numpy(x), bits=bits)
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj).astype(np.int8))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     qmax = 7 if bits == 4 else 127
@@ -117,11 +118,11 @@ def test_quantize_kv_equals_jax(bits):
     # Round trip within half a step.
     err = (qt.float() * st - torch.from_numpy(x)).abs()
     assert bool((err <= st / 2 + 1e-6).all())
-    stored, st2 = tw.store_kv(torch.from_numpy(x), bits)
+    stored, st2 = store_kv(torch.from_numpy(x), bits)
     assert torch.equal(st2, st)
     if bits == 4:
-        assert stored.dtype == tw.PACKED_INT4 and stored.shape == (2, 7, 3, 32)
-        assert torch.equal(tw.unpack_int4(stored), qt)
+        assert stored.dtype == PACKED_INT4 and stored.shape == (2, 7, 3, 32)
+        assert torch.equal(unpack_int4(stored), qt)
     else:
         assert torch.equal(stored, qt)
 
@@ -144,7 +145,7 @@ def test_int4_dense_matches_jax(rows, use_bias):
     want = np.asarray(jdense.apply({"params": jw.quantize_params(jax.tree_util.tree_map(jnp.asarray, fp), bits=4)}, jnp.asarray(x)))
     dense = tw.Dense(K, N, use_bias=use_bias, quantized=True, quant_bits=4, device="cpu")
     load_jax_params(dense, tree)
-    assert dense.kernel.dtype == tw.PACKED_INT4 and dense.kernel.shape == (K // 2, N)
+    assert dense.kernel.dtype == PACKED_INT4 and dense.kernel.shape == (K // 2, N)
     assert dense.kernel.numel() * dense.kernel.element_size() == K * N // 2
     with torch.inference_mode():
         got = dense(torch.from_numpy(x)).numpy()
@@ -182,7 +183,7 @@ def test_whisper_from_jax_reads_int4_trees(fused):
     for name in a:
         assert a[name].dtype == b[name].dtype and torch.equal(a[name], b[name]), name
     dense = from_jax.decoder.layers[0].mlp.fc1
-    assert dense.kernel.dtype == tw.PACKED_INT4 and dense.kernel.shape == (SMALL.n_text_state // 2, 4 * SMALL.n_text_state)
+    assert dense.kernel.dtype == PACKED_INT4 and dense.kernel.shape == (SMALL.n_text_state // 2, 4 * SMALL.n_text_state)
     assert from_jax.decoder.token_embedding.dtype == torch.int8
     _assert_trees_equal(whisper_to_jax(from_jax), ttree)
     # Without quant_bits an int8-valued tree reads as int8.

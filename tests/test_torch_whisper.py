@@ -16,6 +16,7 @@ from whisperx_tpu.models.whisper import fuse_qkv_params as j_fuse
 from whisperx_tpu.models.whisper import quantize_params as j_quantize
 from whisperx_tpu_torch.models import whisper as tw
 from whisperx_tpu_torch.models.convert import torch_name, whisper_from_jax
+from whisperx_tpu_torch.ops.quant import PACKED_INT4
 
 torch.set_num_threads(2)
 
@@ -109,7 +110,7 @@ def test_device_position_is_bit_equal_to_the_int(inputs, kv):
     int8 one and the packed int4 one (values and scale planes)."""
     params, mel, tokens = inputs
     model = whisper_from_jax(params, SMALL, device="cpu")
-    cache_dtype = {"fp32": None, "int8": torch.int8, "int4": tw.PACKED_INT4}[kv]
+    cache_dtype = {"fp32": None, "int8": torch.int8, "int4": PACKED_INT4}[kv]
     runs = []
     with torch.inference_mode():
         states = model.encode(torch.from_numpy(mel))

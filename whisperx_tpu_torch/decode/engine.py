@@ -19,9 +19,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.whisper import PACKED_INT4, Whisper, flat_cross_kv, store_kv
+from ..models.whisper import Whisper, flat_cross_kv
 from ..ops.cross_attn import HEAD_DIM
 from ..ops.graph_loop import DeviceLoop
+from ..ops.quant import PACKED_INT4, store_kv
 from ..parallel.mesh import axis_index, gather_rows
 from ..utils import telemetry
 from .search import BeamLoop, GreedyLoop, LoopResult, SearchOptions, beam_decode, greedy_decode

@@ -49,12 +49,13 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..diarize.embed import ResNet34Embedding
+from ..ops.quant import PACKED_INT4, pack_int4, unpack_int4
 from ..parallel.mesh import axis_index, axis_size
 from ..parallel.partition import W2V2_RULES, WHISPER_RULES, shard_leaf, shard_params
 from .configs import Wav2Vec2Config, WhisperConfig
 from .vad_net import PyanNetVAD
 from .wav2vec2 import Wav2Vec2ForCTC
-from .whisper import PACKED_INT4, Whisper, pack_int4, unpack_int4
+from .whisper import Whisper
 
 # ---------------------------------------------------------------------------
 # checkpoint file plumbing

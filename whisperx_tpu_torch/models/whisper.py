@@ -26,7 +26,11 @@ Differences in mechanism, not in value:
   with ``index_copy_`` along the time axis. ``cache_index`` may be a Python
   int or a 0-d int64 tensor on the model's device: the decode loop's
   position lives on the device, so that a step reads nothing back to the
-  host and can be captured into a CUDA graph (``decode/search.py``).
+  host and can be captured into a CUDA graph (``decode/search.py``). A
+  decode step of a bf16 model with an int8 or bf16 cache on the card stores
+  and attends in one launch a layer, reading only the filled slots
+  (``ops/self_attn_decode.py:resolve_self_attn_impl``); the JAX package
+  runs the store and both einsums over the whole cache in XLA.
 - The encoder convolutions run as ``unfold`` + ``matmul``: an fp32
   convolution on CUDA would go through cuDNN in TF32 by default.
 - int8 projections with at most 256 rows (every decoder projection in a beam
@@ -43,7 +47,7 @@ Differences in mechanism, not in value:
   fp32 logits).
 - int4 values (``Dense(quant_bits=4)`` kernels, the int4 KV cache and cross
   K/V) are stored packed two to a byte (:data:`PACKED_INT4`, see
-  :func:`pack_int4`): torch has no int4 type. They are unpacked where the JAX
+  ``ops/quant.py:pack_int4``): torch has no int4 type. They are unpacked where the JAX
   code casts its int4 arrays, and the products then run on the same values.
   int4 projections never go through ``ops/int8_mm.py``: the JAX package
   computes them with an XLA ``dot``.
@@ -73,9 +77,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import fused_self_attention, matmul_f32
+from ..ops.attention import attend, fused_self_attention, matmul_f32
 from ..ops.cross_attn import cross_attention_decode
 from ..ops.int8_mm import MAX_ROWS, int8_matmul
+from ..ops.quant import PACKED_INT4, quantize_kv, unpack_int4
+from ..ops.self_attn_decode import resolve_self_attn_impl, self_attention_decode, self_attention_plain
 from ..parallel.mesh import gather_cat, mesh_device, model_group
 from .configs import WhisperConfig
 
@@ -83,48 +89,6 @@ NEG_MASK = -1e9  # large-negative instead of -inf: keeps softmax NaN-free for
 # all-masked rows (unwritten cache slots) in bf16/fp32 alike.
 
 Cache = dict
-
-
-# Storage type of int4 values: two signed nibbles a byte. A uint8 buffer is
-# always packed int4, so a cache or a kernel says its own width.
-PACKED_INT4 = torch.uint8
-
-
-def pack_int4(q: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """int8 values in [-8, 7] → :data:`PACKED_INT4`, two to a byte along
-    ``dim`` (of even length): element 2i in the low nibble, 2i + 1 in the
-    high one."""
-    u = q.movedim(dim, -1).contiguous().view(torch.uint8)
-    p = (u[..., 0::2] & 0xF) | (u[..., 1::2] << 4)
-    return p.movedim(-1, dim).contiguous()
-
-
-def unpack_int4(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Inverse of :func:`pack_int4`: int8 values, ``dim`` twice as long.
-    Arithmetic shifts of the int8 byte sign-extend both nibbles."""
-    s = p.view(torch.int8)
-    d = dim % p.dim()
-    return torch.stack([(s << 4) >> 4, s >> 4], dim=d + 1).flatten(d, d + 1)
-
-
-def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-(token, head) symmetric int8/int4 quantization of K/V tensors.
-
-    Returns (int8 values, in [-7, 7] for ``bits=4``; fp32 scales with a
-    trailing singleton dim), as ``whisperx_tpu/models/whisper.py:quantize_kv``.
-    """
-    qmax = 7.0 if bits == 4 else 127.0
-    xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) / qmax
-    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-8)), -qmax, qmax)
-    return q.to(torch.int8), scale
-
-
-def store_kv(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`quantize_kv` with the values as a cache holds them: int8, or
-    int4 packed along Dh."""
-    q, scale = quantize_kv(x, bits)
-    return (pack_int4(q) if bits == 4 else q), scale
 
 
 class FlatCrossKV(NamedTuple):
@@ -397,65 +361,33 @@ class MultiHeadAttention(nn.Module):
             out = out.to(self.dtype).reshape(x.shape[0], Tq, self.width)
             return self.out(out), None
 
-        # int8/int4 K/V carry per-(token, head) scales that commute with both
-        # contractions, so they scale the logits and the weights instead of
-        # dequantizing the cache.
-        ks = vs = None
-        if precomputed_kv is not None:
-            q = self._split(self.query(x)) * scale
+        dt = self.dtype
+        if precomputed_kv is not None:  # cross attention on the einsum route
+            q = (self._split(self.query(x)) * scale).to(dt)
+            ks = vs = None
             if len(precomputed_kv) == 4:  # int8/int4 cross KV: (k, k_scale, v, v_scale)
                 k, ks, v, vs = precomputed_kv
             else:
                 k, v = precomputed_kv
-        else:
-            qp, kp, vp = self._project_qkv(x)
-            q = self._split(qp) * scale
-            k, v = self._split(kp), self._split(vp)
+            return self.out(attend(q, k, v, ks, vs, mask, dt)), None
 
+        qp, kp, vp = self._project_qkv(x)
+        if cache is not None:
+            # The decoder: the new tokens go into the static cache at
+            # cache_index, then attend over it; one token a row on the card
+            # takes the kernel (ops/self_attn_decode.py).
+            route = resolve_self_attn_impl(x.device, dt, cache["k"].dtype, head_dim, x.shape[1])
+            attend_cached = self_attention_decode if route == "kernel" else self_attention_plain
+            return self.out(attend_cached(qp, kp, vp, cache, cache_index, mask, dt)), cache
+
+        q = self._split(qp) * scale
+        k, v = self._split(kp), self._split(vp)
         # Encoder path: full bidirectional self-attention, no cache. q, k and
         # v are scaled in fp32 and rounded once, at the kernel's input.
-        dt = self.dtype
-        if cache is None and precomputed_kv is None and mask is None and x.shape[1] > 1:
+        if mask is None and x.shape[1] > 1:
             out = fused_self_attention(q.to(dt), (k * scale).to(dt), v.to(dt))
             return self.out(out.reshape(x.shape[0], x.shape[1], self.width)), None
-        q = q.to(dt)
-
-        new_cache = None
-        if cache is not None:
-            if cache["k"].dtype in (torch.int8, PACKED_INT4):
-                bits = 4 if cache["k"].dtype == PACKED_INT4 else 8
-                qk, kss = store_kv(k, bits)
-                qv, vss = store_kv(v, bits)
-                for name, val in (("k", qk), ("v", qv), ("k_scale", kss), ("v_scale", vss)):
-                    cache[name].index_copy_(1, cache_index, val)
-                ks, vs = cache["k_scale"], cache["v_scale"]
-            else:
-                cache["k"].index_copy_(1, cache_index, k.to(cache["k"].dtype))
-                cache["v"].index_copy_(1, cache_index, v.to(cache["v"].dtype))
-            new_cache = cache
-            k, v = cache["k"], cache["v"]
-        if k.dtype == PACKED_INT4:  # int4 cache or cross K/V: unpacked once per use
-            k, v = unpack_int4(k), unpack_int4(v)
-
-        # Beam grouping: cross K/V are shared by the beams of one batch
-        # element; fold the beams into the query-time axis.
-        group = x.shape[0] // k.shape[0]
-        Tq = x.shape[1]
-        if group > 1:
-            q = q.reshape(k.shape[0], group * Tq, self.n_head, head_dim)
-
-        logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))  # (B, H, Tq, Tk)
-        logits = logits * scale
-        if ks is not None:
-            logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
-        if mask is not None:
-            logits = logits + mask
-        weights = torch.softmax(logits, dim=-1)
-        if vs is not None:
-            weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :]
-        out = torch.matmul(weights.to(dt), v.to(dt).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
-        out = out.permute(0, 2, 1, 3).reshape(x.shape[0], Tq, self.width)
-        return self.out(out), new_cache
+        return self.out(attend(q.to(dt), k, v, None, None, mask, dt)), None
 
 
 class MLP(nn.Module):
@@ -616,7 +548,8 @@ class TextDecoder(nn.Module):
         x = x + self.positional_embedding.index_select(0, positions)
 
         # Causal mask against the static cache: the query at absolute position
-        # cache_index + t sees cache slots [0, cache_index + t].
+        # cache_index + t sees cache slots [0, cache_index + t]. The kernel's
+        # route reads only those slots and not the mask.
         cache_len = cache["self"][0]["k"].shape[1]
         k_pos = torch.arange(cache_len, device=tokens.device)[None, :]
         self_mask = torch.where(k_pos <= positions[:, None], 0.0, NEG_MASK).to(torch.float32)

@@ -14,6 +14,11 @@ carry Dh**-0.25:
 where they are in its contract, bf16 on a CUDA device with heads of
 :data:`~.flash_attn.HEAD_DIM`. Everywhere else, the CPU and fp32 models
 among them, "xla", the JAX package's default.
+
+:func:`attend` is the decoders' plain attention of a few queries over K/V
+that may be int8 or packed int4 with per-(token, head) scales: the cached
+self-attention's plain version (``ops/self_attn_decode.py``), the
+cross-attention's einsum route and the encoders' masked or one-frame calls.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional
 import torch
 
 from .flash_attn import HEAD_DIM, flash_attention
+from .quant import PACKED_INT4, unpack_int4
 
 
 def resolve_attn_impl(device, dtype: torch.dtype, head_dim: int) -> str:
@@ -79,6 +85,42 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.bmm(a3, b3, out_dtype=torch.float32)
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
+
+
+def attend(
+    q: torch.Tensor,  # (B, Tq, H, Dh) in dtype, carrying Dh**-0.25
+    k: torch.Tensor,  # (Bkv, Tk, H, Dh), or packed int4 (Bkv, Tk, H, Dh / 2)
+    v: torch.Tensor,
+    ks: Optional[torch.Tensor],  # (Bkv, Tk, H, 1) fp32 scales of int8/int4 k, else None
+    vs: Optional[torch.Tensor],
+    mask: Optional[torch.Tensor],  # additive, broadcastable to (Bkv, H, Tq, Tk)
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Attention of ``q`` over ``k``/``v`` → (B, Tq, H * Dh) in ``dtype``.
+
+    int8/int4 K/V carry per-(token, head) scales that commute with both
+    contractions, so they scale the logits and the weights instead of
+    dequantizing the cache. Beam grouping: K/V shared by the beams of one
+    batch element (B = group * Bkv) fold the beams into the query-time
+    axis."""
+    if k.dtype == PACKED_INT4:  # int4 cache or cross K/V: unpacked once per use
+        k, v = unpack_int4(k), unpack_int4(v)
+    rows, Tq, H, Dh = q.shape
+    group = rows // k.shape[0]
+    if group > 1:
+        q = q.reshape(k.shape[0], group * Tq, H, Dh)
+
+    logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))  # (B, H, Tq, Tk)
+    logits = logits * Dh**-0.25
+    if ks is not None:
+        logits = logits * ks[..., 0].transpose(1, 2)[:, :, None, :]
+    if mask is not None:
+        logits = logits + mask
+    weights = torch.softmax(logits, dim=-1)
+    if vs is not None:
+        weights = weights * vs[..., 0].transpose(1, 2)[:, :, None, :]
+    out = torch.matmul(weights.to(dtype), v.to(dtype).permute(0, 2, 1, 3))  # (B, H, Tq, Dh)
+    return out.permute(0, 2, 1, 3).reshape(rows, Tq, H * Dh)
 
 
 def _naive(

@@ -37,12 +37,13 @@ import weakref
 import torch
 
 from ..utils import telemetry
-from . import _build, cross_attn, flash_attn, int8_mm, mel
+from . import _build, cross_attn, flash_attn, int8_mm, mel, self_attn_decode
 
 MIN_CUDA = 12040  # conditional WHILE nodes: CUDA 12.4
 
 # The kernel wrappers' launch counters, by kernel name.
-COUNTERS = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel}
+COUNTERS = {"int8_matmul": int8_mm, "cross_attention_decode": cross_attn, "flash_self_attention": flash_attn, "log_mel": mel,
+            "self_attn_decode": self_attn_decode}
 
 # Loop-graph launches since the last reset_counts() (chip_smoke.py zeroes and reads it).
 launches = 0
@@ -165,14 +166,16 @@ class DeviceLoop:
         before and just after the launch (the steps it runs are the loop's
         ``step`` counter, read back with the batch's result), counting
         ``cross_attn_per_step``, the captured step's launches of
-        ``cross_attention_decode`` (0 on the einsum route), and
+        ``cross_attention_decode`` (0 on the einsum route),
         ``int8_mm_per_step``, its launches of ``int8_matmul`` (0 where the
-        step's projections have bf16 weights)."""
+        step's projections have bf16 weights), and ``self_attn_per_step``,
+        its launches of ``self_attn_decode`` (one a decoder layer where the
+        kernel's route holds, else 0)."""
         global launches
         dev = self.loop.cont.device
         body = self.body_launches
         span = telemetry.begin("decode.loop", device=dev, cross_attn_per_step=body["cross_attention_decode"],
-                               int8_mm_per_step=body["int8_matmul"])
+                               int8_mm_per_step=body["int8_matmul"], self_attn_per_step=body["self_attn_decode"])
         with torch.cuda.device(dev):
             code = self._lib.graph_loop_launch(self._exec, torch.cuda.current_stream(dev).cuda_stream)
         telemetry.end(span)
